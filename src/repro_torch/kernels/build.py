@@ -1,0 +1,115 @@
+"""Build the port's CUDA kernels with nvcc and bind them with ctypes.
+
+Every `kernels/csrc/*.cu` is compiled on first use, one nvcc process per
+source, all started together, for `sm_90a` (Hopper), then linked into one
+shared library with a plain C interface:
+
+    build/repro_torch_kernels/libkernels-<hash>.so
+
+under the repository root. The hash covers the sources and the flags, so an
+edited source rebuilds and an unchanged one loads the cached library. Only
+sources in the repository are compiled; a failed compile raises with nvcc's
+stderr. Fast-math flags are deliberately absent: an approximate division or
+reciprocal moves logits across int8 bin boundaries.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
+    "repro_torch_kernels"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v"]
+
+_lib = None
+# what the last build printed and how long it took (chip_smoke.py reports
+# registers and shared memory per kernel from -Xptxas -v)
+build_log = {"seconds": 0.0, "ptxas": "", "cached": False}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        path = Path(cand) / "bin" / "nvcc"
+        if cand and path.is_file():
+            return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                           "PATH); the CUDA kernels cannot be built")
+    return found
+
+
+def _sources() -> list[Path]:
+    srcs = sorted(CSRC.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libkernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile every source (in parallel) and link the shared library;
+    returns its path. A cached library with the same hash is reused."""
+    out = library_path()
+    if out.is_file():
+        build_log.update(seconds=0.0, cached=True)
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}-{out.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs, failed = [], []
+    for src, obj, p in procs:
+        stdout, stderr = p.communicate()
+        logs.append(stdout + stderr)
+        if p.returncode != 0:
+            failed.append(f"{src.name}:\n{stderr}")
+    if failed:
+        raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run(
+        [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+         *[str(obj) for _, obj, _ in procs]],
+        capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed\n{link.stderr}")
+    os.replace(tmp, out)
+    build_log.update(seconds=time.perf_counter() - t0, ptxas="".join(logs),
+                     cached=False)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use, with the argument
+    types of every C entry point declared."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.hccs_packed_prefill_launch.argtypes = (
+            [vp] * 12 + [i] * 9 + [f, vp])
+        lib.hccs_packed_prefill_launch.restype = i
+        lib.cuda_error_string.argtypes = [i]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib

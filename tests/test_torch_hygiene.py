@@ -1,0 +1,182 @@
+"""Import hygiene, device rules and config parity of the port.
+
+The port (src/repro_torch and chip_smoke.py) imports neither JAX nor the JAX
+package; its entry points run on the card unless asked for the CPU and
+raise without one; paths not ported yet raise instead of falling back; and
+its configs are the JAX package's, field for field.
+"""
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jax_base
+from repro.configs import registry as jax_registry
+from repro_torch.configs import base as port_base
+from repro_torch.configs import registry as port_registry
+from repro_torch.kernels.decode import hccs_packed_prefill
+from repro_torch.launch import serve as port_serve
+from repro_torch.models import model as M
+from repro_torch.serve.engine import Request
+from repro_torch.serve.paged import PagedEngine, init_paged_cache
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _imported_roots(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_no_jax(path):
+    roots = set(_imported_roots(path))
+    assert not roots & FORBIDDEN, roots & FORBIDDEN
+
+
+def test_every_port_module_imports_without_jax():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib, pkgutil, repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "print(len(mods))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 20
+
+
+def _cfg(**kw):
+    return port_registry.reduced_config("granite-3-2b").replace(
+        **{"decode_kernel": "fused", **kw})
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = _cfg()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        M.init_params(cfg)
+    params = M.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedEngine(params, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        M.params_from_jax({}, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_paged_cache(cfg, 4, 32, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_serve.main(["--arch", "granite-3-2b", "--reduced"])
+    with pytest.raises(ValueError, match="lie on"):
+        PagedEngine(params, cfg, device="meta")
+
+
+@pytest.mark.parametrize("kw,cfg_kw", [
+    (dict(packed=False), {}),
+    (dict(prefix_sharing=True), {}),
+    (dict(decode_sharing=True), {}),
+    (dict(speculative=True), {}),
+    (dict(async_loop=True), {}),
+    (dict(telemetry=object()), {}),
+    (dict(admission=object()), {}),
+    ({}, dict(kv_quant="int8")),
+    ({}, dict(decode_kernel="none")),
+    ({}, dict(hccs_mode="i8_div")),
+    ({}, dict(attention_prob="softmax")),
+], ids=["lockstep", "prefix", "decode-sharing", "speculative", "async",
+        "telemetry", "admission", "int8-kv", "kernel-off", "i8-mode",
+        "softmax"])
+def test_unported_paths_raise(kw, cfg_kw):
+    cfg = _cfg(**cfg_kw)
+    params = M.init_params(_cfg(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
+        PagedEngine(params, cfg, device="cpu", **kw)
+
+
+def test_unported_request_and_launcher_options_raise():
+    cfg = _cfg()
+    eng = PagedEngine(M.init_params(cfg, device="cpu"), cfg, device="cpu",
+                      max_len=64)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
+        eng.submit(Request(uid=0, prompt=np.arange(4, dtype=np.int32),
+                           temperature=0.7))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
+        port_serve.main(["--arch", "granite-3-2b", "--reduced", "--device",
+                         "cpu", "--decode-kernel", "none"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
+        M.init_params(port_registry.reduced_config("mamba2-1.3b"),
+                      device="cpu")
+
+
+def test_kernel_wrapper_on_cpu_counts_no_launch():
+    before = hccs_packed_prefill.launches
+    assert before == 0
+    rng = np.random.default_rng(0)
+    t = (lambda a, dt=torch.float32: torch.tensor(a, dtype=dt))
+    out = hccs_packed_prefill(
+        t(rng.normal(size=(3, 4, 8))), t(rng.normal(size=(5, 2, 8, 8))),
+        t(rng.normal(size=(5, 2, 8, 8))), t([[1, 2], [3, -1]], torch.int32),
+        t([0, 1, -1], torch.int32), t([9, 3, 0], torch.int32),
+        t([0.1] * 4), t([[159, 1, 64]] * 4, torch.int32))
+    assert out.shape == (3, 4, 8)
+    assert hccs_packed_prefill.launches == before
+    with pytest.raises(ValueError):                  # the i8 modes: no
+        hccs_packed_prefill(                         # post-hoc linearity
+            t(rng.normal(size=(3, 4, 8))), t(rng.normal(size=(5, 2, 8, 8))),
+            t(rng.normal(size=(5, 2, 8, 8))),
+            t([[1, 2], [3, -1]], torch.int32), t([0, 1, -1], torch.int32),
+            t([9, 3, 0], torch.int32), t([0.1] * 4),
+            t([[159, 1, 64]] * 4, torch.int32), mode="i8_div")
+
+
+@pytest.mark.parametrize("name", ["ModelConfig", "ShapeConfig",
+                                  "TrainConfig"])
+def test_config_dataclasses_match(name):
+    jcls, pcls = getattr(jax_base, name), getattr(port_base, name)
+    jf, pf = dataclasses.fields(jcls), dataclasses.fields(pcls)
+    assert [(f.name, f.type, f.default) for f in jf] == \
+        [(f.name, f.type, f.default) for f in pf]
+
+
+@pytest.mark.parametrize("bad", [
+    dict(decode_kernel="x"), dict(cache_layout="x"), dict(block_size=12),
+    dict(block_size=4), dict(cache_dtype="int8"), dict(kv_quant="x"),
+    dict(draft_len=0), dict(speculative=True), dict(backpressure="x"),
+    dict(queue_limit=-1), dict(preemption=True), dict(async_loop=True)])
+def test_model_config_errors_match(bad):
+    base = dict(name="t", family="dense", num_layers=2, d_model=64,
+                num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=256)
+    msgs = []
+    for cls in (jax_base.ModelConfig, port_base.ModelConfig):
+        with pytest.raises(ValueError) as e:
+            cls(**base, **bad)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
+
+
+@pytest.mark.parametrize("arch", jax_registry.ARCH_IDS)
+def test_registry_matches(arch):
+    assert port_registry.ARCH_IDS == jax_registry.ARCH_IDS
+    for fn in ("get_config", "reduced_config"):
+        j = getattr(jax_registry, fn)(arch)
+        p = getattr(port_registry, fn)(arch)
+        assert dataclasses.asdict(j) == dataclasses.asdict(p)
+        assert (j.padded_vocab, j.d_inner, j.ssm_heads, j.is_moe) == \
+            (p.padded_vocab, p.d_inner, p.ssm_heads, p.is_moe)
