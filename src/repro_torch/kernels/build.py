@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
-Every `kernels/csrc/*.cu` is compiled on first use, one nvcc process per
-source, all started together, for `sm_90a` (Hopper), then linked into one
+Every `kernels/csrc/*.cu` is compiled on first use (the sources share the
+sweep in `csrc/hccs_sweep.cuh`), one nvcc process per source, all started
+together, for `sm_90a` (Hopper), then linked into one
 shared library with a plain C interface:
 
     build/repro_torch_kernels/libkernels-<hash>.so
@@ -109,6 +110,10 @@ def load_library() -> ctypes.CDLL:
         lib.hccs_packed_prefill_launch.argtypes = (
             [vp] * 12 + [i] * 9 + [f, vp])
         lib.hccs_packed_prefill_launch.restype = i
+        lib.hccs_paged_decode_launch.argtypes = [vp] * 11 + [i] * 9 + [f, vp]
+        lib.hccs_paged_decode_launch.restype = i
+        lib.hccs_decode_launch.argtypes = [vp] * 8 + [i] * 8 + [f, vp]
+        lib.hccs_decode_launch.restype = i
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,16 +1,21 @@
-"""Token-centric packed HCCS attention over a paged KV pool.
+"""Single-query HCCS attention kernels: the port of `repro/kernels/decode.py`.
 
-`hccs_packed_prefill` is the port of the Pallas kernel of the same name
-(repro/kernels/decode.py `hccs_packed_prefill` / `_packed_kernel` +
-`_decode_tile`). Every packed engine step runs it once per layer: each of
-the T packed tokens (prefill-chunk tokens and decode lanes alike) runs one
-single-query HCCS sweep over the KV of its OWNING slot, walked through
-`block_table[slot_ids[t]]` up to the token's causal frontier `lengths[t]`.
+Three entry points run the same sweep (the JAX package's `_decode_tile`;
+on the card `csrc/hccs_sweep.cuh`) and differ in where a row's keys live:
 
-The wrapper dispatches on the tensors' device: CUDA tensors launch the
-hand-written kernel in `csrc/hccs_packed.cu` (or raise); CPU tensors run the
-plain PyTorch version `hccs_packed_prefill_ref` below, which the CPU tests
-hold against the JAX kernel and `chip_smoke.py` holds the CUDA kernel
+  hccs_packed_prefill  packed token steps: token t walks its OWNING slot's
+                       block table, block_table[slot_ids[t]], up to its
+                       causal frontier lengths[t] (csrc/hccs_packed.cu)
+  hccs_paged_decode    the lockstep paged decode step: slot b walks
+                       block_table[b] up to lengths[b] (csrc/hccs_paged.cu)
+  hccs_decode          the slot-arena decode step: slot b reads rows
+                       [0, lengths[b]) of a contiguous (B, Hkv, Tmax, d)
+                       arena (csrc/hccs_arena.cu)
+
+Each wrapper dispatches on the tensors' device: CUDA tensors launch the
+hand-written kernel (or raise) and bump the wrapper's `launches` counter;
+CPU tensors run the plain PyTorch version beside it (`*_ref`), which the CPU
+tests hold against the JAX kernel and `chip_smoke.py` holds the CUDA kernel
 against on the card. There is no fallback from one to the other.
 """
 from __future__ import annotations
@@ -25,75 +30,71 @@ from repro_torch.kernels.build import load_library
 
 NEG_BIG = -(2 ** 30)
 MODES = ("wide", "i16_div", "i16_clb")
-# pool element codes shared with csrc/hccs_packed.cu
+# pool element codes shared with csrc/hccs_sweep.cuh
 POOL_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
               torch.int8: 3}
 MODE_CODES = {"wide": 0, "i16_div": 1, "i16_clb": 2}
-# launch limits of the CUDA kernel: one warp per query head of a GQA group,
+# launch limits of the CUDA kernels: one warp per query head of a GQA group,
 # each lane owning head_dim / 32 output columns
 MAX_GROUP = 32
 MAX_HEAD_DIM = 256
 MAX_SMEM_BYTES = 232448          # H100: dynamic shared memory per block
+ARENA_TILE = 32                  # kTile of csrc/hccs_arena.cu
 
 
 def sm_denom(head_dim: int) -> float:
-    """sqrt(head_dim) as the float32 value both versions divide by."""
+    """sqrt(head_dim) as the float32 value every version divides by."""
     return float(np.sqrt(np.float32(head_dim)))
 
 
-def packed_qint(q, k_pool, block_table, slot_ids, lengths, scale,
-                k_scales=None):
-    """Stage 0 of the sweep in plain PyTorch: the quantized logits
-    q_int = clip(round_half_even(q.k / sqrt(d) / scale[h]), -128, 127) of
-    every token against its slot's gathered keys, and which keys are live.
+def smem_bytes(group: int, head_dim: int, tile: int, max_len: int) -> int:
+    """Dynamic shared memory of one kernel block: the group's queries, one
+    staged K/V tile (row stride head_dim + 1 against bank conflicts), and
+    the int8 quantized-logit row (max_len keys) of every head in the group
+    (hccs::sweep_smem_bytes)."""
+    floats = group * head_dim + tile * (head_dim + 1)
+    return floats * 4 + -(-group * max_len // 16) * 16
 
-    Returns (q_int (T, H, L) int32 with dead keys at NEG_BIG, valid (T, L)
-    bool) where L = nblk * block_size. A key is live when it lies before the
-    token's frontier, its table entry is allocated (>= 0) and the token is
-    not a pad lane (slot id -1) — exactly the keys the kernel reads."""
-    t, h, d = q.shape
-    n, hkv, bs, _ = k_pool.shape
+
+# ----------------------------------------------------------- plain versions --
+
+def _gather(pool, tbl, scales):
+    """(R, nblk) pool ids (>= 0) -> contiguous (R, Hkv, nblk * bs, d) f32,
+    int8 pools dequantized per (block, kv-head)."""
+    r, nblk = tbl.shape
+    _, hkv, bs, d = pool.shape
+    g = pool[tbl].float()                         # (R, nblk, Hkv, bs, d)
+    if scales is not None:
+        g = g * scales[tbl][..., None, None]
+    return g.permute(0, 2, 1, 3, 4).reshape(r, hkv, nblk * bs, d)
+
+
+def _qint(q, kg, valid, scale):
+    """Stage 0: q_int = clip(round_half_even(q.k / sqrt(d) / scale[h]),
+    -128, 127) of every query row against its keys kg (R, Hkv, L, d), dead
+    keys at NEG_BIG. Returns (R, H, L) int32."""
+    r, h, d = q.shape
+    hkv, length = kg.shape[1], kg.shape[2]
     g = h // hkv
-    nblk = block_table.shape[1]
-    live_tok = slot_ids >= 0
-    tbl = block_table[slot_ids.clamp(min=0).long()]           # (T, nblk)
-    lens = torch.where(live_tok, lengths, torch.zeros_like(lengths))
-    cols = torch.arange(nblk * bs, device=q.device)
-    valid = ((cols[None, :] < lens[:, None])
-             & (tbl[:, cols // bs] >= 0))                     # (T, L)
-    tb = tbl.clamp(min=0).long()
-    kg = k_pool[tb].float()                       # (T, nblk, Hkv, bs, d)
-    if k_scales is not None:
-        kg = kg * k_scales[tb][..., None, None]
-    kg = kg.permute(0, 2, 1, 3, 4).reshape(t, hkv, nblk * bs, d)
-    qg = q.float().reshape(t, hkv, g, d)
-    logits = torch.einsum("tkgd,tkld->tkgl", qg, kg)
+    qg = q.float().reshape(r, hkv, g, d)
+    logits = torch.einsum("rkgd,rkld->rkgl", qg, kg)
     # true divisions, in this order: a reciprocal multiply can move a logit
-    # across an int8 bin boundary (see csrc/hccs_packed.cu)
+    # across an int8 bin boundary (see csrc/hccs_sweep.cuh)
     logits = logits / torch.tensor(sm_denom(d), dtype=torch.float32,
                                    device=q.device)
     logits = logits / scale.float().reshape(1, hkv, g, 1)
     q_int = torch.clamp(torch.round(logits), -128, 127).to(torch.int32)
     q_int = torch.where(valid[:, None, None, :], q_int,
                         torch.full_like(q_int, NEG_BIG))
-    return q_int.reshape(t, h, nblk * bs), valid
+    return q_int.reshape(r, h, length)
 
 
-def hccs_packed_prefill_ref(q, k_pool, v_pool, block_table, slot_ids,
-                            lengths, scale, theta, *, mode: str = "wide",
-                            static_max: bool = False, k_scales=None,
-                            v_scales=None) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (the twin of the JAX oracle
-    `repro/kernels/ref.py` hccs_packed_prefill_ref, with the kernel's
-    sentinel-entry skip): gather each token's slot blocks, quantize the
-    logits, stages 1-4 in int32, PV and Z in float32, one mode-aware
-    normalization. Arguments as in `hccs_packed_prefill`."""
-    t, h, d = q.shape
-    n, hkv, bs, _ = k_pool.shape
-    g = h // hkv
-    nblk = block_table.shape[1]
-    q_int, valid = packed_qint(q, k_pool, block_table, slot_ids, lengths,
-                               scale, k_scales)
+def _sweep(q_int, valid, vg, theta, mode, static_max):
+    """Stages 1-5 of the sweep on quantized logits (R, H, L) against values
+    vg (R, Hkv, L, d): int32 scores, PV and Z in f32, one mode-aware
+    normalization. Rows with no live key return zeros."""
+    r, h, length = q_int.shape
+    hkv, d = vg.shape[1], vg.shape[3]
     B = theta[:, 0].reshape(1, h, 1)
     S = theta[:, 1].reshape(1, h, 1)
     D = theta[:, 2].reshape(1, h, 1)
@@ -104,38 +105,116 @@ def hccs_packed_prefill_ref(q, k_pool, v_pool, block_table, slot_ids,
     s = B - S * torch.minimum(m - q_int, D)
     s = torch.where(valid[:, None, :], s, torch.zeros_like(s)).float()
     z = torch.clamp(s.sum(-1, keepdim=True), min=1.0)
-    tb = block_table[slot_ids.clamp(min=0).long()].clamp(min=0).long()
-    vg = v_pool[tb].float()
-    if v_scales is not None:
-        vg = vg * v_scales[tb][..., None, None]
-    vg = vg.permute(0, 2, 1, 3, 4).reshape(t, hkv, nblk * bs, d)
-    acc = torch.einsum("tkgl,tkld->tkgd", s.reshape(t, hkv, g, -1), vg)
-    out = acc.reshape(t, h, d) * hccs_mode_inv(z, mode)
-    return out
+    acc = torch.einsum("rkgl,rkld->rkgd", s.reshape(r, hkv, h // hkv, -1), vg)
+    return acc.reshape(r, h, d) * hccs_mode_inv(z, mode)
 
 
-def _check(q, k_pool, v_pool, block_table, slot_ids, lengths, scale, theta,
-           mode, k_scales, v_scales):
-    """Raise on anything the kernel does not take. Shared by both devices,
-    so the CPU tests exercise the same contract the card enforces."""
+def _paged_rows(block_table, rows, lengths, bs):
+    """Each query row's table row (clamped to pool ids >= 0) and its live
+    keys: before the row's frontier, in an allocated (>= 0) entry."""
+    tbl = block_table[rows.long()]                            # (R, nblk)
+    cols = torch.arange(tbl.shape[1] * bs, device=tbl.device)
+    valid = ((cols[None, :] < lengths[:, None])
+             & (tbl[:, cols // bs] >= 0))
+    return tbl.clamp(min=0).long(), valid
+
+
+def packed_qint(q, k_pool, block_table, slot_ids, lengths, scale,
+                k_scales=None):
+    """The quantized logits (T, H, nblk * block_size) int32 of every packed
+    token against its slot's gathered keys (dead keys at NEG_BIG), and which
+    keys are live (T, L) bool — exactly the keys the kernel reads. A pad
+    lane (slot id -1) has none."""
+    lens = torch.where(slot_ids >= 0, lengths, torch.zeros_like(lengths))
+    tbl, valid = _paged_rows(block_table, slot_ids.clamp(min=0), lens,
+                             k_pool.shape[2])
+    return _qint(q, _gather(k_pool, tbl, k_scales), valid, scale), valid
+
+
+def hccs_packed_prefill_ref(q, k_pool, v_pool, block_table, slot_ids,
+                            lengths, scale, theta, *, mode: str = "wide",
+                            static_max: bool = False, k_scales=None,
+                            v_scales=None) -> torch.Tensor:
+    """Plain PyTorch version of the packed kernel (the twin of the JAX
+    oracle `repro/kernels/ref.py` hccs_packed_prefill_ref, with the
+    kernel's sentinel-entry skip). Arguments as in `hccs_packed_prefill`."""
+    q_int, valid = packed_qint(q, k_pool, block_table, slot_ids, lengths,
+                               scale, k_scales)
+    tbl = block_table[slot_ids.clamp(min=0).long()].clamp(min=0).long()
+    return _sweep(q_int, valid, _gather(v_pool, tbl, v_scales), theta, mode,
+                  static_max)
+
+
+def paged_qint(q, k_pool, block_table, lengths, scale, k_scales=None):
+    """The quantized logits (B, H, nblk * block_size) int32 of every slot's
+    query against its block table's keys, and the live keys (B, L)."""
+    rows = torch.arange(q.shape[0], device=q.device)
+    tbl, valid = _paged_rows(block_table, rows, lengths, k_pool.shape[2])
+    return _qint(q, _gather(k_pool, tbl, k_scales), valid, scale), valid
+
+
+def hccs_paged_decode_ref(q, k_pool, v_pool, block_table, lengths, scale,
+                          theta, *, mode: str = "wide",
+                          static_max: bool = False, k_scales=None,
+                          v_scales=None) -> torch.Tensor:
+    """Plain PyTorch version of the paged decode kernel (the twin of
+    `repro/kernels/ref.py` hccs_paged_decode_ref, with the kernel's
+    sentinel-entry skip). Arguments as in `hccs_paged_decode`."""
+    q_int, valid = paged_qint(q, k_pool, block_table, lengths, scale,
+                              k_scales)
+    tbl = block_table.clamp(min=0).long()
+    return _sweep(q_int, valid, _gather(v_pool, tbl, v_scales), theta, mode,
+                  static_max)
+
+
+def decode_qint(q, k, lengths, scale):
+    """The quantized logits (B, H, Tmax) int32 of every slot's query against
+    its arena rows, and the live keys (B, Tmax): rows before lengths[b]."""
+    cols = torch.arange(k.shape[2], device=q.device)
+    valid = cols[None, :] < lengths[:, None]
+    return _qint(q, k.float(), valid, scale), valid
+
+
+def hccs_decode_ref(q, k, v, lengths, scale, theta, *, mode: str = "wide",
+                    static_max: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the arena decode kernel (the twin of
+    `repro/kernels/ref.py` hccs_decode_ref). Arguments as in
+    `hccs_decode`."""
+    q_int, valid = decode_qint(q, k, lengths, scale)
+    return _sweep(q_int, valid, v.float(), theta, mode, static_max)
+
+
+# ------------------------------------------------------------------ checks --
+
+def _check_index(name, a, shape):
+    if a.dtype != torch.int32 or tuple(a.shape) != tuple(shape):
+        raise ValueError(f"{name} must be int32 {tuple(shape)}, got "
+                         f"{a.dtype} {tuple(a.shape)}")
+
+
+def _check(q, k, v, scale, theta, mode, k_scales, v_scales, *, pool: bool):
+    """Raise on anything the kernels do not take, shared by both devices so
+    the CPU tests exercise the contract the card enforces. k/v are pools
+    (N, Hkv, bs, d) when `pool`, else an arena (B, Hkv, Tmax, d)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES} (the i8 modes are not "
                          f"post-hoc linear), got {mode!r}")
-    if q.dim() != 3 or k_pool.dim() != 4:
-        raise ValueError(f"q must be (T, H, d) and pools (N, Hkv, bs, d); "
-                         f"got {tuple(q.shape)} and {tuple(k_pool.shape)}")
-    t, h, d = q.shape
-    n, hkv, bs, dk = k_pool.shape
-    if v_pool.shape != k_pool.shape or dk != d or h % hkv:
-        raise ValueError(f"inconsistent shapes q {tuple(q.shape)}, k_pool "
-                         f"{tuple(k_pool.shape)}, v_pool "
-                         f"{tuple(v_pool.shape)}")
+    if q.dim() != 3 or k.dim() != 4:
+        raise ValueError(f"q must be (rows, H, d) and K/V 4-d; got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    r, h, d = q.shape
+    n, hkv, _, dk = k.shape
+    if v.shape != k.shape or dk != d or h % hkv or (not pool and n != r):
+        raise ValueError(f"inconsistent shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if q.dtype != torch.float32:
         raise TypeError(f"q must be float32, got {q.dtype}")
-    if k_pool.dtype not in POOL_TYPES or v_pool.dtype != k_pool.dtype:
-        raise TypeError(f"pools must share one of {list(POOL_TYPES)}, got "
-                        f"{k_pool.dtype}/{v_pool.dtype}")
-    quant = k_pool.dtype == torch.int8
+    dtypes = list(POOL_TYPES) if pool else [torch.float32, torch.bfloat16,
+                                            torch.float16]
+    if k.dtype not in dtypes or v.dtype != k.dtype:
+        raise TypeError(f"K/V must share one of {dtypes}, got "
+                        f"{k.dtype}/{v.dtype}")
+    quant = k.dtype == torch.int8
     if quant != (k_scales is not None) or quant != (v_scales is not None):
         raise ValueError("int8 pools need k_scales and v_scales; other pool "
                          "dtypes take none")
@@ -144,33 +223,75 @@ def _check(q, k_pool, v_pool, block_table, slot_ids, lengths, scale, theta,
             if sc.shape != (n, hkv) or sc.dtype != torch.float32:
                 raise ValueError(f"scales must be float32 {(n, hkv)}, got "
                                  f"{sc.dtype} {tuple(sc.shape)}")
-    for name, a, shape in (("slot_ids", slot_ids, (t,)),
-                           ("lengths", lengths, (t,)),
-                           ("theta", theta, (h, 3))):
-        if a.dtype != torch.int32 or tuple(a.shape) != shape:
-            raise ValueError(f"{name} must be int32 {shape}, got {a.dtype} "
-                             f"{tuple(a.shape)}")
-    if block_table.dtype != torch.int32 or block_table.dim() != 2:
-        raise ValueError(f"block_table must be int32 (B, nblk), got "
-                         f"{block_table.dtype} {tuple(block_table.shape)}")
+    _check_index("theta", theta, (h, 3))
     if scale.dtype != torch.float32 or tuple(scale.shape) != (h,):
         raise ValueError(f"scale must be float32 ({h},), got {scale.dtype} "
                          f"{tuple(scale.shape)}")
-    args = [q, k_pool, v_pool, block_table, slot_ids, lengths, scale, theta]
-    if quant:
-        args += [k_scales, v_scales]
-    if len({a.device for a in args}) != 1:
+
+
+def _check_table(block_table, rows=None):
+    """An int32 (B, nblk) table; B == rows where each query row is a
+    slot."""
+    if (block_table.dtype != torch.int32 or block_table.dim() != 2
+            or rows not in (None, block_table.shape[0])):
+        raise ValueError(f"block_table must be int32 ({rows or 'B'}, nblk), "
+                         f"got {block_table.dtype} "
+                         f"{tuple(block_table.shape)}")
+
+
+def _launch(fn, entry: str, args, q, k, *, qint_out, qint_len, tile,
+            **ctx) -> torch.Tensor:
+    """Launch one of the CUDA kernels on `q`'s device and stream: the shared
+    launch limits, contiguity and qint_out checks, the output allocation,
+    the error check and the launch count. `ctx` are the entry point's
+    trailing int arguments, in order, before pool type, mode, static_max."""
+    r, h, d = q.shape
+    g = h // k.shape[1]
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    if g > MAX_GROUP or d > MAX_HEAD_DIM:
+        raise ValueError(f"kernel takes GQA groups <= {MAX_GROUP} and "
+                         f"head_dim <= {MAX_HEAD_DIM}, got {g} and {d}")
+    smem = smem_bytes(g, d, tile, qint_len)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"kernel needs {smem} B of shared memory, over the "
+                         f"{MAX_SMEM_BYTES} B a block can have")
+    if len({a.device for a in args if a is not None}) != 1:
         raise ValueError("all operands must lie on one device")
+    for a in args:
+        if a is not None and not a.is_contiguous():
+            raise ValueError("every operand must be contiguous")
+    if qint_out is not None and (
+            qint_out.dtype != torch.int8 or not qint_out.is_contiguous()
+            or tuple(qint_out.shape) != (r, h, qint_len)
+            or qint_out.device != q.device):
+        raise ValueError(f"qint_out must be a contiguous int8 "
+                         f"{(r, h, qint_len)} tensor on {q.device}")
+    out = torch.empty((r, h, d), dtype=torch.float32, device=q.device)
+    if r == 0:
+        return out
+    lib = load_library()
+    ptr = (lambda a: ctypes.c_void_p(a.data_ptr() if a is not None else 0))
+    mode, static_max = ctx.pop("mode"), ctx.pop("static_max")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, entry)(
+            *[ptr(a) for a in args], ptr(out), ptr(qint_out),
+            *ctx.values(), POOL_TYPES[k.dtype], MODE_CODES[mode],
+            int(static_max), sm_denom(d), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err} "
+                           f"({lib.cuda_error_string(err).decode()})")
+    fn.launches += 1
+    return out
 
 
-def smem_bytes(group: int, head_dim: int, block_size: int,
-               nblk: int) -> int:
-    """Dynamic shared memory of one kernel block: the group's queries, one
-    staged K/V tile (row stride head_dim + 1 against bank conflicts), and
-    the int8 quantized-logit row of every head in the group."""
-    floats = group * head_dim + block_size * (head_dim + 1)
-    return floats * 4 + -(-group * nblk * block_size // 16) * 16
+def _cpu_only_hook(qint_out):
+    if qint_out is not None:
+        raise ValueError("qint_out is a hook of the CUDA kernel")
 
+
+# ---------------------------------------------------------------- wrappers --
 
 def hccs_packed_prefill(q, k_pool, v_pool, block_table, slot_ids, lengths,
                         scale, theta, *, mode: str = "wide",
@@ -191,59 +312,91 @@ def hccs_packed_prefill(q, k_pool, v_pool, block_table, slot_ids, lengths,
     CPU tensors run `hccs_packed_prefill_ref`. qint_out, for on-card
     testing only, is an int8 (T, H, nblk * block_size) CUDA tensor that
     receives the kernel's quantized logits at the live keys."""
-    _check(q, k_pool, v_pool, block_table, slot_ids, lengths, scale, theta,
-           mode, k_scales, v_scales)
+    _check(q, k_pool, v_pool, scale, theta, mode, k_scales, v_scales,
+           pool=True)
+    _check_table(block_table)
+    _check_index("slot_ids", slot_ids, (q.shape[0],))
+    _check_index("lengths", lengths, (q.shape[0],))
+    kw = dict(mode=mode, static_max=static_max)
     if q.device.type == "cpu":
-        if qint_out is not None:
-            raise ValueError("qint_out is a hook of the CUDA kernel")
+        _cpu_only_hook(qint_out)
         return hccs_packed_prefill_ref(
             q, k_pool, v_pool, block_table, slot_ids, lengths, scale, theta,
-            mode=mode, static_max=static_max, k_scales=k_scales,
-            v_scales=v_scales)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
-    t, h, d = q.shape
-    n, hkv, bs, _ = k_pool.shape
-    g = h // hkv
+            k_scales=k_scales, v_scales=v_scales, **kw)
+    _, hkv, bs, d = k_pool.shape
     nblk = block_table.shape[1]
-    if g > MAX_GROUP or d > MAX_HEAD_DIM:
-        raise ValueError(f"kernel takes GQA groups <= {MAX_GROUP} and "
-                         f"head_dim <= {MAX_HEAD_DIM}, got {g} and {d}")
-    smem = smem_bytes(g, d, bs, nblk)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"kernel needs {smem} B of shared memory, over the "
-                         f"{MAX_SMEM_BYTES} B a block can have")
-    args = [q, k_pool, v_pool, block_table, slot_ids, lengths, scale, theta]
-    if k_scales is not None:
-        args += [k_scales, v_scales]
-    for a in args:
-        if not a.is_contiguous():
-            raise ValueError("every operand must be contiguous")
-    if qint_out is not None and (
-            qint_out.dtype != torch.int8 or not qint_out.is_contiguous()
-            or tuple(qint_out.shape) != (t, h, nblk * bs)
-            or qint_out.device != q.device):
-        raise ValueError(f"qint_out must be a contiguous int8 "
-                         f"{(t, h, nblk * bs)} tensor on {q.device}")
-    out = torch.empty((t, h, d), dtype=torch.float32, device=q.device)
-    if t == 0:
-        return out
-    lib = load_library()
-    ptr = (lambda a: ctypes.c_void_p(a.data_ptr() if a is not None else 0))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.hccs_packed_prefill_launch(
-            ptr(q), ptr(k_pool), ptr(v_pool), ptr(k_scales), ptr(v_scales),
-            ptr(block_table), ptr(slot_ids), ptr(lengths), ptr(scale),
-            ptr(theta), ptr(out), ptr(qint_out), t, hkv, g, bs, nblk, d,
-            POOL_TYPES[k_pool.dtype], MODE_CODES[mode], int(static_max),
-            sm_denom(d), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"hccs_packed_prefill launch failed: CUDA error "
-                           f"{err} ({lib.cuda_error_string(err).decode()})")
-    hccs_packed_prefill.launches += 1
-    return out
+    return _launch(
+        hccs_packed_prefill, "hccs_packed_prefill_launch",
+        [q, k_pool, v_pool, k_scales, v_scales, block_table, slot_ids,
+         lengths, scale, theta], q, k_pool, qint_out=qint_out,
+        qint_len=nblk * bs, tile=bs, T=q.shape[0], num_kv=hkv,
+        group=q.shape[1] // hkv, block_size=bs, nblk=nblk, d=d, **kw)
 
 
-# launches of the CUDA kernel in this process (CPU calls never count)
+def hccs_paged_decode(q, k_pool, v_pool, block_table, lengths, scale, theta,
+                      *, mode: str = "wide", static_max: bool = False,
+                      k_scales=None, v_scales=None,
+                      qint_out=None) -> torch.Tensor:
+    """Single-query HCCS attention against a paged pool: one query per slot.
+
+    q: (B, H, d) float32; k_pool/v_pool: (N, Hkv, block_size, d) float32/
+    bfloat16/float16, or int8 with k_scales/v_scales (N, Hkv) float32;
+    block_table: (B, nblk) int32 pool ids, -1 = unallocated (skipped without
+    a read); lengths: (B,) int32 valid-KV counts including the current
+    token; scale: (H,) float32; theta: (H, 3) int32. Returns (B, H, d)
+    float32; rows with length 0 return zeros.
+
+    CUDA tensors launch the kernel (and bump `hccs_paged_decode.launches`);
+    CPU tensors run `hccs_paged_decode_ref`. qint_out, for on-card testing
+    only, is an int8 (B, H, nblk * block_size) CUDA tensor."""
+    _check(q, k_pool, v_pool, scale, theta, mode, k_scales, v_scales,
+           pool=True)
+    _check_table(block_table, rows=q.shape[0])
+    _check_index("lengths", lengths, (q.shape[0],))
+    kw = dict(mode=mode, static_max=static_max)
+    if q.device.type == "cpu":
+        _cpu_only_hook(qint_out)
+        return hccs_paged_decode_ref(
+            q, k_pool, v_pool, block_table, lengths, scale, theta,
+            k_scales=k_scales, v_scales=v_scales, **kw)
+    _, hkv, bs, d = k_pool.shape
+    nblk = block_table.shape[1]
+    return _launch(
+        hccs_paged_decode, "hccs_paged_decode_launch",
+        [q, k_pool, v_pool, k_scales, v_scales, block_table, lengths, scale,
+         theta], q, k_pool, qint_out=qint_out, qint_len=nblk * bs, tile=bs,
+        B=q.shape[0], num_kv=hkv, group=q.shape[1] // hkv, block_size=bs,
+        nblk=nblk, d=d, **kw)
+
+
+def hccs_decode(q, k, v, lengths, scale, theta, *, mode: str = "wide",
+                static_max: bool = False, qint_out=None) -> torch.Tensor:
+    """Single-query HCCS attention against a slot-arena KV cache.
+
+    q: (B, H, d) float32 one query per slot; k, v: (B, Hkv, Tmax, d)
+    float32/bfloat16/float16 arenas (any Tmax); lengths: (B,) int32 valid-KV
+    counts (the slot frontier, including the current token's K/V already
+    written at lengths - 1); scale: (H,) float32; theta: (H, 3) int32.
+    Returns (B, H, d) float32; rows with length 0 return zeros.
+
+    CUDA tensors launch the kernel (and bump `hccs_decode.launches`); CPU
+    tensors run `hccs_decode_ref`. qint_out, for on-card testing only, is an
+    int8 (B, H, Tmax) CUDA tensor."""
+    _check(q, k, v, scale, theta, mode, None, None, pool=False)
+    _check_index("lengths", lengths, (q.shape[0],))
+    kw = dict(mode=mode, static_max=static_max)
+    if q.device.type == "cpu":
+        _cpu_only_hook(qint_out)
+        return hccs_decode_ref(q, k, v, lengths, scale, theta, **kw)
+    _, hkv, tmax, d = k.shape
+    return _launch(
+        hccs_decode, "hccs_decode_launch",
+        [q, k, v, lengths, scale, theta], q, k, qint_out=qint_out,
+        qint_len=tmax, tile=ARENA_TILE, B=q.shape[0], num_kv=hkv,
+        group=q.shape[1] // hkv, tmax=tmax, d=d, **kw)
+
+
+# launches of each CUDA kernel in this process (CPU calls never count)
 hccs_packed_prefill.launches = 0
+hccs_paged_decode.launches = 0
+hccs_decode.launches = 0

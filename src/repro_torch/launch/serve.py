@@ -1,16 +1,19 @@
-"""Serving launcher of the port: greedy requests through the packed paged
-engine, on the card by default.
+"""Serving launcher of the port: greedy requests through one of the three
+engines, on the card by default.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
         --requests 8 --prompt-len 256 --new-tokens 32
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
-        --reduced --device cpu                  # the CPU, plain kernels
+        --reduced --device cpu --scheduler continuous   # the CPU
 
-Only the JAX launcher's `--scheduler paged` path is ported (so there is no
-`--scheduler` flag). Attention runs the fused `hccs_packed_prefill` kernel
-(`--decode-kernel fused` or `static_max`); `none` selects the STE attention
-path, which is not ported yet (ROADMAP.md item A4).
+`--scheduler` and `--step-layout` are the JAX launcher's flags:
+`paged` (the port's default) is the paged engine, in its packed step layout
+unless `--step-layout lockstep`; `continuous` and `wave` are the slot-arena
+engines. `--decode-kernel fused|static_max` runs attention through the
+CUDA kernels (the port's default); `none` runs the STE attention path, which
+every layout except packed supports (the packed step without the kernel is
+ROADMAP.md item A4).
 """
 from __future__ import annotations
 
@@ -26,6 +29,13 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--scheduler", default="paged",
+                    choices=["wave", "continuous", "paged"])
+    ap.add_argument("--step-layout", default=None,
+                    choices=["packed", "lockstep"],
+                    help="paged step layout (default packed): 'packed' "
+                         "flattens each step to a ragged token batch; "
+                         "'lockstep' keeps the (B, block_size)/(B, 1) shapes")
     ap.add_argument("--decode-kernel", default="fused",
                     choices=["none", "fused", "static_max"])
     ap.add_argument("--block-size", type=int, default=0,
@@ -36,26 +46,41 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the model runs (cpu: plain PyTorch kernels)")
     args = ap.parse_args(argv)
-    if args.decode_kernel == "none":
+    if args.scheduler != "paged" and (args.step_layout is not None
+                                      or args.block_size or args.num_blocks):
+        raise SystemExit("--step-layout/--block-size/--num-blocks configure "
+                         "the paged engine; use --scheduler paged")
+    packed = args.scheduler == "paged" and args.step_layout != "lockstep"
+    if packed and args.decode_kernel == "none":
         raise NotImplementedError(
-            "--decode-kernel none runs the STE attention path, not ported "
-            "yet: ROADMAP.md item A4")
+            "--decode-kernel none with packed steps runs the per-slot STE "
+            "grid, not ported yet: ROADMAP.md item A4 (use --step-layout "
+            "lockstep or another scheduler)")
 
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.models import model as M
-    from repro_torch.serve import PagedEngine, Request
+    from repro_torch.serve import (ContinuousEngine, PagedEngine, Request,
+                                   ServeEngine)
 
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
-    cfg = cfg.replace(decode_kernel=args.decode_kernel, cache_layout="paged")
+    cfg = cfg.replace(decode_kernel=args.decode_kernel)
     params = M.init_params(cfg, seed=0, device=args.device)
-    eng = PagedEngine(params, cfg, max_batch=args.max_batch,
-                      max_len=args.prompt_len + args.new_tokens + 1,
-                      block_size=args.block_size or None,
-                      num_blocks=args.num_blocks or None,
-                      device=args.device)
+    max_len = args.prompt_len + args.new_tokens + 1
+    if args.scheduler == "paged":
+        cfg = cfg.replace(cache_layout="paged")
+        eng = PagedEngine(params, cfg, max_batch=args.max_batch,
+                          max_len=max_len, packed=packed,
+                          block_size=args.block_size or None,
+                          num_blocks=args.num_blocks or None,
+                          device=args.device)
+    else:
+        engine_cls = (ContinuousEngine if args.scheduler == "continuous"
+                      else ServeEngine)
+        eng = engine_cls(params, cfg, max_batch=args.max_batch,
+                         max_len=max_len, device=args.device)
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         eng.submit(Request(uid=i, prompt=rng.integers(
@@ -67,13 +92,18 @@ def main(argv=None):
         torch.cuda.synchronize(eng.device)
     dt = time.perf_counter() - t0
     total_new = sum(len(r.out_tokens) for r in done)
+    layout = (("packed" if packed else "lockstep")
+              if args.scheduler == "paged" else args.scheduler)
+    steps = (eng.decode_steps if args.scheduler == "wave"
+             else eng.occupancy_steps)
     print(f"served {len(done)} requests, {total_new} tokens in {dt:.2f}s "
-          f"({total_new / dt:.1f} tok/s) on {eng.device} in "
-          f"{eng.occupancy_steps} packed steps")
-    pad = eng.padding_stats()
-    print(f"step padding: {pad['lanes_valid']}/{pad['lanes_total']} "
-          f"token-lanes valid ({100 * pad['efficiency']:.0f}%), "
-          f"{pad['pad_lanes_skipped']} lanes skipped by packing")
+          f"({total_new / dt:.1f} tok/s) on {eng.device}: {layout}, "
+          f"{steps} {'decode ' if args.scheduler != 'paged' else ''}steps")
+    if args.scheduler == "paged":
+        pad = eng.padding_stats()
+        print(f"step padding: {pad['lanes_valid']}/{pad['lanes_total']} "
+              f"token-lanes valid ({100 * pad['efficiency']:.0f}%), "
+              f"{pad['pad_lanes_skipped']} lanes skipped by packing")
     return done
 
 

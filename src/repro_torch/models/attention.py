@@ -1,21 +1,39 @@
-"""GQA attention with HCCS — the port of `repro/models/attention.py`, as far
-as the packed paged serving step reaches.
+"""GQA attention with HCCS — the port of `repro/models/attention.py`.
 
-Ported: the parameter init, the kernel-eligibility gate, the paged KV
-scatter, the projections + RoPE, and the packed token branch with the fused
-kernel (`kernels/decode.py` hccs_packed_prefill). Every other path of the
-JAX module raises NotImplementedError naming the ROADMAP.md item that ports
-it: self-attention without a cache, the slot arena and hot buffers, the
-lockstep paged branch (item B2), the per-slot XLA grid and the STE
-dense/blockwise attention (items A3/A4), and int8 KV (item A4).
+Ported: the parameter init, the kernel-eligibility gate, the cache storage
+geometry, the KV writes (paged scatter and slot-arena scatter, both in
+place: the JAX package donates its buffers to XLA for the same effect), the
+projections + RoPE, the dense and blockwise two-pass attention (HCCS in its
+STE form, and the softmax baseline), and every cache branch serving runs:
+
+  packed paged step   the fused `hccs_packed_prefill` kernel
+  lockstep paged step blockwise/dense STE over the gathered pool;
+                      `hccs_paged_decode` at t == 1 with the kernel on
+  slot arena          wave (scalar length) and continuous ((B,) length)
+                      caches; `hccs_decode` at t == 1 with the kernel on
+
+Not ported yet, and refused (NotImplementedError naming the ROADMAP.md
+item): hot buffers and the segment merge (A3), int8 paged KV (A4), the
+packed step without the kernel (the per-slot STE grid, A4), M-RoPE (A3) and
+`capture_attention_logits` (A9).
+
+One departure from the JAX package: the dense path returns the query's
+dtype, as its blockwise path and the kernels do. The JAX dense path returns
+the cache's dtype, so with bf16 weights and an f32 cache its engines fail
+to trace (the layer scan's carry changes dtype); see ROADMAP.md section C.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.constraints import default_params
-from repro_torch.kernels.decode import hccs_packed_prefill
+from repro_torch.core.hccs import (HCCSParams, hccs_mode_inv, hccs_qat,
+                                   true_div)
+from repro_torch.kernels.decode import (hccs_decode, hccs_packed_prefill,
+                                        hccs_paged_decode)
 from repro_torch.models.layers import apply_rope
+
+NEG_INF = -1e30
 
 
 def _normal(gen, shape, dtype, device, std):
@@ -48,8 +66,12 @@ def init_hccs_head_params(cfg, device, n_ref: int = 128) -> dict:
             "D": full(D, torch.int32), "scale": full(0.1, torch.float32)}
 
 
+def _ste(v_hard, v_soft):
+    return v_soft + (v_hard - v_soft).detach()
+
+
 def decode_kernel_blockers(cfg) -> list:
-    """Static config conditions that keep the fused kernel from
+    """Static config conditions that keep the fused kernels from
     dispatching, as human-readable strings (empty = eligible)."""
     blockers = []
     if cfg.attention_prob != "hccs":
@@ -65,13 +87,60 @@ def decode_kernel_blockers(cfg) -> list:
 
 
 def kernel_path_blockers(cfg) -> list:
-    """Why the port cannot serve `cfg` yet: the fused-kernel gate plus the
-    kernel being switched off. The STE attention that serves those configs
-    in the JAX package is ROADMAP.md items A3/A4."""
+    """Why the fused kernels will not serve `cfg`: the static gate plus the
+    kernel being switched off (empty = they will)."""
     blockers = decode_kernel_blockers(cfg)
     if cfg.decode_kernel == "none":
         blockers.append("decode_kernel='none'")
     return blockers
+
+
+def kernel_on(cfg, hccs) -> bool:
+    """Whether the fused kernels serve this config's attention."""
+    return not kernel_path_blockers(cfg) and hccs is not None
+
+
+def kv_store_geometry(cfg, max_len: int) -> tuple[int, int]:
+    """Storage shape (head_dim, seq) of slot-arena K/V buffers.
+
+    With the fused kernel on, the JAX package pads head_dim to the TPU's
+    128-lane tile and rounds seq up to a multiple of 128. The port keeps the
+    true head_dim (the CUDA kernel needs no lane padding) but rounds seq the
+    same way: the arena's length picks dense or blockwise attention and
+    sets the blockwise tile split, and the two paths round differently."""
+    if cfg.decode_kernel == "none" or decode_kernel_blockers(cfg):
+        return cfg.head_dim, max_len
+    return cfg.head_dim, -(-max_len // 128) * 128
+
+
+def _einsum(eq, a, b):
+    """einsum under JAX's type promotion (bf16 x f32 runs in f32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def _project_out(out, p, b, t):
+    """Merge heads -> output projection. out: (B, H, T, hd) or
+    (B, T, H*hd)."""
+    if out.dim() == 4:
+        out = out.transpose(1, 2).reshape(b, t, -1)
+    wo = p["wo"]
+    dt = torch.promote_types(out.dtype, wo.dtype)
+    return out.to(dt) @ wo.to(dt)
+
+
+def _slot_scatter(cache_kv, new_kv, lengths):
+    """Per-slot KV write, IN PLACE: slot b's (Hkv, t, hd) update lands at
+    its own frontier lengths[b] (a scalar length writes every slot at the
+    same offset). The start is clamped so the update fits, as JAX's
+    dynamic_update_slice clamps it."""
+    b, _, tmax, _ = cache_kv.shape
+    t = new_kv.shape[2]
+    start = torch.clamp(lengths.to(torch.int64).expand(b), 0, tmax - t)
+    pos = start[:, None] + torch.arange(t, device=cache_kv.device)
+    rows = torch.arange(b, device=cache_kv.device)[:, None]
+    cache_kv[rows, :, pos] = new_kv.transpose(1, 2).to(cache_kv.dtype)
+    return cache_kv
 
 
 def _paged_scatter(pool, new_kv, write_pos):
@@ -89,6 +158,137 @@ def _paged_scatter(pool, new_kv, write_pos):
     return pool
 
 
+def _paged_gather(pool, block_table):
+    """Contiguous (B, Hkv, nblk * block_size, hd) view of each slot's blocks
+    (float pools), the STE path over a paged cache. Sentinel (-1) entries
+    gather the trash block; they only occur at or past the slot's frontier,
+    so the kv_len mask hides them."""
+    b, nblk = block_table.shape
+    n, hkv, bs, hd = pool.shape
+    g = pool[block_table.clamp(min=0).long()]      # (B, nblk, Hkv, bs, hd)
+    return g.permute(0, 2, 1, 3, 4).reshape(b, hkv, nblk * bs, hd)
+
+
+def _block_valid(cfg, q_pos, k_pos, k_len=None):
+    """Validity mask (B, 1, Tq, Tk_blk) from positions. q_pos: (B, Tq);
+    k_pos: (Tk_blk,) global key positions; k_len: (B,) or None."""
+    qp = q_pos[:, None, :, None]
+    kp = k_pos[None, None, None, :]
+    valid = torch.ones(qp.shape[:3] + (k_pos.shape[0],), dtype=torch.bool,
+                       device=q_pos.device)
+    if cfg.causal:
+        valid = valid & (kp <= qp)
+    if cfg.window:
+        valid = valid & (kp > qp - cfg.window)
+    if k_len is not None:
+        valid = valid & (kp < k_len[:, None, None, None])
+    return valid
+
+
+def _sqrt_hd(hd, device):
+    return torch.sqrt(torch.tensor(float(hd), dtype=torch.float32,
+                                   device=device))
+
+
+def _dense_attention(q, k, v, valid, cfg, hccs):
+    """q: (B,H,Tq,hd), k/v: (B,Hkv,Tk,hd), valid: (B,1,Tq,Tk). Returns
+    (B,H,Tq,hd) in q's dtype."""
+    b, h, tq, hd = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, hkv, g, tq, hd)
+    logits = _einsum("bkgqd,bktd->bkgqt", qg, k).float()
+    logits = (logits / _sqrt_hd(hd, q.device)).reshape(b, h, tq, tk)
+    if cfg.attention_prob == "hccs" and hccs is not None:
+        params = HCCSParams(B=hccs["B"][:, None, None],
+                            S=hccs["S"][:, None, None],
+                            D=hccs["D"][:, None, None])
+        p = hccs_qat(logits, hccs["scale"][:, None, None], params,
+                     mode=cfg.hccs_mode, hard=True, mask=valid)
+    else:
+        p = torch.softmax(torch.where(valid, logits, NEG_INF), dim=-1)
+    pg = p.reshape(b, hkv, g, tq, tk).to(v.dtype)
+    out = _einsum("bkgqt,bktd->bkgqd", pg, v)
+    return out.reshape(b, h, tq, hd).to(q.dtype)
+
+
+def _blockwise_attention(q, k, v, q_pos, k_len, cfg, hccs):
+    """Two-pass KV-block loop; per-block masks computed from positions.
+
+    HCCS: pass 1 = row max of quantized logits (Stage 1 over a KV sweep);
+    pass 2 = distance/clamp/affine (Stages 2-3), Z (Stage 4) and s@V, with
+    one final normalization (Stage 5). Softmax: classic online rescale.
+    The blocks are visited in order, as the JAX package's lax.scan does."""
+    b, h, tq, hd = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    g = h // hkv
+    bk = min(cfg.block_k, tk)
+    nblk = -(-tk // bk)
+    pad = nblk * bk - tk
+    kp = torch.nn.functional.pad(k, (0, 0, 0, pad))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    kb = kp.reshape(b, hkv, nblk, bk, hd).movedim(2, 0)
+    vb = vp.reshape(b, hkv, nblk, bk, hd).movedim(2, 0)
+    if k_len is None:
+        k_len = torch.full((b,), tk, dtype=torch.int32, device=q.device)
+    qg = q.reshape(b, hkv, g, tq, hd)
+    sm = true_div(1.0, _sqrt_hd(hd, q.device))
+    kpos = torch.arange(bk, device=q.device)
+
+    def logits_of(kblk):
+        lg = _einsum("bkgqd,bktd->bkgqt", qg, kblk).float() * sm
+        return lg.reshape(b, h, tq, bk)
+
+    if cfg.attention_prob == "hccs" and hccs is not None:
+        scale = hccs["scale"][:, None, None]
+        B = hccs["B"][:, None, None].float()
+        S = hccs["S"][:, None, None].float()
+        D = hccs["D"][:, None, None].float()
+
+        def qint_of(i):
+            vmask = _block_valid(cfg, q_pos, i * bk + kpos, k_len)
+            lg = logits_of(kb[i]) / scale
+            qi = _ste(torch.clamp(torch.round(lg), -128.0, 127.0), lg)
+            return torch.where(vmask, qi, -1e9), vmask
+
+        m = torch.full((b, h, tq), -1e9, dtype=torch.float32, device=q.device)
+        for i in range(nblk):
+            m = torch.maximum(m, qint_of(i)[0].max(-1).values)
+        m = m.detach()[..., None]
+        acc = torch.zeros((b, h, tq, hd), dtype=v.dtype, device=q.device)
+        zsum = torch.zeros((b, h, tq), dtype=torch.float32, device=q.device)
+        for i in range(nblk):
+            qi, vmask = qint_of(i)
+            delta = torch.minimum(m - qi, D)
+            s = torch.where(vmask, B - S * delta, 0.0)
+            zsum = zsum + s.sum(-1)
+            sg = s.reshape(b, hkv, g, tq, bk).to(vb.dtype)
+            acc = acc + _einsum("bkgqt,bktd->bkgqd", sg, vb[i]).reshape(
+                b, h, tq, hd)
+        z = torch.clamp(zsum, min=1.0)[..., None]
+        # mode-aware final scale: HCCS linearity lets the integer rho
+        # truncation be applied to the accumulated numerator post-hoc
+        inv = hccs_mode_inv(z, cfg.hccs_mode)
+        return (acc.float() * inv).to(q.dtype)
+
+    acc = torch.zeros((b, h, tq, hd), dtype=v.dtype, device=q.device)
+    zsum = torch.zeros((b, h, tq), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, tq), NEG_INF, dtype=torch.float32, device=q.device)
+    for i in range(nblk):
+        vmask = _block_valid(cfg, q_pos, i * bk + kpos, k_len)
+        lg = torch.where(vmask, logits_of(kb[i]), NEG_INF)
+        m_new = torch.maximum(m, lg.max(-1).values)
+        corr = torch.exp(m - m_new)
+        e = torch.exp(lg - m_new[..., None])
+        zsum = zsum * corr + e.sum(-1)
+        eg = e.reshape(b, hkv, g, tq, bk).to(vb.dtype)
+        pv = _einsum("bkgqt,bktd->bkgqd", eg, vb[i]).reshape(b, h, tq, hd)
+        acc = acc * corr[..., None].to(acc.dtype) + pv
+        m = m_new
+    z = torch.clamp(zsum, min=1e-20)[..., None]
+    return (acc.float() / z).to(q.dtype)
+
+
 def _packed_attention(q, k_pool, v_pool, cache, cfg, hccs):
     """Token-centric attention for the packed paged step, kernel branch.
 
@@ -99,52 +299,121 @@ def _packed_attention(q, k_pool, v_pool, cache, cfg, hccs):
     Returns (1, T, H*hd)."""
     _, h, t, hd = q.shape
     qt = q[0].transpose(0, 1).float().contiguous()          # (T, H, hd)
-    theta = torch.stack([hccs["B"], hccs["S"], hccs["D"]], dim=-1)
     o = hccs_packed_prefill(qt, k_pool, v_pool, cache["block_table"],
                             cache["slot_ids"], cache["kv_len"],
-                            hccs["scale"], theta, mode=cfg.hccs_mode,
+                            hccs["scale"], _theta(hccs), mode=cfg.hccs_mode,
                             static_max=(cfg.decode_kernel == "static_max"))
     return o.to(q.dtype).reshape(1, t, h * hd)
 
 
-def apply_attention(p, x, cfg, hccs=None, positions=None, cache=None):
-    """x: (1, T, D) packed token batch. Returns (out, new_cache).
+def _theta(hccs):
+    return torch.stack([hccs["B"], hccs["S"], hccs["D"]], dim=-1)
 
-    cache: one layer's paged cache — k/v global block pools
-    (N, Hkv, block_size, hd) plus the step's `block_table` (B, nblk),
-    `write_pos` (1, T) flat scatter targets, per-token `kv_len` (T,) and
-    `slot_ids` (T,). The new K/V are written into the pools in place before
-    attention reads them."""
-    if cache is None or "block_table" not in cache:
+
+def _check_cache(cfg, hccs, cache):
+    if cfg.rope not in ("rope", "none"):
         raise NotImplementedError(
-            "attention without a paged cache (dense/blockwise STE, slot "
-            "arena, hot buffers) is not ported yet: ROADMAP.md items A3, A7")
-    if "slot_ids" not in cache:
+            f"rope={cfg.rope!r} is not ported yet: ROADMAP.md item A3")
+    if cache is None:
+        return
+    if "hot_k" in cache:
         raise NotImplementedError(
-            "the lockstep paged step (hccs_paged_decode) is not ported yet: "
-            "ROADMAP.md item B2")
+            "hot buffers and the segment merge are not ported yet: "
+            "ROADMAP.md item A3")
     if "k_scale" in cache:
         raise NotImplementedError(
             "int8 paged KV (paged_quant_scatter) is not ported yet: "
             "ROADMAP.md item A4")
-    if hccs is None or kernel_path_blockers(cfg):
+    if "slot_ids" in cache and not kernel_on(cfg, hccs):
         raise NotImplementedError(
-            f"the packed step without the fused kernel "
-            f"({', '.join(kernel_path_blockers(cfg)) or 'no hccs params'}) "
-            f"runs the per-slot STE grid, not ported yet: ROADMAP.md item A4")
-    if cfg.rope not in ("rope", "none"):
-        raise NotImplementedError(
-            f"rope={cfg.rope!r} is not ported yet: ROADMAP.md item A3")
+            "the packed step without the fused kernel runs the per-slot STE "
+            "grid, not ported yet: ROADMAP.md item A4")
+
+
+def apply_attention(p, x, cfg, hccs=None, positions=None, cache=None):
+    """x: (B, T, D). Returns (out, new_cache).
+
+    cache: None (self-attention over x), a slot arena {"k", "v":
+    (B, Hkv, Tmax, hd), "length"} with a scalar length (lockstep; new K/V
+    written at offset `length`) or a (B,) length (per-slot frontiers), or a
+    PAGED cache — k/v global block pools (N, Hkv, block_size, hd) plus
+    `block_table` (B, nblk), `write_pos` (B, T) flat scatter targets and
+    `kv_len` (B,) per-slot valid counts; PACKED paged steps add `slot_ids`
+    (T,), x is then a (1, T) ragged token batch and `kv_len` per token.
+    New K/V are written into the cache IN PLACE before attention reads
+    them; new_cache holds the written k/v."""
+    _check_cache(cfg, hccs, cache)
     b, t, d = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(b, t, h, hd).transpose(1, 2)
     k = (x @ p["wk"]).reshape(b, t, hkv, hd).transpose(1, 2)
     v = (x @ p["wv"]).reshape(b, t, hkv, hd).transpose(1, 2)
+    if positions is None:
+        base = (cache["length"] if cache is not None
+                else torch.zeros((), dtype=torch.int32, device=x.device))
+        # base is a scalar (lockstep) or a (B,) per-slot length vector
+        positions = (torch.atleast_1d(base)[:, None]
+                     + torch.arange(t, device=x.device)[None, :]
+                     ).expand(b, t)
     if cfg.rope == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    kc = _paged_scatter(cache["k"], k, cache["write_pos"])
-    vc = _paged_scatter(cache["v"], v, cache["write_pos"])
-    out = _packed_attention(q, kc, vc, cache, cfg, hccs)
-    return out @ p["wo"], {"k": kc, "v": vc}
 
+    new_cache = None
+    k_len = None
+    if cache is not None and "block_table" in cache:
+        kc = _paged_scatter(cache["k"], k, cache["write_pos"])
+        vc = _paged_scatter(cache["v"], v, cache["write_pos"])
+        new_cache = {"k": kc, "v": vc}
+        if "slot_ids" in cache:
+            out = _packed_attention(q, kc, vc, cache, cfg, hccs)
+            return _project_out(out, p, b, t), new_cache
+        # per-slot valid-KV counts for this step (length + per-slot t_valid;
+        # chunked prefill makes t_valid ragged, so `length + t` is wrong here)
+        k_len = cache["kv_len"]
+        if t == 1 and kernel_on(cfg, hccs):
+            # block-sparse fused decode: the kernel walks the block table
+            o = hccs_paged_decode(q[:, :, 0, :].float().contiguous(), kc, vc,
+                                  cache["block_table"], k_len,
+                                  hccs["scale"], _theta(hccs),
+                                  mode=cfg.hccs_mode,
+                                  static_max=(cfg.decode_kernel
+                                              == "static_max"))
+            out = o.to(q.dtype).reshape(b, 1, h * hd)
+            return _project_out(out, p, b, 1), new_cache
+        k = _paged_gather(kc, cache["block_table"])
+        v = _paged_gather(vc, cache["block_table"])
+    elif cache is not None:
+        length = cache["length"]
+        if length.dim() == 0 and cache["k"].shape[2:] == k.shape[2:]:
+            # the prompt fills the whole cache: a plain overwrite
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+        else:
+            # every slot writes at its own frontier (or the shared scalar)
+            _slot_scatter(cache["k"], k, length)
+            _slot_scatter(cache["v"], v, length)
+        k, v = cache["k"], cache["v"]
+        new_cache = {"k": k, "v": v}
+        k_len = (length + t).to(torch.int32).expand(b)
+        if t == 1 and kernel_on(cfg, hccs):
+            # fused decode: one new token against the slot arena, per-slot
+            # length masking
+            o = hccs_decode(q[:, :, 0, :].float().contiguous(), k, v,
+                            k_len.contiguous(), hccs["scale"], _theta(hccs),
+                            mode=cfg.hccs_mode,
+                            static_max=(cfg.decode_kernel == "static_max"))
+            out = o.to(q.dtype).reshape(b, 1, h * hd)
+            return _project_out(out, p, b, 1), new_cache
+
+    tk = k.shape[2]
+    use_blockwise = (cfg.attention_impl == "blockwise" or
+                     (cfg.attention_impl == "auto" and t > 1 and
+                      tk >= cfg.blockwise_threshold))
+    if use_blockwise:
+        out = _blockwise_attention(q, k, v, positions, k_len, cfg, hccs)
+    else:
+        valid = _block_valid(cfg, positions,
+                             torch.arange(tk, device=x.device), k_len)
+        out = _dense_attention(q, k, v, valid, cfg, hccs)
+    return _project_out(out, p, b, t), new_cache

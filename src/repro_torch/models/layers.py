@@ -10,6 +10,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
 
 def apply_norm(p, x, cfg, eps=1e-6):
     """RMSNorm or LayerNorm, computed in float32, returned in x's dtype."""

@@ -19,10 +19,9 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.attention import init_hccs_head_params
-from repro_torch.models.layers import apply_norm, embed_tokens, lm_logits
+from repro_torch.models.layers import (DTYPES, apply_norm, embed_tokens,
+                                      lm_logits)
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-          "float16": torch.float16}
 # per-step keys the paged engine attaches to the cache; forward hands them
 # to every layer (one table, per-layer pools)
 PAGED_EXTRAS = ("block_table", "write_pos", "kv_len", "slot_ids")
@@ -139,13 +138,16 @@ def _layer(tree, i):
 
 
 def forward(weights, hccs, batch, cfg, cache):
-    """batch: {"tokens": (1, T), "positions": (1, T)} — a packed token
-    batch with each token's absolute position.
+    """batch: {"tokens": (B, T)} with optional "positions" (B, T).
 
-    cache: the paged model cache {"layers": {"k", "v": (L, N, Hkv, bs,
-    hd)}} plus the step's PAGED_EXTRAS; layer i's K/V are written into
-    pools k[i]/v[i] in place. Returns (hidden, cache, aux) like the JAX
-    forward (aux is 0: no MoE)."""
+    cache: the model cache {"layers": {"k", "v": (L, ...)}, "length"} — a
+    slot arena (L, B, Hkv, Tmax, hd) with a scalar or (B,) `length`, or the
+    paged pools (L, N, Hkv, bs, hd) plus the step's PAGED_EXTRAS (the
+    lockstep step adds a (B,) `length`; the packed step passes explicit
+    positions and no length). Default positions are length + arange(T).
+    Layer i's K/V are written into k[i]/v[i] in place. Returns (hidden,
+    cache, aux) like the JAX forward (aux is 0: no MoE); the returned
+    cache's length is advanced by T."""
     _check_supported(cfg)
     unported = [k for k in _UNPORTED_EXTRAS if k in cache]
     if unported:
@@ -153,16 +155,68 @@ def forward(weights, hccs, batch, cfg, cache):
             f"cache keys {unported} steer paths not ported yet (per-slot STE "
             f"grid, int8 KV, speculative verify): ROADMAP.md items A4, A6")
     x = embed_tokens(weights["embed"], batch["tokens"], cfg)
+    b, t = x.shape[:2]
+    length = cache.get("length")
+    positions = batch.get("positions")
+    if positions is None:
+        # length is a scalar (lockstep) or a (B,) per-slot vector
+        positions = (torch.atleast_1d(length)[:, None]
+                     + torch.arange(t, device=x.device)[None, :]
+                     ).expand(b, t)
     extras = {k: cache[k] for k in PAGED_EXTRAS if k in cache}
     for i in range(cfg.num_layers):
         lc = {"k": cache["layers"]["k"][i], "v": cache["layers"]["v"][i],
               **extras}
         x, _ = blocks.apply_block(_layer(weights["layers"], i), x, cfg,
                                   {k: v[i] for k, v in hccs.items()} or None,
-                                  lc, batch["positions"])
+                                  lc, length, positions)
     x = apply_norm(weights["final_norm"], x, cfg)
-    return x, {"layers": cache["layers"]}, torch.zeros((), device=x.device)
+    new_cache = {"layers": cache["layers"]}
+    if length is not None:
+        new_cache["length"] = length + t
+    return x, new_cache, torch.zeros((), device=x.device)
 
 
 def logits_from_hidden(weights, x, cfg):
     return lm_logits(weights["embed"], weights, x, cfg)
+
+
+def init_cache(cfg, batch_size: int, max_len: int, cache_dtype=None,
+               per_slot_lengths: bool = False, device=None):
+    """Zero slot-arena cache {"layers": {"k", "v": (L, B, Hkv, len_c, hd)},
+    "length"}. per_slot_lengths=True makes `length` a (batch,) vector (the
+    continuous engine's per-slot frontiers). cache_dtype=None resolves to
+    cfg.cache_dtype. The device defaults to CUDA and raises without a
+    card."""
+    if cfg.hot_buffer > 0:
+        raise NotImplementedError(
+            "hot buffers are not ported yet: ROADMAP.md item A3")
+    device = resolve_device(device)
+    one = blocks.init_layer_cache(cfg, batch_size, max_len, cache_dtype,
+                                  device)
+    layers = {k: torch.zeros((cfg.num_layers,) + tuple(v.shape),
+                             dtype=v.dtype, device=device)
+              for k, v in one.items()}
+    shape = (batch_size,) if per_slot_lengths else ()
+    return {"layers": layers,
+            "length": torch.zeros(shape, dtype=torch.int32, device=device)}
+
+
+def prefill(weights, hccs, batch, cfg, max_len: int, cache_dtype=None):
+    """Run the prompt (batch["tokens"] (B, T)) through the model into a
+    fresh cache on the tokens' device. Returns (last-token logits (B, V),
+    cache)."""
+    b, t = batch["tokens"].shape
+    cache = init_cache(cfg, b, max_len, cache_dtype,
+                       device=batch["tokens"].device)
+    x, cache, _ = forward(weights, hccs, batch, cfg, cache)
+    logits = logits_from_hidden(weights, x[:, -1:], cfg)
+    return logits[:, 0], cache
+
+
+def decode_step(weights, hccs, tokens, cache, cfg):
+    """One-token decode. tokens: (B, 1). Returns (logits (B, V),
+    new_cache)."""
+    x, cache, _ = forward(weights, hccs, {"tokens": tokens}, cfg, cache)
+    logits = logits_from_hidden(weights, x, cfg)
+    return logits[:, 0], cache

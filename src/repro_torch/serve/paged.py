@@ -1,5 +1,5 @@
-"""Paged KV-cache serving with packed token steps — the port of
-`repro/serve/paged.py` as far as greedy packed serving reaches.
+"""Paged KV-cache serving — the port of `repro/serve/paged.py` as far as
+greedy serving in either step layout reaches.
 
 Layout: a GLOBAL pool of fixed-size KV blocks, (L, N, Hkv, block_size, hd)
 per k and v, plus per-request block tables on the host. Logical position p
@@ -9,23 +9,29 @@ request owns it. Admission is FIFO and reservation-gated (a request is
 admitted only when the unreserved free blocks cover its worst case), so
 alloc-on-frontier-crossing never exhausts the pool mid-flight.
 
-Each step is PACKED: the step's work — a prefill chunk per prefilling slot
-and one token per decoding slot — is flattened into a ragged (1, width)
-token batch with per-token slot ids, positions and causal frontiers, at the
-smallest rung of a 4-entry width ladder that covers it. Attention runs the
-fused `hccs_packed_prefill` kernel, which walks block_table[slot_ids[t]]
-for every token.
+PACKED steps (the default): the step's work — a prefill chunk per
+prefilling slot and one token per decoding slot — is flattened into a
+ragged (1, width) token batch with per-token slot ids, positions and causal
+frontiers, at the smallest rung of a 4-entry width ladder that covers it.
+Attention runs the fused `hccs_packed_prefill` kernel, which walks
+block_table[slot_ids[t]] for every token.
+
+LOCKSTEP steps (packed=False): a (max_batch, block_size) chunk step while
+any slot is still prefilling (decoding slots ride along with one valid
+lane), else a (max_batch, 1) decode step. A chunk step's attention is the
+STE path over each slot's gathered blocks; a decode step runs the fused
+`hccs_paged_decode` kernel (with cfg.decode_kernel on) or the STE path.
+Each slot samples from its last valid lane.
 
 The host half (allocator, scheduler, lane packing, write targets) is the
 JAX package's numpy code, copied; the device half replaces the jitted step
 with donated pools by in-place writes into the preallocated pool tensors.
 
 Not ported yet, and refused when switched on (NotImplementedError naming
-the ROADMAP.md item): the lockstep layout (packed=False, item B2), prefix
-and decode sharing with sessions (A6), int8 KV (A4), speculative decoding
-(A6), the async loop (A6), telemetry and robust admission/preemption (A5,
-A6), temperature sampling (A5), and the STE attention the JAX engine uses
-with decode_kernel="none" (A4).
+the ROADMAP.md item): prefix and decode sharing with sessions (A6), int8 KV
+(A4), speculative decoding (A6), the async loop (A6), telemetry and robust
+admission/preemption (A5, A6), temperature sampling (A5), and the packed
+step without the fused kernel (the per-slot STE grid, A4).
 """
 from __future__ import annotations
 
@@ -35,8 +41,10 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.attention import kernel_path_blockers
-from repro_torch.serve.engine import (Request, check_greedy, sample_tokens,
-                                      validate_prompt)
+from repro_torch.serve.engine import (Request, check_greedy,
+                                      check_params_device, refuse,
+                                      sample_tokens, validate_prompt,
+                                      warn_decode_kernel_fallback)
 
 TRASH_BLOCK = 0
 
@@ -215,15 +223,11 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, max_batch: int,
                        "v": torch.zeros(shape, dtype=dt, device=device)}}
 
 
-def _refuse(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md item "
-                              f"{item}")
-
-
 class PagedEngine:
-    """Greedy, synchronous paged engine with packed token steps. The
+    """Greedy, synchronous paged engine, packed or lockstep steps. The
     constructor takes the JAX engine's arguments; those selecting paths not
-    ported yet raise NotImplementedError (see the module docstring)."""
+    ported yet raise NotImplementedError (see the module docstring).
+    `decode_steps` counts the lockstep layout's (B, 1) decode steps."""
 
     def __init__(self, params, cfg, *, max_batch: int = 8,
                  max_len: int = 512, eos_id: int | None = None,
@@ -246,33 +250,30 @@ class PagedEngine:
             raise ValueError(
                 f"paged KV needs attention-only blocks; {cfg.family} carries "
                 "per-slot SSM state that a block pool cannot page")
-        if packed is not None and not packed:
-            _refuse("the lockstep step layout (packed=False)", "B2")
         if (prefix_sharing if prefix_sharing is not None
                 else cfg.prefix_sharing) or (
                 decode_sharing if decode_sharing is not None
                 else cfg.decode_sharing):
-            _refuse("prefix/decode sharing and sessions", "A6")
+            refuse("prefix/decode sharing and sessions", "A6")
         if speculative if speculative is not None else cfg.speculative:
-            _refuse("speculative decoding", "A6")
+            refuse("speculative decoding", "A6")
         if async_loop if async_loop is not None else cfg.async_loop:
-            _refuse("the pipelined async loop", "A6")
+            refuse("the pipelined async loop", "A6")
         if telemetry is not None:
-            _refuse("serving telemetry", "A5")
+            refuse("serving telemetry", "A5")
         if (admission is not None or cfg.queue_limit or cfg.preemption
                 or cfg.backpressure != "reject"):
-            _refuse("robust admission and preemption", "A5/A6")
+            refuse("robust admission and preemption", "A5/A6")
         if cfg.kv_quant != "none":
-            _refuse(f"kv_quant={cfg.kv_quant!r}", "A4")
+            refuse(f"kv_quant={cfg.kv_quant!r}", "A4")
+        self.packed = True if packed is None else bool(packed)
         blockers = kernel_path_blockers(cfg)
-        if blockers or not params["hccs"]:
-            _refuse("the packed step without the fused kernel ("
-                    + (", ".join(blockers) or "no hccs params")
-                    + "; the JAX engine runs the per-slot STE grid)", "A4")
-        devices = {t.device for t in M.flatten_tree(params).values()}
-        if devices != {self.device}:
-            raise ValueError(f"params lie on {sorted(map(str, devices))}, "
-                             f"the engine runs on {self.device}")
+        if self.packed and (blockers or not params["hccs"]):
+            refuse("the packed step without the fused kernel ("
+                   + (", ".join(blockers) or "no hccs params")
+                   + "; the JAX engine runs the per-slot STE grid)", "A4")
+        check_params_device(params, self.device)
+        warn_decode_kernel_fallback(cfg)
         self.w = params["weights"]
         self.hccs = params["hccs"]
         self.cfg = cfg
@@ -319,6 +320,7 @@ class PagedEngine:
         self.lanes_valid = 0
         self.lanes_total = 0
         self.pad_lanes_skipped = 0
+        self.decode_steps = 0
         self._tables = np.full((max_batch, self._nblk_per_seq), -1, np.int32)
         self._resv = np.zeros(max_batch, np.int64)   # admission reservations
         self._slots: list[Request | None] = [None] * max_batch
@@ -404,6 +406,60 @@ class PagedEngine:
             for j in range(held, needed):
                 row[j] = self.alloc.alloc()
                 self._resv[slot] = max(self._resv[slot] - 1, 0)
+
+    def _write_positions(self, t_valid: np.ndarray, width: int) -> np.ndarray:
+        """Flat pool scatter targets (B, width): token i of slot b lands at
+        table[b, (len+i)//bs]*bs + (len+i)%bs while i < t_valid[b]; invalid
+        lanes are steered into the trash block (position i of block 0)."""
+        bs = self.block_size
+        wp = np.tile(np.arange(width, dtype=np.int64)[None, :],
+                     (self.max_batch, 1)) + TRASH_BLOCK * bs
+        for slot in np.flatnonzero(t_valid > 0):
+            tv = int(t_valid[slot])
+            wp[slot, :tv] = _slot_write_targets(
+                self._tables[slot], int(self._lengths[slot]), tv, bs)
+        return wp.astype(np.int32)
+
+    def _step(self, width: int) -> list[Request]:
+        """One lockstep batched step: chunk (width == block_size, some slot
+        is mid-prompt) or pure decode (width == 1). Returns newly finished."""
+        live = self._live.copy()
+        self.occupancy_sum += float(live.mean())
+        self.occupancy_steps += 1
+        t_valid = np.zeros(self.max_batch, np.int32)
+        toks = np.zeros((self.max_batch, width), np.int32)
+        for slot in np.flatnonzero(live):
+            feed = self._feeds[slot]
+            pos = int(self._prompt_pos[slot])
+            if pos < len(feed):              # chunked prefill
+                tv = min(width, len(feed) - pos)
+                toks[slot, :tv] = feed[pos:pos + tv]
+                t_valid[slot] = tv
+            else:                            # decode rides along, t_valid 1
+                toks[slot, 0] = self._last[slot]
+                t_valid[slot] = 1
+        self.lanes_valid += int(t_valid.sum())
+        self.lanes_total += self.max_batch * width
+        self._grow_tables(t_valid)
+        dev = (lambda a: torch.tensor(a, device=self.device))
+        cache = dict(self._cache,
+                     length=dev(self._lengths),
+                     block_table=dev(self._tables),
+                     write_pos=dev(self._write_positions(t_valid, width)),
+                     kv_len=dev(self._lengths + t_valid))
+        with torch.inference_mode():
+            x, _, _ = M.forward(self.w, self.hccs, {"tokens": dev(toks)},
+                                self.cfg, cache)
+            # each slot samples from its LAST VALID lane (t_valid - 1):
+            # riding decode slots have t_valid == 1, mid-prompt slots
+            # discard their logits
+            idx = dev(np.maximum(t_valid - 1, 0).astype(np.int64))
+            h_last = x[torch.arange(self.max_batch, device=self.device),
+                       idx][:, None]                           # (B, 1, D)
+            logits = M.logits_from_hidden(self.w, h_last, self.cfg)[:, 0]
+        if width == 1:
+            self.decode_steps += 1
+        return self._sample_and_finish(live, t_valid, logits)
 
     def _step_packed_sync(self) -> list[Request]:
         """One PACKED token step: the step's work flattened into a ragged
@@ -502,13 +558,18 @@ class PagedEngine:
         return bool(self._queue) or bool(self._live.any())
 
     def step(self) -> list[Request]:
-        """Admit from the queue and run ONE packed step; returns newly
-        finished requests (a no-op when the engine is idle)."""
+        """Admit from the queue and run ONE step (packed, or a lockstep
+        chunk step while any slot is prefilling, else a lockstep decode
+        step); returns newly finished requests (a no-op when idle)."""
         self._admit()
         if not self._live.any():
             assert not self._queue, "admission stalled with free pool"
             return []
-        return self._step_packed_sync()
+        if self.packed:
+            return self._step_packed_sync()
+        prefilling = any(self._prompt_pos[s] < len(self._feeds[s])
+                         for s in np.flatnonzero(self._live))
+        return self._step(self.block_size if prefilling else 1)
 
     def run(self) -> list[Request]:
         """Serve the whole queue; returns finished requests (uid order

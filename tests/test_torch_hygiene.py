@@ -20,9 +20,11 @@ from repro.configs import base as jax_base
 from repro.configs import registry as jax_registry
 from repro_torch.configs import base as port_base
 from repro_torch.configs import registry as port_registry
-from repro_torch.kernels.decode import hccs_packed_prefill
+from repro_torch.kernels.decode import (hccs_decode, hccs_packed_prefill,
+                                        hccs_paged_decode)
 from repro_torch.launch import serve as port_serve
 from repro_torch.models import model as M
+from repro_torch.serve import ContinuousEngine, ServeEngine
 from repro_torch.serve.engine import Request
 from repro_torch.serve.paged import PagedEngine, init_paged_cache
 
@@ -57,12 +59,42 @@ def test_every_port_module_imports_without_jax():
         "    repro_torch.__path__, 'repro_torch.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "print(len(mods))\n")
+        "print(' '.join(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 20
+    mods = set(res.stdout.split())
+    assert len(mods) >= 20
+    assert {"repro_torch.core.hccs", "repro_torch.models.attention",
+            "repro_torch.models.blocks", "repro_torch.kernels.decode",
+            "repro_torch.serve.engine", "repro_torch.serve.continuous",
+            "repro_torch.serve.paged", "repro_torch.launch.serve"} <= mods
+
+
+# The JAX package's modules with no counterpart at the same path in the
+# port: the port's progress meter (ROADMAP.md item A1). The list shrinks as
+# slices land; a module ported or added on either side must update it.
+UNPORTED = [
+    "checkpoint/__init__.py", "checkpoint/manager.py", "configs/shapes.py",
+    "core/calibrate.py", "core/qat.py", "data/__init__.py",
+    "data/synthetic.py", "kernels/attention.py", "kernels/hccs.py",
+    "kernels/ops.py", "kernels/ref.py", "kernels/softmax_bf16.py",
+    "launch/dryrun.py", "launch/inspect_hlo.py", "launch/mesh.py",
+    "launch/roofline.py", "launch/train.py", "models/moe.py",
+    "models/ssm.py", "optim/__init__.py", "optim/adamw.py",
+    "optim/compression.py", "parallel/__init__.py", "parallel/sharding.py",
+    "quant/__init__.py", "quant/int8.py", "serve/admission.py",
+    "serve/chaos.py", "serve/telemetry.py", "train/__init__.py",
+    "train/loop.py", "train/steps.py"]
+
+
+def test_unported_modules_are_the_recorded_list():
+    ref = ROOT / "src" / "repro"
+    port = ROOT / "src" / "repro_torch"
+    missing = sorted(p.relative_to(ref).as_posix() for p in ref.rglob("*.py")
+                     if not (port / p.relative_to(ref)).is_file())
+    assert missing == UNPORTED
 
 
 def _cfg(**kw):
@@ -83,31 +115,55 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         init_paged_cache(cfg, 4, 32, 2)
     with pytest.raises(RuntimeError, match="CUDA"):
+        M.init_cache(cfg, 2, 32)
+    for engine in (ServeEngine, ContinuousEngine):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            engine(params, cfg)
+        with pytest.raises(ValueError, match="lie on"):
+            engine(params, cfg, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA"):
         port_serve.main(["--arch", "granite-3-2b", "--reduced"])
     with pytest.raises(ValueError, match="lie on"):
         PagedEngine(params, cfg, device="meta")
 
 
-@pytest.mark.parametrize("kw,cfg_kw", [
-    (dict(packed=False), {}),
-    (dict(prefix_sharing=True), {}),
-    (dict(decode_sharing=True), {}),
-    (dict(speculative=True), {}),
-    (dict(async_loop=True), {}),
-    (dict(telemetry=object()), {}),
-    (dict(admission=object()), {}),
-    ({}, dict(kv_quant="int8")),
-    ({}, dict(decode_kernel="none")),
-    ({}, dict(hccs_mode="i8_div")),
-    ({}, dict(attention_prob="softmax")),
-], ids=["lockstep", "prefix", "decode-sharing", "speculative", "async",
-        "telemetry", "admission", "int8-kv", "kernel-off", "i8-mode",
-        "softmax"])
-def test_unported_paths_raise(kw, cfg_kw):
+@pytest.mark.parametrize("engine,kw,cfg_kw", [
+    ("paged", dict(prefix_sharing=True), {}),
+    ("paged", dict(decode_sharing=True), {}),
+    ("paged", dict(speculative=True), {}),
+    ("paged", dict(async_loop=True), {}),
+    ("paged", dict(telemetry=object()), {}),
+    ("paged", dict(admission=object()), {}),
+    ("paged", {}, dict(kv_quant="int8")),
+    ("paged", {}, dict(decode_kernel="none")),
+    ("paged", {}, dict(hccs_mode="i8_div")),
+    ("paged", {}, dict(attention_prob="softmax")),
+    ("lockstep", dict(prefix_sharing=True), {}),
+    ("continuous", dict(telemetry=object()), {}),
+    ("continuous", dict(admission=object()), {}),
+    ("wave", dict(telemetry=object()), {}),
+], ids=["prefix", "decode-sharing", "speculative", "async", "telemetry",
+        "admission", "int8-kv", "kernel-off", "i8-mode", "softmax",
+        "lockstep-prefix", "continuous-telemetry", "continuous-admission",
+        "wave-telemetry"])
+def test_unported_paths_raise(engine, kw, cfg_kw):
     cfg = _cfg(**cfg_kw)
     params = M.init_params(_cfg(), device="cpu")
+    cls = {"paged": PagedEngine, "lockstep": PagedEngine,
+           "continuous": ContinuousEngine, "wave": ServeEngine}[engine]
+    if engine == "lockstep":
+        kw = dict(kw, packed=False)
     with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
-        PagedEngine(params, cfg, device="cpu", **kw)
+        cls(params, cfg, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("engine", [ServeEngine, ContinuousEngine])
+def test_slot_arena_engines_refuse_int8_kv(engine):
+    """The slot arena is fp-only: kv_quant raises ValueError, as the JAX
+    engines do."""
+    params = M.init_params(_cfg(), device="cpu")
+    with pytest.raises(ValueError, match="fp-only"):
+        engine(params, _cfg(kv_quant="int8"), device="cpu")
 
 
 def test_unported_request_and_launcher_options_raise():
@@ -120,9 +176,57 @@ def test_unported_request_and_launcher_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
         port_serve.main(["--arch", "granite-3-2b", "--reduced", "--device",
                          "cpu", "--decode-kernel", "none"])
+    with pytest.raises(SystemExit):
+        port_serve.main(["--arch", "granite-3-2b", "--reduced", "--device",
+                         "cpu", "--scheduler", "wave", "--step-layout",
+                         "lockstep"])
     with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
         M.init_params(port_registry.reduced_config("mamba2-1.3b"),
                       device="cpu")
+
+
+@pytest.mark.parametrize("scheduler", ["wave", "continuous", "lockstep"])
+def test_launcher_serves_every_scheduler_on_cpu(scheduler, capsys):
+    """The STE paths make --decode-kernel none work for every layout but
+    packed."""
+    args = ["--arch", "granite-3-2b", "--reduced", "--device", "cpu",
+            "--requests", "3", "--prompt-len", "9", "--new-tokens", "3",
+            "--decode-kernel", "none"]
+    if scheduler == "lockstep":
+        args += ["--scheduler", "paged", "--step-layout", "lockstep",
+                 "--block-size", "8"]
+    else:
+        args += ["--scheduler", scheduler]
+    done = port_serve.main(args)
+    assert len(done) == 3 and all(len(r.out_tokens) == 3 for r in done)
+    assert "served 3 requests" in capsys.readouterr().out
+
+
+def test_decode_wrappers_on_cpu_count_no_launch():
+    rng = np.random.default_rng(1)
+    t = (lambda a, dt=torch.float32: torch.tensor(a, dtype=dt))
+    q = t(rng.normal(size=(2, 4, 8)))
+    pool = t(rng.normal(size=(5, 2, 8, 8)))
+    arena = t(rng.normal(size=(2, 2, 11, 8)))
+    args = (t([0.1] * 4), t([[159, 1, 64]] * 4, torch.int32))
+    out = hccs_paged_decode(q, pool, pool, t([[1, 2], [3, -1]], torch.int32),
+                            t([9, 3], torch.int32), *args)
+    assert out.shape == (2, 4, 8)
+    out = hccs_decode(q, arena, arena, t([11, 0], torch.int32), *args)
+    assert out.shape == (2, 4, 8) and (out[1] == 0).all()
+    assert hccs_paged_decode.launches == hccs_decode.launches == 0
+    with pytest.raises(ValueError, match="mode"):
+        hccs_decode(q, arena, arena, t([11, 0], torch.int32), *args,
+                    mode="i8_clb")
+    with pytest.raises(TypeError, match="K/V"):
+        hccs_decode(q, arena.to(torch.int8), arena.to(torch.int8),
+                    t([11, 0], torch.int32), *args)
+    with pytest.raises(ValueError, match="qint_out"):
+        hccs_decode(q, arena, arena, t([11, 0], torch.int32), *args,
+                    qint_out=torch.zeros((2, 4, 11), dtype=torch.int8))
+    with pytest.raises(ValueError, match="int32"):
+        hccs_paged_decode(q, pool, pool, t([[1, 2]], torch.int32),
+                          t([9, 3], torch.int32), *args)
 
 
 def test_kernel_wrapper_on_cpu_counts_no_launch():
