@@ -2,14 +2,16 @@
 """On-card smoke test of the PyTorch/CUDA port (`src/repro_torch`).
 
     python3 chip_smoke.py                 # every phase, one CUDA card
-    python3 chip_smoke.py --phases 1,2,3,6,7   # the kernel phases only
+    python3 chip_smoke.py --phases 1,2,3,6,7,11,12,13   # the kernel checks
 
 Builds the CUDA kernels from the sources in this checkout, holds every
 kernel against its plain PyTorch version on the card, drives the port's
 serving paths — greedy serving of granite-3-2b at full width (40 layers,
 bf16 weights from a seed) through the packed and the lockstep PagedEngine,
-the ContinuousEngine and the wave ServeEngine — and checks that each path
-really ran its kernel. Phases, in order:
+the ContinuousEngine and the wave ServeEngine — and its standalone kernel
+entry point `repro_torch.kernels` at granite's full attention width and the
+paper's Table III shapes, and checks that each path really ran its kernels.
+Phases, in order:
 
   1 device      the card's name and power limit; fails without CUDA
   2 build       nvcc build time, registers and shared memory per kernel
@@ -28,7 +30,23 @@ really ran its kernel. Phases, in order:
   9 continuous  ContinuousEngine on phase 5's requests, the same way
  10 wave        ServeEngine on 8 requests of 512 prompt tokens, the same
                 way, and the packed engine on the same requests
- 11 report      one JSON line per the kernel table
+ 11 rows        hccs_rows against hccs_rows_ref, four modes: the paper's
+                4096 x 32/64/128, granite's 65,536 x 2048 attention rows
+                with per-head feasible theta, C = 2047, degenerate rows,
+                and peaked rows over the i8 range; bit-identical
+ 12 softmax     softmax_bf16 against softmax_bf16_ref and torch.softmax,
+                bf16 and f32, at the same shapes
+ 13 fused       hccs_mha_fused against hccs_mha_fused_ref (granite's full
+                prefill attention, B 8 x 512, Tq != Tk; causal and not;
+                f32 and bf16; exact and random), then against the served
+                model's blockwise STE attention at full width
+ 14 table3      the entry point: Table III through repro_torch.kernels
+                (softmax_reference bf16, hccs_softmax i16_div and i8_clb at
+                4096 x 32/64/128 and 65,536 x 2048) and hccs_attention at
+                granite's full prefill shape; launches counted; the times
+                of phases 11-14 (per call, device only, plain versions,
+                torch.softmax, the blockwise STE attention)
+ 15 report      one JSON line per the kernel table
 
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero before it. `--phases` runs a subset (for bring-up).
@@ -48,8 +66,13 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import kernels as KAPI  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.constraints import (default_params,  # noqa: E402
+                                          feasible_grid, validate_params)
 from repro_torch.kernels import build as kbuild  # noqa: E402
+from repro_torch.kernels.attention import (hccs_mha_fused,  # noqa: E402
+                                           hccs_mha_fused_ref, mha_qint)
 from repro_torch.kernels.decode import (ARENA_TILE,  # noqa: E402
                                         decode_qint, hccs_decode,
                                         hccs_decode_ref, hccs_packed_prefill,
@@ -57,7 +80,11 @@ from repro_torch.kernels.decode import (ARENA_TILE,  # noqa: E402
                                         hccs_paged_decode,
                                         hccs_paged_decode_ref, packed_qint,
                                         paged_qint, smem_bytes)
+from repro_torch.kernels.hccs import hccs_rows, hccs_rows_ref  # noqa: E402
+from repro_torch.kernels.softmax_bf16 import (softmax_bf16,  # noqa: E402
+                                              softmax_bf16_ref)
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models.attention import _blockwise_attention  # noqa: E402
 from repro_torch.serve import (ContinuousEngine, ServeEngine)  # noqa: E402
 from repro_torch.serve.paged import (PagedEngine, Request,  # noqa: E402
                                      pack_slot_ids, schedule_step_tokens)
@@ -93,6 +120,15 @@ def check(cond, msg):
         raise PhaseFailed(msg)
 
 
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take to move `nbytes` and do
+    `ops` operations at the f32 CUDA-core rate, and which of the two
+    bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
@@ -105,6 +141,29 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_time_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Device time of one call of `fn`: `calls` calls captured in a CUDA
+    graph, replayed `replays` times after one warm-up replay, timed with
+    CUDA events. The host's per-call cost (argument checks, ctypes,
+    dispatch), which cuda_time_ms includes, drops out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
 
 
 # ---------------------------------------------------------------- phase 1 --
@@ -236,10 +295,7 @@ def bound_of(case) -> tuple[float, str, float, float]:
     nbytes = (2 * kv_rows * HKV * D * elem + 2 * t * H * D * 4
               + table.nbytes + 2 * t * 4)
     flops = 2.0 * 2.0 * live_keys * H * D
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / F32_FLOPS * 1e3
-    return (max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops
-            else "operations", nbytes, flops)
+    return (*bound(nbytes, flops), nbytes, flops)
 
 
 def phase_kernel():
@@ -575,10 +631,7 @@ def decode_bound(kind: str, case) -> tuple[float, str, float, float]:
     b = lens.shape[0]
     nbytes = 2 * rows * HKV * D * elem + 2 * b * H * D * 4 + extra
     flops = 2.0 * 2.0 * rows * H * D
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / F32_FLOPS * 1e3
-    return (max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops
-            else "operations", nbytes, flops)
+    return (*bound(nbytes, flops), nbytes, flops)
 
 
 def phase_decode_kernel(kind: str):
@@ -794,19 +847,402 @@ def phase_paths(packed_tokens, phases):
     return launches
 
 
-def kernel_entry(name, source, replaces, launches, tm, shape):
+# ------------------------------------------------- phases 11-14: kernels --
+
+PAPER_ROWS, PAPER_NS = 4096, (32, 64, 128)     # the paper's Table III
+G_ROWS, G_COLS = H * MAX_LEN, MAX_LEN          # granite's attention rows
+ROW_MODES = ("i16_div", "i16_clb", "i8_div", "i8_clb")
+# Gates of phases 12-14, set from the first run on an H100 80GB HBM3 at
+# 700 W (see PERF.md): softmax_bf16 against its plain version gave
+# at most 1 bf16 ulp (927 of 134M elements) and in f32 a relative 4.3e-7;
+# hccs_mha_fused gave 0 flipped bins and max |d| 0 on random inputs too
+# (its random cases keep the decode phases' gates), and 2.4e-7 against the
+# blockwise STE attention. The float gates are ~5-10x the measurement.
+SOFTMAX_MAX_ULP_BF16 = 1
+SOFTMAX_RTOL_F32 = 2e-6
+BLOCKWISE_ATOL = 2.5e-6          # kernel against the model's blockwise path
+# The i8 modes at granite's 2048 columns: every feasible theta has a score
+# floor of 1 (Z >= 2048) and B <= 15, so an i8 output is 0 or 1
+# (255 * 15 / 2048 < 2); a row spreads only where a few keys near its max
+# carry enough of Z. The first run spread 1,522 (i8_div) and 10,240
+# (i8_clb) of the 65,536 rows; the gate asks for 1% of them. The i8 range
+# itself is held by the "range" case (peaked rows, theta from the whole
+# feasible grid at 32 columns), whose i8 outputs must take 64 or more
+# levels (the plain version gives 102 and 122 on these inputs).
+I8_MIN_SPREAD_ROWS = 0.01
+I8_MIN_LEVELS = 64
+
+
+def row_theta(n: int, rows_per_head: int) -> np.ndarray:
+    """Per-head theta from the feasible grid at row length n with S > 0
+    (default_params(2048) has S = 0, and the model's n-128 calibration
+    breaks n * B <= 32767 at 2048 columns), one per head, broadcast to
+    H * rows_per_head rows (row r belongs to head r // rows_per_head)."""
+    grid = feasible_grid(n)
+    grid = grid[grid[:, 1] > 0]
+    th = grid[np.arange(H) % len(grid)]
+    validate_params(th[:, 0], th[:, 1], th[:, 2], n)
+    return np.repeat(th, rows_per_head, axis=0)
+
+
+def range_rows(rng, rows: int, n: int):
+    """(x, theta) that take the i8 modes over their range: theta per row
+    from the whole feasible grid at n, and logits peaked at 127 with
+    exponential distances of a per-row mean, so that some rows put most of
+    Z on a few keys."""
+    grid = feasible_grid(n)
+    theta = grid[rng.integers(0, len(grid), rows)]
+    mean = rng.uniform(1, 128, (rows, 1))
+    x = np.clip(127 - np.floor(rng.exponential(mean, (rows, n))), -128, 127)
+    return x.astype(np.int8), theta
+
+
+def row_cases():
+    """(label, x int8, theta int32) on the card: the paper's shapes with
+    default_params(n), granite's attention rows, an odd width, the three
+    degenerate rows of tests/test_attention_modes.py, and the i8 range."""
+    rng = np.random.default_rng(11)
+    dev = "cuda"
+    i8 = (lambda a: torch.tensor(a, dtype=torch.int8, device=dev))
+    i32 = (lambda a: torch.tensor(np.asarray(a), dtype=torch.int32,
+                                  device=dev))
+    cases = []
+    for n in PAPER_NS:
+        cases.append((f"{PAPER_ROWS}x{n}", i8(rng.integers(
+            -128, 128, (PAPER_ROWS, n))), i32(np.tile(default_params(n),
+                                                      (PAPER_ROWS, 1)))))
+    cases.append((f"{G_ROWS}x{G_COLS}", torch.randint(
+        -128, 128, (G_ROWS, G_COLS), dtype=torch.int8, device=dev,
+        generator=torch.Generator(dev).manual_seed(12)),
+        i32(row_theta(G_COLS, MAX_LEN))))
+    cases.append(("1024x2047", i8(rng.integers(-128, 128, (H * 32, 2047))),
+                  i32(row_theta(2047, 32))))
+    n = 64
+    cases.append(("degenerate", i8(np.stack([
+        np.full(n, -128), np.full(n, 127),
+        np.concatenate([[127], np.full(n - 1, -128)])])),
+        i32(np.tile(default_params(n), (3, 1)))))
+    x, theta = range_rows(np.random.default_rng(15), PAPER_ROWS, 32)
+    cases.append(("range", i8(x), i32(theta)))
+    return cases
+
+
+def phase_rows():
+    """hccs_rows against hccs_rows_ref on the card, every case x mode:
+    bit-identical; granite's rows non-zero and spread; the range case's i8
+    outputs over many levels."""
+    for label, x, theta in row_cases():
+        for mode in ROW_MODES:
+            got = hccs_rows(x, theta, mode=mode)
+            want = hccs_rows_ref(x, theta, mode)
+            torch.cuda.synchronize()
+            differ = int((got != want).sum())
+            spread = int((got.max(-1).values > got.min(-1).values).sum())
+            levels = int(torch.unique(got).numel())
+            log(f"[rows] {label:10s} {mode:7s} differing {differ}/"
+                f"{got.numel()}, rows non-uniform {spread}/{got.shape[0]}, "
+                f"levels {levels}, max {int(got.max())}")
+            check(differ == 0, f"hccs_rows {label} {mode}: {differ} "
+                  f"elements differ from the plain version")
+            if label == f"{G_ROWS}x{G_COLS}":
+                need = got.shape[0] * (1.0 if mode.startswith("i16")
+                                       else I8_MIN_SPREAD_ROWS)
+                check(bool(got.any()) and spread >= need,
+                      f"hccs_rows {label} {mode}: zero output or {spread} "
+                      f"rows non-uniform, fewer than {need:.0f}")
+            if label == "range" and mode.startswith("i8"):
+                check(levels >= I8_MIN_LEVELS, f"hccs_rows range {mode}: "
+                      f"{levels} output levels < {I8_MIN_LEVELS}")
+
+
+def ulp_bf16(a, b) -> torch.Tensor:
+    """Distance in bf16 ulps of two non-negative bf16 tensors."""
+    return (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
+
+
+def phase_softmax():
+    """softmax_bf16 against softmax_bf16_ref and torch.softmax on the card:
+    bf16 within 1 ulp of the plain version, f32 within a relative bound."""
+    gen = torch.Generator("cuda").manual_seed(13)
+    for rows, n in [(PAPER_ROWS, c) for c in PAPER_NS] + [(G_ROWS, G_COLS)]:
+        x32 = torch.randn((rows, n), generator=gen, device="cuda") * 2.0
+        for dtype in (torch.bfloat16, torch.float32):
+            x = x32.to(dtype)
+            got = softmax_bf16(x)
+            for name, want in (("plain", softmax_bf16_ref(x)),
+                               ("torch.softmax", torch.softmax(x, -1))):
+                torch.cuda.synchronize()
+                if dtype == torch.bfloat16:
+                    ulps = ulp_bf16(got, want)
+                    worst, differ = int(ulps.max()), int((ulps > 0).sum())
+                    ok = worst <= SOFTMAX_MAX_ULP_BF16
+                    what = f"max {worst} ulp"
+                else:
+                    rel = (got - want).abs() / want.abs().clamp(min=1e-30)
+                    worst, differ = float(rel.max()), int((got != want).sum())
+                    ok = worst <= SOFTMAX_RTOL_F32
+                    what = f"max rel {worst:.3e}"
+                log(f"[softmax] {rows}x{n} {str(dtype)[6:]:8s} vs {name}: "
+                    f"{what}, differing {differ}/{got.numel()}")
+                if name == "plain":
+                    check(ok, f"softmax_bf16 {rows}x{n} {dtype}: {what}")
+            check(bool(torch.isfinite(got).all()), "softmax not finite")
+
+
+def fused_case(b, tq, tk, dtype, exact: bool, seed: int):
+    """Granite-headed attention inputs (H 32 over Hkv 8, d 64) on the card,
+    the decode phases' value ranges and theta."""
+    rng = np.random.default_rng(seed)
+    q, k, v, scale, theta = kv_values(rng, (b, H, tq, D), (b, HKV, tk, D),
+                                      exact)
+    to = (lambda a: torch.tensor(a, dtype=torch.float32,
+                                 device="cuda").to(dtype))
+    return dict(q=q.to(dtype), k=to(k), v=to(v), scale=scale, theta=theta)
+
+
+def live_pairs(b, tq, tk, causal: bool) -> int:
+    per_head = (sum(min(t + 1, tk) for t in range(tq)) if causal
+                else tq * tk)
+    return b * H * per_head
+
+
+def fused_bound(case, causal: bool):
+    """Least time for one call: q, k, v and the output moved once over the
+    HBM rate, against the function's one QK and one PV product (4 d flops
+    per live (row, key)) over the f32 rate. The kernel's second QK pass
+    (it recomputes the logits rather than keep them) is its own choice and
+    is not counted."""
+    b, h, tq, d = case["q"].shape
+    tk = case["k"].shape[2]
+    elem = case["q"].element_size()
+    nbytes = (2 * case["q"].numel() + 2 * case["k"].numel()) * elem
+    flops = 4.0 * d * live_pairs(b, tq, tk, causal)
+    return (*bound(nbytes, flops), nbytes, flops)
+
+
+def phase_fused():
+    """hccs_mha_fused against hccs_mha_fused_ref on the card (exact inputs
+    bit-identical, random inputs with their int8 bin flips counted through
+    qint_out), then against the served model's blockwise STE attention at
+    granite's full width."""
+    shapes = [(1, MAX_LEN, MAX_LEN), (8, 512, 512), (1, 300, 1000)]
+    seed = 0
+    for b, tq, tk in shapes:
+        full = (b, tq, tk) == shapes[0]
+        for dtype in ((torch.float32, torch.bfloat16) if full or tq != tk
+                      else (torch.float32,)):
+            for exact in (True, False):
+                seed += 1
+                case = fused_case(b, tq, tk, dtype, exact, seed)
+                for causal in ((True, False) if full or tq != tk
+                               else (True,)):
+                    qo = torch.full((b, H, tq, tk), -128, dtype=torch.int8,
+                                    device="cuda")
+                    got = hccs_mha_fused(**case, causal=causal, qint_out=qo)
+                    want = hccs_mha_fused_ref(**case, causal=causal)
+                    qi, valid = mha_qint(case["q"], case["k"], case["scale"],
+                                         causal)
+                    torch.cuda.synchronize()
+                    flipped = (qo.int() != qi) & valid
+                    flips = int(flipped.sum())
+                    n_live = int(valid.sum()) * b * H
+                    err = (got.float() - want.float()).abs()
+                    flip_rows = flipped.any(-1)
+                    err_clean = float(err[~flip_rows].max()) \
+                        if (~flip_rows).any() else 0.0
+                    max_err = float(err.max())
+                    what = (f"B {b} Tq {tq} Tk {tk} {str(dtype)[6:]} "
+                            f"{'exact' if exact else 'random'} "
+                            f"{'causal' if causal else 'full'}")
+                    log(f"[fused] {what}: flips {flips}/{n_live}, max|d| "
+                        f"{max_err:.3e}, rows w/o flips {err_clean:.3e}")
+                    check(bool(torch.isfinite(got).all()),
+                          f"fused output not finite: {what}")
+                    if exact:
+                        check(flips == 0 and max_err == 0.0,
+                              f"exact case differs: {what}")
+                    else:
+                        check(flips <= RANDOM_FLIP_FRACTION * n_live,
+                              f"{flips} bin flips of {n_live}: {what}")
+                        check(err_clean <= RANDOM_MAX_ERR_NO_FLIP,
+                              f"max |d| {err_clean} on rows without flips: "
+                              f"{what}")
+                    if (full and dtype == torch.float32 and causal
+                            and not exact):
+                        with torch.inference_mode():
+                            model = blockwise_run(case)()
+                        torch.cuda.synchronize()
+                        err = float((got - model).abs().max())
+                        log(f"[fused] against the blockwise STE attention "
+                            f"(granite cfg, block_k 512): max|d| {err:.3e}")
+                        check(err <= BLOCKWISE_ATOL, f"fused kernel against "
+                              f"the blockwise attention: max |d| {err}")
+
+
+def blockwise_run(case):
+    """A call of `models/attention.py` _blockwise_attention on a fused
+    case (granite's full prefill, causal) with granite's cfg (hccs, mode
+    wide, block_k 512) and the case's per-head params: what the served
+    model runs for that attention today."""
+    cfg = get_config("granite-3-2b")
+    check(cfg.attention_prob == "hccs" and cfg.hccs_mode == "wide"
+          and cfg.block_k == 512, "granite-3-2b attention config changed")
+    th = case["theta"]
+    hc = {"B": th[:, 0].contiguous(), "S": th[:, 1].contiguous(),
+          "D": th[:, 2].contiguous(), "scale": case["scale"]}
+    b, _, t, _ = case["q"].shape
+    pos = torch.arange(t, device="cuda")[None].expand(b, t)
+    return (lambda: _blockwise_attention(case["q"], case["k"], case["v"],
+                                         pos, None, cfg, hc))
+
+
+NEW_KERNELS = (hccs_rows, softmax_bf16, hccs_mha_fused)
+
+
+def phase_table3():
+    """The entry point, and the one place phases 11-14 time. The main
+    path: the paper's Table III through repro_torch.kernels
+    (softmax_reference in bf16, hccs_softmax in i16_div and i8_clb) at
+    4096 x 32/64/128 and granite's 65,536 x 2048 rows, and hccs_attention
+    at granite's full prefill shape, each timed per call (CUDA events over
+    back-to-back calls, host dispatch included). Every launch counter is
+    set to 0 before that run and read after it; each must equal the calls
+    made. Then, outside the count: the same calls' device time (captured in
+    CUDA graphs and replayed), the plain versions', torch.softmax's and the
+    blockwise STE attention's times at granite's shapes, and the outputs
+    against the plain versions. Returns the launch counts and the report
+    entries {kernel name: timing} at granite's shapes."""
+    gen = torch.Generator("cuda").manual_seed(14)
+    inputs = []
+    for rows, n in [(PAPER_ROWS, c) for c in PAPER_NS] + [(G_ROWS, G_COLS)]:
+        xf = (torch.randn((rows, n), generator=gen, device="cuda") * 2.0)
+        xi = torch.randint(-128, 128, (rows, n), dtype=torch.int8,
+                           device="cuda", generator=gen)
+        theta = torch.tensor(np.tile(default_params(n), (rows, 1)) if
+                             rows == PAPER_ROWS else row_theta(n, MAX_LEN),
+                             dtype=torch.int32, device="cuda")
+        inputs.append((rows, n, xf.to(torch.bfloat16), xi, theta))
+    attn = fused_case(1, MAX_LEN, MAX_LEN, torch.float32, False, 99)
+    calls = {k.__name__: 0 for k in NEW_KERNELS}
+    outs = {}
+
+    def call(name, key, fn):
+        def run():
+            calls[name] += 1
+            outs[key] = fn()
+        return run
+
+    def table_fns(rows, n, xb, xi, theta):
+        return [call("softmax_bf16", (rows, n, "softmax"),
+                     lambda: KAPI.softmax_reference(xb)),
+                call("hccs_rows", (rows, n, "i16_div"),
+                     lambda: KAPI.hccs_softmax(xi, theta, "i16_div")),
+                call("hccs_rows", (rows, n, "i8_clb"),
+                     lambda: KAPI.hccs_softmax(xi, theta, "i8_clb"))]
+
+    attn_fn = call("hccs_mha_fused", "attention", lambda: KAPI.hccs_attention(
+        attn["q"], attn["k"], attn["v"], attn["scale"], attn["theta"]))
+    torch.cuda.synchronize()
+    for k in KERNELS + NEW_KERNELS:             # count the path's run only
+        k.launches = 0
+    per_call = {inp[:2]: [cuda_time_ms(f) for f in table_fns(*inp)]
+                for inp in inputs}
+    t_attn = cuda_time_ms(attn_fn, iters=10, warmup=1)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in NEW_KERNELS}
+    others = {k.__name__: k.launches for k in KERNELS}
+    log(f"[table3] launches {launches}, calls {calls}, decode kernels "
+        f"{others}")
+    check(launches == calls and all(launches.values()),
+          f"launches {launches} != calls {calls}")
+    check(not any(others.values()), f"decode kernels ran: {others}")
+
+    device = {inp[:2]: [graph_time_ms(f) for f in table_fns(*inp)]
+              for inp in inputs}                # not counted: CUDA graphs
+    log("[table3] rows x n, per call (host dispatch included) | device "
+        "only (CUDA graph): ms, elements/s, speedup over softmax bf16")
+    for rows, n in per_call:
+        for tag, ts in (("call", per_call[rows, n]),
+                        ("device", device[rows, n])):
+            el = rows * n
+            cols = [f"{name} {t:.4f} ms ({el / t * 1e3:.3e}/s, "
+                    f"{ts[0] / t:.2f}x)" for name, t in
+                    zip(("softmax bf16", "hccs i16_div", "hccs i8_clb"), ts)]
+            log(f"[table3] {rows} x {n} {tag:6s}: " + "; ".join(cols))
+
+    for rows, n, xb, xi, theta in inputs:      # what came out is right
+        sm = outs[rows, n, "softmax"]
+        check(sm.shape == (rows, n) and sm.dtype == torch.bfloat16
+              and int(ulp_bf16(sm, softmax_bf16_ref(xb)).max())
+              <= SOFTMAX_MAX_ULP_BF16, f"softmax_reference {rows}x{n}")
+        check(torch.equal(outs[rows, n, "i16_div"],
+                          hccs_rows_ref(xi, theta, "i16_div"))
+              and torch.equal(outs[rows, n, "i8_clb"],
+                              hccs_rows_ref(xi, theta, "i8_clb")),
+              f"hccs_softmax {rows}x{n}")
+    got = outs["attention"]
+    attn_err = float((got - hccs_mha_fused_ref(**attn)).abs().max())
+    check(got.shape == attn["q"].shape and bool(torch.isfinite(got).all())
+          and attn_err <= BLOCKWISE_ATOL, f"hccs_attention: max |d| "
+          f"{attn_err}")
+    _, _, xb, xi, theta = inputs[-1]            # granite's rows
+    sm_err = float((outs[G_ROWS, G_COLS, "softmax"].float()
+                    - softmax_bf16_ref(xb).float()).abs().max())
+    log(f"[table3] outputs against the plain versions: softmax <= "
+        f"{SOFTMAX_MAX_ULP_BF16} ulp (max |d| {sm_err:.3e} at granite's "
+        f"rows), hccs_softmax identical, hccs_attention max |d| "
+        f"{attn_err:.3e}")
+
+    def entry(ms, plain, library, nbytes, ops, err):
+        b, by = bound(nbytes, ops)
+        return dict(ms=ms, plain_ms=plain, library_ms=library, bound_ms=b,
+                    bound_by=by, max_abs_err=err, bytes=nbytes, ops=ops)
+
+    with torch.inference_mode():
+        blockwise_ms = cuda_time_ms(blockwise_run(attn), iters=3, warmup=1)
+    g = (G_ROWS, G_COLS)
+    _, _, fused_bytes, fused_flops = fused_bound(attn, True)
+    timings = {
+        "hccs_rows": entry(
+            per_call[g][1], cuda_time_ms(lambda: hccs_rows_ref(
+                xi, theta, "i16_div"), iters=5), None,
+            xi.numel() * 5 + theta.numel() * 4, 10.0 * xi.numel(), 0.0),
+        "softmax_bf16": entry(
+            per_call[g][0], cuda_time_ms(lambda: softmax_bf16_ref(xb),
+                                         iters=5),
+            cuda_time_ms(lambda: torch.softmax(xb, -1)),
+            2 * xb.numel() * xb.element_size(), 5.0 * xb.numel(), sm_err),
+        "hccs_mha_fused": entry(
+            t_attn, cuda_time_ms(lambda: hccs_mha_fused_ref(**attn),
+                                 iters=5), None,
+            fused_bytes, fused_flops, attn_err)}
+    for name, tm in timings.items():
+        lib = (f", torch.softmax {tm['library_ms']:.4f} ms"
+               if tm["library_ms"] is not None else "")
+        log(f"[table3] timing {name} at granite's shape: kernel "
+            f"{tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms{lib}, bound "
+            f"{tm['bound_ms']:.4f} ms ({tm['bound_by']}: "
+            f"{tm['bytes'] / 1e6:.2f} MB, {tm['ops'] / 1e9:.3f} G ops)")
+    log(f"[table3] the blockwise STE attention on hccs_attention's inputs: "
+        f"{blockwise_ms:.4f} ms")
+    return launches, timings
+
+
+def kernel_entry(name, source, replaces, launches, tm, shape,
+                 library_ms=None):
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "launches": launches,
             "max_abs_err": tm["max_abs_err"], "ms": tm["ms"],
             "kernel_ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
-            "library_ms": None, "shape": shape}
+            "library_ms": library_ms, "shape": shape}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases",
+                    default=",".join(str(p) for p in range(1, 16)),
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -830,9 +1266,18 @@ def main(argv=None):
     if phases & {8, 9, 10}:
         path_launches = phase_paths(packed_tokens, phases)
     if 11 in phases:
+        phase_rows()
+    if 12 in phases:
+        phase_softmax()
+    if 13 in phases:
+        phase_fused()
+    table3_launches, kernel_t = None, None
+    if 14 in phases:
+        table3_launches, kernel_t = phase_table3()
+    if 15 in phases:
         check(launches and timings and len(decode_timings) == 2
-              and len(path_launches) == 2,
-              "phase 11 needs phases 3 and 5 to 10")
+              and len(path_launches) == 2 and {11, 12, 13} <= phases
+              and table3_launches, "phase 15 needs phases 3 and 5 to 14")
         tm = dict(timings[max(timings)], max_abs_err=worst)
         geo = f"granite H={H} Hkv={HKV} d={D}"
         log(json.dumps({"kernels": [
@@ -850,7 +1295,24 @@ def main(argv=None):
                          path_launches["hccs_decode"],
                          decode_timings["arena"],
                          f"B=8, {geo} Tmax={MAX_LEN}, f32 arena, mode "
-                         f"wide")]}))
+                         f"wide"),
+            kernel_entry("hccs_rows", "hccs_rows.cu",
+                         "src/repro/kernels/hccs.py:79",
+                         table3_launches["hccs_rows"],
+                         kernel_t["hccs_rows"],
+                         f"{G_ROWS} x {G_COLS} int8, per-head theta, "
+                         f"i16_div"),
+            kernel_entry("softmax_bf16", "softmax_bf16.cu",
+                         "src/repro/kernels/softmax_bf16.py:32",
+                         table3_launches["softmax_bf16"],
+                         kernel_t["softmax_bf16"],
+                         f"{G_ROWS} x {G_COLS} bf16",
+                         kernel_t["softmax_bf16"]["library_ms"]),
+            kernel_entry("hccs_mha_fused", "hccs_fused.cu",
+                         "src/repro/kernels/attention.py:95",
+                         table3_launches["hccs_mha_fused"],
+                         kernel_t["hccs_mha_fused"],
+                         f"B=1, {geo} T={MAX_LEN}, f32, causal")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -12,6 +12,9 @@ edited source rebuilds and an unchanged one loads the cached library. Only
 sources in the repository are compiled; a failed compile raises with nvcc's
 stderr. Fast-math flags are deliberately absent: an approximate division or
 reciprocal moves logits across int8 bin boundaries.
+
+`launch` is the one path by which every kernel wrapper calls the library:
+on the current stream, raising on a CUDA error, counting the launch.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
@@ -114,7 +119,44 @@ def load_library() -> ctypes.CDLL:
         lib.hccs_paged_decode_launch.restype = i
         lib.hccs_decode_launch.argtypes = [vp] * 8 + [i] * 8 + [f, vp]
         lib.hccs_decode_launch.restype = i
+        lib.hccs_rows_launch.argtypes = [vp] * 3 + [i] * 3 + [vp]
+        lib.hccs_rows_launch.restype = i
+        lib.softmax_bf16_launch.argtypes = [vp] * 2 + [i] * 3 + [vp]
+        lib.softmax_bf16_launch.restype = i
+        lib.hccs_fused_launch.argtypes = [vp] * 7 + [i] * 8 + [f, vp]
+        lib.hccs_fused_launch.restype = i
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def cuda_device(*tensors) -> torch.device:
+    """The one CUDA device all `tensors` (None skipped) lie on; raises for
+    any other device or a mix, and for a non-contiguous operand."""
+    devices = {a.device for a in tensors if a is not None}
+    if len(devices) != 1:
+        raise ValueError("all operands must lie on one device")
+    dev = devices.pop()
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    if not all(a.is_contiguous() for a in tensors if a is not None):
+        raise ValueError("every operand must be contiguous")
+    return dev
+
+
+def launch(fn, entry: str, device: torch.device, *args) -> None:
+    """Call the C entry point `entry` on `device`'s current stream and count
+    one launch on `fn`. Tensors pass as pointers (None as a null pointer),
+    other arguments as `load_library` declares them. A non-zero cudaError_t
+    raises; nothing falls back."""
+    lib = load_library()
+    conv = [ctypes.c_void_p(0 if a is None else a.data_ptr())
+            if a is None or isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*conv, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err} "
+                           f"({lib.cuda_error_string(err).decode()})")
+    fn.launches += 1

@@ -20,13 +20,11 @@ against on the card. There is no fallback from one to the other.
 """
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
 from repro_torch.core.hccs import hccs_mode_inv
-from repro_torch.kernels.build import load_library
+from repro_torch.kernels.build import cuda_device, launch
 
 NEG_BIG = -(2 ** 30)
 MODES = ("wide", "i16_div", "i16_clb")
@@ -242,13 +240,13 @@ def _check_table(block_table, rows=None):
 def _launch(fn, entry: str, args, q, k, *, qint_out, qint_len, tile,
             **ctx) -> torch.Tensor:
     """Launch one of the CUDA kernels on `q`'s device and stream: the shared
-    launch limits, contiguity and qint_out checks, the output allocation,
-    the error check and the launch count. `ctx` are the entry point's
-    trailing int arguments, in order, before pool type, mode, static_max."""
+    launch limits and qint_out checks and the output allocation, then
+    `build.launch` (device, contiguity, error check, launch count). `ctx`
+    are the entry point's trailing int arguments, in order, before pool
+    type, mode, static_max."""
     r, h, d = q.shape
     g = h // k.shape[1]
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
+    dev = cuda_device(*args, qint_out)
     if g > MAX_GROUP or d > MAX_HEAD_DIM:
         raise ValueError(f"kernel takes GQA groups <= {MAX_GROUP} and "
                          f"head_dim <= {MAX_HEAD_DIM}, got {g} and {d}")
@@ -256,33 +254,17 @@ def _launch(fn, entry: str, args, q, k, *, qint_out, qint_len, tile,
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"kernel needs {smem} B of shared memory, over the "
                          f"{MAX_SMEM_BYTES} B a block can have")
-    if len({a.device for a in args if a is not None}) != 1:
-        raise ValueError("all operands must lie on one device")
-    for a in args:
-        if a is not None and not a.is_contiguous():
-            raise ValueError("every operand must be contiguous")
-    if qint_out is not None and (
-            qint_out.dtype != torch.int8 or not qint_out.is_contiguous()
-            or tuple(qint_out.shape) != (r, h, qint_len)
-            or qint_out.device != q.device):
+    if qint_out is not None and (qint_out.dtype != torch.int8 or tuple(
+            qint_out.shape) != (r, h, qint_len)):
         raise ValueError(f"qint_out must be a contiguous int8 "
-                         f"{(r, h, qint_len)} tensor on {q.device}")
-    out = torch.empty((r, h, d), dtype=torch.float32, device=q.device)
+                         f"{(r, h, qint_len)} tensor on {dev}")
+    out = torch.empty((r, h, d), dtype=torch.float32, device=dev)
     if r == 0:
         return out
-    lib = load_library()
-    ptr = (lambda a: ctypes.c_void_p(a.data_ptr() if a is not None else 0))
     mode, static_max = ctx.pop("mode"), ctx.pop("static_max")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, entry)(
-            *[ptr(a) for a in args], ptr(out), ptr(qint_out),
-            *ctx.values(), POOL_TYPES[k.dtype], MODE_CODES[mode],
-            int(static_max), sm_denom(d), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err} "
-                           f"({lib.cuda_error_string(err).decode()})")
-    fn.launches += 1
+    launch(fn, entry, dev, *args, out, qint_out, *ctx.values(),
+           POOL_TYPES[k.dtype], MODE_CODES[mode], int(static_max),
+           sm_denom(d))
     return out
 
 

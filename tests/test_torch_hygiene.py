@@ -69,7 +69,10 @@ def test_every_port_module_imports_without_jax():
     assert {"repro_torch.core.hccs", "repro_torch.models.attention",
             "repro_torch.models.blocks", "repro_torch.kernels.decode",
             "repro_torch.serve.engine", "repro_torch.serve.continuous",
-            "repro_torch.serve.paged", "repro_torch.launch.serve"} <= mods
+            "repro_torch.serve.paged", "repro_torch.launch.serve",
+            "repro_torch.kernels.ops", "repro_torch.kernels.ref",
+            "repro_torch.kernels.hccs", "repro_torch.kernels.softmax_bf16",
+            "repro_torch.kernels.attention"} <= mods
 
 
 # The JAX package's modules with no counterpart at the same path in the
@@ -78,10 +81,8 @@ def test_every_port_module_imports_without_jax():
 UNPORTED = [
     "checkpoint/__init__.py", "checkpoint/manager.py", "configs/shapes.py",
     "core/calibrate.py", "core/qat.py", "data/__init__.py",
-    "data/synthetic.py", "kernels/attention.py", "kernels/hccs.py",
-    "kernels/ops.py", "kernels/ref.py", "kernels/softmax_bf16.py",
-    "launch/dryrun.py", "launch/inspect_hlo.py", "launch/mesh.py",
-    "launch/roofline.py", "launch/train.py", "models/moe.py",
+    "data/synthetic.py", "launch/dryrun.py", "launch/inspect_hlo.py",
+    "launch/mesh.py", "launch/roofline.py", "launch/train.py", "models/moe.py",
     "models/ssm.py", "optim/__init__.py", "optim/adamw.py",
     "optim/compression.py", "parallel/__init__.py", "parallel/sharding.py",
     "quant/__init__.py", "quant/int8.py", "serve/admission.py",
@@ -248,6 +249,127 @@ def test_kernel_wrapper_on_cpu_counts_no_launch():
             t([[1, 2], [3, -1]], torch.int32), t([0, 1, -1], torch.int32),
             t([9, 3, 0], torch.int32), t([0.1] * 4),
             t([[159, 1, 64]] * 4, torch.int32), mode="i8_div")
+
+
+def test_kernel_api_builds_nothing_at_import():
+    """Importing the public kernel API (and running it on CPU tensors)
+    neither builds nor loads the CUDA library."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "from repro_torch.kernels import (hccs_attention, hccs_decode,\n"
+        "    hccs_packed_prefill, hccs_paged_decode, hccs_softmax,\n"
+        "    softmax_reference)\n"
+        "from repro_torch.kernels import build\n"
+        "hccs_softmax(torch.zeros((2, 8), dtype=torch.int8),\n"
+        "             torch.tensor([[9, 1, 8]] * 2, dtype=torch.int32))\n"
+        "softmax_reference(torch.zeros((2, 8)))\n"
+        "print(build._lib is None, build.BUILD_DIR.exists() and any(\n"
+        "    build.BUILD_DIR.glob('*.so')))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[0] == "True"
+
+
+def _fake_cuda_args(name):
+    """Arguments of each kernel wrapper as CUDA tensors without a card:
+    FakeTensors carry a device and a shape, and no data."""
+    f32, i32 = torch.float32, torch.int32
+    q3, pool, sc, th = ((2, 4, 16), f32), ((5, 2, 8, 16), f32), \
+        ((4,), f32), ((4, 3), i32)
+    shapes = {
+        "hccs_rows": [((4, 16), torch.int8), ((4, 3), i32)],
+        "softmax_bf16": [((4, 16), torch.bfloat16)],
+        "hccs_mha_fused": [((1, 4, 8, 16), f32), ((1, 2, 8, 16), f32),
+                           ((1, 2, 8, 16), f32), sc, th],
+        "hccs_decode": [q3, ((2, 2, 11, 16), f32), ((2, 2, 11, 16), f32),
+                        ((2,), i32), sc, th],
+        "hccs_paged_decode": [q3, pool, pool, ((2, 3), i32), ((2,), i32),
+                              sc, th],
+        "hccs_packed_prefill": [q3, pool, pool, ((2, 3), i32), ((2,), i32),
+                                ((2,), i32), sc, th],
+    }[name]
+    return [torch.empty(shape, dtype=dt, device="cuda")
+            for shape, dt in shapes]
+
+
+@pytest.mark.parametrize("name", [
+    "hccs_rows", "softmax_bf16", "hccs_mha_fused", "hccs_decode",
+    "hccs_paged_decode", "hccs_packed_prefill"])
+def test_wrappers_raise_on_cuda_when_the_build_fails(name, monkeypatch):
+    """On a CUDA tensor each kernel wrapper launches its kernel or raises:
+    a failed build raises and neither counts a launch nor runs the plain
+    version."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import (attention, build, decode, hccs,
+                                     softmax_bf16)
+    mod = {"hccs_rows": hccs, "softmax_bf16": softmax_bf16,
+           "hccs_mha_fused": attention}.get(name, decode)
+    wrapper = getattr(mod, name)
+    ref = getattr(mod, f"{name}_ref")
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def no_fallback(*a, **kw):
+        raise AssertionError(f"{ref.__name__} ran on a CUDA tensor")
+
+    monkeypatch.setattr(build, "load_library", no_nvcc)
+    monkeypatch.setattr(mod, ref.__name__, no_fallback)
+    before = wrapper.launches
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        args = _fake_cuda_args(name)
+        with pytest.raises(RuntimeError, match="nvcc"):
+            wrapper(*args)
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_fused_wrapper_takes_non_contiguous_inputs(device, monkeypatch):
+    """hccs_attention accepts a (B, T, H, d) -> (B, H, T, d) transposed view
+    on both devices: on the CPU it equals the contiguous call; on a CUDA
+    tensor (fake, with a failing build) it reaches the launch rather than
+    refusing the layout."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ops import hccs_attention
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((1, 8, h, 16), generator=g).transpose(1, 2)
+               for h in (4, 2, 2))
+    scale = torch.full((4,), 0.05)
+    theta = torch.tensor([[159, 1, 64]] * 4, dtype=torch.int32)
+    assert not q.is_contiguous()
+    if device == "cpu":
+        got = hccs_attention(q, k, v, scale, theta)
+        want = hccs_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              scale, theta)
+        assert torch.equal(got, want)
+        return
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def contiguous(self, memory_format=torch.contiguous_format):
+        # a fake CUDA tensor's own contiguous() needs a CUDA build of torch
+        return self if self.is_contiguous() else self.clone(
+            memory_format=memory_format)
+
+    monkeypatch.setattr(build, "load_library", no_nvcc)
+    monkeypatch.setattr(torch.Tensor, "contiguous", contiguous)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        args = [torch.empty((1, 8, h, 16), device="cuda").transpose(1, 2)
+                for h in (4, 2, 2)]
+        args += [torch.empty((4,), device="cuda"),
+                 torch.empty((4, 3), dtype=torch.int32, device="cuda")]
+        assert not args[0].is_contiguous()
+        with pytest.raises(RuntimeError, match="nvcc"):
+            hccs_attention(*args)
 
 
 @pytest.mark.parametrize("name", ["ModelConfig", "ShapeConfig",
