@@ -14,17 +14,22 @@ paper's Table III shapes, and checks that each path really ran its kernels.
 Phases, in order:
 
   1 device      the card's name and power limit; fails without CUDA
-  2 build       nvcc build time, registers and shared memory per kernel
+  2 build       nvcc build time, registers, spills and shared memory per
+                kernel
   3 kernel      hccs_packed_prefill against hccs_packed_prefill_ref at
                 granite's shapes, every width of the engine's ladder, every
-                mode / static_max / pool dtype, exact and random inputs; times
+                mode / static_max / pool dtype, exact and random inputs, and
+                a pool of 256-key blocks (split boundaries inside blocks);
+                times per call, device-only warm and L2-cold
   4 forward     one packed step of granite (2 layers, f32), card against CPU
   5 engine      packed PagedEngine: granite, 40 layers, bf16, 8 requests x 32
                 new tokens, twice, then once profiled
   6 kernel      hccs_paged_decode against hccs_paged_decode_ref (8 slots,
-                frontiers 0-2048, f32/bf16/int8 pools); times
+                frontiers 0-2048, f32/bf16/int8 pools); times as phase 3's
+                (the old one-block-per-row sweep: the control of phase 7)
   7 kernel      hccs_decode against hccs_decode_ref (8 slots, frontiers
-                0-2048, f32/bf16 arenas, and an arena of odd length); times
+                0-2048, f32/bf16 arenas, an arena of odd length, frontiers
+                at the split boundaries); times as phase 3's
   8 lockstep    lockstep PagedEngine on phase 5's requests, twice, then
                 once profiled
   9 continuous  ContinuousEngine on phase 5's requests, the same way
@@ -73,13 +78,15 @@ from repro_torch.core.constraints import (default_params,  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.attention import (hccs_mha_fused,  # noqa: E402
                                            hccs_mha_fused_ref, mha_qint)
-from repro_torch.kernels.decode import (ARENA_TILE,  # noqa: E402
+from repro_torch.kernels.decode import (SPLIT_KEYS,  # noqa: E402
                                         decode_qint, hccs_decode,
                                         hccs_decode_ref, hccs_packed_prefill,
                                         hccs_packed_prefill_ref,
                                         hccs_paged_decode,
                                         hccs_paged_decode_ref, packed_qint,
-                                        paged_qint, smem_bytes)
+                                        paged_qint, split_count,
+                                        split_smem_bytes, sweep_smem_bytes,
+                                        workspace_bytes)
 from repro_torch.kernels.hccs import hccs_rows, hccs_rows_ref  # noqa: E402
 from repro_torch.kernels.softmax_bf16 import (softmax_bf16,  # noqa: E402
                                               softmax_bf16_ref)
@@ -143,6 +150,9 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+L2_FLUSH_BYTES = 128 << 20      # written before each L2-cold call (L2: 50 MB)
+
+
 def graph_time_ms(fn, calls: int = 20, replays: int = 10) -> float:
     """Device time of one call of `fn`: `calls` calls captured in a CUDA
     graph, replayed `replays` times after one warm-up replay, timed with
@@ -164,6 +174,85 @@ def graph_time_ms(fn, calls: int = 20, replays: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (calls * replays)
+
+
+def cold_time_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device time of one call of `fn` that finds the L2 cache cold: CUDA
+    graphs of `calls` x (write L2_FLUSH_BYTES, then fn) and of the writes
+    alone, the difference per call. The writes evict every line fn would
+    otherwise find in the 50 MB L2."""
+    buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                      device="cuda")
+
+    def flush():
+        buf.fill_(1.0)
+
+    def both():
+        flush()
+        fn()
+    return graph_time_ms(both, calls, replays) - graph_time_ms(
+        flush, calls, replays)
+
+
+# the split sweep's kernels (csrc/hccs_split.cuh), one symbol per pass
+SPLIT_PASSES = {"split_qk_kernel": "pass1", "split_pv_kernel": "pass2",
+                "split_fused_kernel": "fused", "split_combine_kernel": "pass3"}
+
+
+def kernel_passes(fn, calls: int = 10) -> str:
+    """The kernels one call of `fn` runs on the card and the mean device
+    time of each (the split sweep's pass 1, pass 2 or fused pass, and pass
+    3), by torch.profiler's CUDA events over `calls` calls. After a long
+    profiled engine run the profiler may deliver only some of a short
+    run's events; each mean is over the events it delivered, and the line
+    says how many. (The gaps between kernels under the profiler are its
+    own, not the call's: see device_ms.)"""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+
+    def short(name):
+        name = name.replace("(anonymous namespace)::", "")
+        name = name.replace("void ", "").split("<")[0].split("(")[0]
+        name = name.split("::")[-1]
+        return SPLIT_PASSES.get(name, name)
+    times: dict[str, list[float]] = {}
+    for e in sorted((e for e in prof.events()
+                     if str(e.device_type).endswith("CUDA")),
+                    key=lambda e: e.time_range.start):
+        times.setdefault(short(e.name), []).append(
+            e.time_range.elapsed_us())
+    if not times:
+        return "no device events: per-kernel times not measured"
+    parts = [f"{name} {sum(us) / len(us):.1f} us" for name, us in
+             times.items()]
+    n = sum(len(us) for us in times.values())
+    return (f"{len(times)} kernel(s) a call: {', '.join(parts)} ({n} "
+            f"events of {calls} calls)")
+
+
+def kernel_times(fn, plain) -> dict:
+    """A kernel wrapper's times at one shape: per call with the host path
+    (CUDA events over back-to-back calls, K/V warm in L2), device only
+    (CUDA graph), device only with L2 flushed before each call; the
+    plain version's per-call time; and the kernels of a call."""
+    return dict(ms=cuda_time_ms(fn), device_ms=graph_time_ms(fn),
+                cold_ms=cold_time_ms(fn),
+                plain_ms=cuda_time_ms(plain, iters=5),
+                passes=kernel_passes(fn))
+
+
+def times_text(tm) -> str:
+    return (f"kernel {tm['ms']:.4f} ms per call, device {tm['device_ms']:.4f}"
+            f" ms warm / {tm['cold_ms']:.4f} ms L2-cold, plain "
+            f"{tm['plain_ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms "
+            f"({tm['bound_by']}: {tm['bytes'] / 1e6:.2f} MB, "
+            f"{tm['flops'] / 1e9:.3f} GFLOP); {tm['passes']}")
 
 
 # ---------------------------------------------------------------- phase 1 --
@@ -195,25 +284,36 @@ def phase_build():
     dt = time.perf_counter() - t0
     log(f"[build] {dt:.2f}s (nvcc {kbuild.build_log['seconds']:.2f}s"
         f"{', cached' if kbuild.build_log['cached'] else ''})")
-    fn = ""
+    fn, spill = "", ""
     for line in kbuild.build_log["ptxas"].splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1] if "'" in line else line
+        elif "spill stores" in line:
+            spill = line.strip()
         elif "Used" in line and "registers" in line:
-            log(f"[build] {fn}: {line.split(':', 1)[-1].strip()}")
+            log(f"[build] {fn}: {line.split(':', 1)[-1].strip()}; {spill}")
+    g = H // HKV
+    split = [" / ".join(str(split_smem_bytes(g, D, e, static))
+                        for e in (4, 2, 1)) for static in (False, True)]
     log(f"[build] dynamic shared memory per block at granite shapes: "
-        f"{smem_bytes(H // HKV, D, BS, MAX_LEN)} B (packed, paged), "
-        f"{smem_bytes(H // HKV, D, ARENA_TILE, MAX_LEN)} B (arena)")
+        f"{sweep_smem_bytes(g, D, BS, MAX_LEN)} B (paged, one-block-per-row "
+        f"sweep); split sweep (packed, arena), f32 / bf16 / int8 K/V: "
+        f"{split[0]} B (passes 1-2), {split[1]} B (static_max pass); "
+        f"{SPLIT_KEYS}-key splits, "
+        f"{split_count(MAX_LEN)} a {MAX_LEN}-key row; workspace of a decode "
+        f"step {workspace_bytes(MAX_BATCH, H, MAX_LEN, D, qint_scratch=True)}"
+        f" B, of a width-256 step "
+        f"{workspace_bytes(256, H, MAX_LEN, D, qint_scratch=True)} B")
 
 
 # ---------------------------------------------------------------- phase 3 --
 
-def make_case(width: int, pool_dtype, exact: bool, seed: int):
+def make_case(width: int, pool_dtype, exact: bool, seed: int, bs: int = BS):
     """Granite-shaped kernel inputs on the card: 8 slots with frontiers from
-    1 to 2048 in a shuffled pool, one packed step of width `width` laid out
-    by the engine's own scheduler (prefill chunks + decode lanes + pads),
-    one sentinel entry inside a live frontier and sentinels past every
-    frontier."""
+    1 to 2048 in a shuffled pool of `bs`-key blocks, one packed step of
+    width `width` laid out by the engine's own scheduler (prefill chunks +
+    decode lanes + pads), one sentinel entry inside a live frontier and
+    sentinels past every frontier."""
     rng = np.random.default_rng(seed)
     fronts = np.array([2048, 1024, 777, 1500, 33, 100, 511, 1])
     remaining = {8: [0] * 8, 64: [50] + [0] * 7,
@@ -226,16 +326,16 @@ def make_case(width: int, pool_dtype, exact: bool, seed: int):
     for s in range(8):
         tv = int(t_valid[s])
         lens[off[s]:off[s] + tv] = fronts[s] - tv + 1 + np.arange(tv)
-    n_blocks = 1 + int(sum(-(-f // BS) for f in fronts))
+    n_blocks = 1 + int(sum(-(-f // bs) for f in fronts))
     perm = rng.permutation(np.arange(1, n_blocks))
-    table = np.full((MAX_BATCH, NBLK), -1, np.int32)
+    table = np.full((MAX_BATCH, MAX_LEN // bs), -1, np.int32)
     c = 0
     for s, f in enumerate(fronts):
-        nb = -(-f // BS)
+        nb = -(-f // bs)
         table[s, :nb] = perm[c:c + nb]
         c += nb
     table[3, 5] = -1                          # a sentinel inside a frontier
-    shape = (n_blocks, HKV, BS, D)
+    shape = (n_blocks, HKV, bs, D)
     if exact:                                 # multiples of 2^-3: exact f32
         q = rng.integers(-8, 9, (width, H, D)) / 8.0
         k = rng.integers(-8, 9, shape) / 8.0
@@ -282,96 +382,107 @@ def bound_of(case) -> tuple[float, str, float, float]:
     sid = case["slot_ids"].cpu().numpy()
     lens = case["lengths"].cpu().numpy()
     elem = case["k_pool"].element_size()
+    bs = case["k_pool"].shape[2]
     t = sid.shape[0]
     kv_rows = 0
     live_keys = 0
     for s in np.unique(sid[sid >= 0]):
         top = int(lens[sid == s].max())
         cols = np.arange(top)
-        kv_rows += int((table[s, cols // BS] >= 0).sum())
+        kv_rows += int((table[s, cols // bs] >= 0).sum())
     for i in np.flatnonzero(sid >= 0):
         cols = np.arange(int(lens[i]))
-        live_keys += int((table[sid[i], cols // BS] >= 0).sum())
+        live_keys += int((table[sid[i], cols // bs] >= 0).sum())
     nbytes = (2 * kv_rows * HKV * D * elem + 2 * t * H * D * 4
               + table.nbytes + 2 * t * 4)
     flops = 2.0 * 2.0 * live_keys * H * D
     return (*bound(nbytes, flops), nbytes, flops)
 
 
+# a pool of 256-key blocks: every split boundary falls inside a block
+WIDE_BLOCKS = (64, 256)
+
+
 def phase_kernel():
     rows = []
     timings = {}
     worst = 0.0
-    for width in WIDTHS:
-        for pool_dtype in (torch.float32, torch.bfloat16, torch.int8):
-            for exact in (True, False):
-                case = make_case(width, pool_dtype, exact,
-                                 seed=width * 7 + int(exact))
-                for mode in ("wide", "i16_div", "i16_clb"):
-                    for static_max in (False, True):
-                        kw = dict(mode=mode, static_max=static_max)
-                        t, h, _ = case["q"].shape
-                        qo = torch.full((t, h, NBLK * BS), -128,
-                                        dtype=torch.int8, device="cuda")
-                        got = hccs_packed_prefill(**case, **kw, qint_out=qo)
-                        want = hccs_packed_prefill_ref(**case, **kw)
-                        qi, valid = packed_qint(
-                            case["q"], case["k_pool"], case["block_table"],
-                            case["slot_ids"], case["lengths"], case["scale"],
-                            case["k_scales"])
-                        torch.cuda.synchronize()
-                        live = valid[:, None, :].expand_as(qi)
-                        flips = int((qo.int() != qi)[live].sum())
-                        n_live = int(live.sum())
-                        err = (got - want).abs()
-                        flip_rows = ((qo.int() != qi) & live).any(-1)
-                        err_clean = float(err[~flip_rows].max()) \
-                            if (~flip_rows).any() else 0.0
-                        max_err = float(err.max())
-                        worst = max(worst, max_err)
-                        rel = float((err / want.abs().clamp(min=1e-30))
-                                    .max()) if exact else float("nan")
-                        rows.append((width, str(pool_dtype).split(".")[-1],
-                                     mode, static_max, exact, flips, n_live,
-                                     max_err, err_clean))
-                        pads = got[case["slot_ids"] < 0]
-                        check(bool((pads == 0).all()),
-                              f"pad lanes not zero at width {width}")
-                        if exact:
-                            check(flips == 0 and (max_err == 0.0
-                                                  or rel <= 1e-6),
-                                  f"exact case differs: width {width} "
-                                  f"{pool_dtype} {mode} static={static_max}"
-                                  f" flips={flips} max_err={max_err}")
-                        else:
-                            check(flips <= RANDOM_FLIP_FRACTION * n_live,
-                                  f"{flips} bin flips of {n_live} at width "
-                                  f"{width} {pool_dtype} {mode}")
-                            check(err_clean <= RANDOM_MAX_ERR_NO_FLIP,
-                                  f"max |d| {err_clean} on rows without "
-                                  f"flips, width {width} {pool_dtype} {mode}")
-                        if (pool_dtype == torch.float32 and mode == "wide"
-                                and not static_max and not exact):
-                            ms = cuda_time_ms(
-                                lambda: hccs_packed_prefill(**case, **kw))
-                            plain = cuda_time_ms(
-                                lambda: hccs_packed_prefill_ref(**case, **kw),
-                                iters=5)
-                            bound, by, nbytes, flops = bound_of(case)
-                            timings[width] = dict(
-                                ms=ms, plain_ms=plain, bound_ms=bound,
-                                bound_by=by, bytes=nbytes, flops=flops,
-                                max_abs_err=max_err)
-    log("[kernel] width pool mode static exact flips/live max|d| "
+    shapes = [(w, BS, d) for w in WIDTHS
+              for d in (torch.float32, torch.bfloat16, torch.int8)]
+    shapes += [(WIDE_BLOCKS[0], WIDE_BLOCKS[1], torch.float32)]
+    for width, bs, pool_dtype in shapes:
+        for exact in (True, False):
+            case = make_case(width, pool_dtype, exact,
+                             seed=width * 7 + int(exact), bs=bs)
+            for mode in ("wide", "i16_div", "i16_clb"):
+                for static_max in (False, True):
+                    kw = dict(mode=mode, static_max=static_max)
+                    t, h, _ = case["q"].shape
+                    qo = torch.full((t, h, NBLK * BS), -128,
+                                    dtype=torch.int8, device="cuda")
+                    got = hccs_packed_prefill(**case, **kw, qint_out=qo)
+                    want = hccs_packed_prefill_ref(**case, **kw)
+                    qi, valid = packed_qint(
+                        case["q"], case["k_pool"], case["block_table"],
+                        case["slot_ids"], case["lengths"], case["scale"],
+                        case["k_scales"])
+                    torch.cuda.synchronize()
+                    live = valid[:, None, :].expand_as(qi)
+                    flips = int((qo.int() != qi)[live].sum())
+                    n_live = int(live.sum())
+                    err = (got - want).abs()
+                    flip_rows = ((qo.int() != qi) & live).any(-1)
+                    err_clean = float(err[~flip_rows].max()) \
+                        if (~flip_rows).any() else 0.0
+                    max_err = float(err.max())
+                    worst = max(worst, max_err)
+                    rel = float((err / want.abs().clamp(min=1e-30))
+                                .max()) if exact else float("nan")
+                    rows.append((width, bs,
+                                 str(pool_dtype).split(".")[-1],
+                                 mode, static_max, exact, flips, n_live,
+                                 max_err, err_clean))
+                    pads = got[case["slot_ids"] < 0]
+                    check(bool((pads == 0).all()),
+                          f"pad lanes not zero at width {width} bs {bs}")
+                    if exact:
+                        check(flips == 0 and (max_err == 0.0
+                                              or rel <= 1e-6),
+                              f"exact case differs: width {width} bs {bs} "
+                              f"{pool_dtype} {mode} static={static_max}"
+                              f" flips={flips} max_err={max_err}")
+                    else:
+                        check(flips <= RANDOM_FLIP_FRACTION * n_live,
+                              f"{flips} bin flips of {n_live} at width "
+                              f"{width} bs {bs} {pool_dtype} {mode}")
+                        check(err_clean <= RANDOM_MAX_ERR_NO_FLIP,
+                              f"max |d| {err_clean} on rows without "
+                              f"flips, width {width} bs {bs} {pool_dtype} "
+                              f"{mode}")
+                    if (pool_dtype == torch.float32 and mode == "wide"
+                            and not static_max and not exact
+                            and bs == BS):
+                        tm = kernel_times(
+                            lambda: hccs_packed_prefill(**case, **kw),
+                            lambda: hccs_packed_prefill_ref(**case,
+                                                            **kw))
+                        bound, by, nbytes, flops = bound_of(case)
+                        timings[width] = dict(
+                            tm, bound_ms=bound, bound_by=by,
+                            bytes=nbytes, flops=flops,
+                            max_abs_err=max_err)
+    log("[kernel] width bs pool mode static exact flips/live max|d| "
         "max|d|(rows w/o flips)")
     for r in rows:
-        log(f"[kernel] {r[0]:4d} {r[1]:8s} {r[2]:7s} {int(r[3])} {int(r[4])} "
-            f"{r[5]}/{r[6]} {r[7]:.3e} {r[8]:.3e}")
+        log(f"[kernel] {r[0]:4d} {r[1]:3d} {r[2]:8s} {r[3]:7s} {int(r[4])} "
+            f"{int(r[5])} {r[6]}/{r[7]} {r[8]:.3e} {r[9]:.3e}")
     for w, tm in timings.items():
-        log(f"[kernel] timing width {w}: kernel {tm['ms']:.4f} ms, plain "
-            f"{tm['plain_ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms "
-            f"({tm['bound_by']}: {tm['bytes'] / 1e6:.2f} MB, "
-            f"{tm['flops'] / 1e9:.3f} GFLOP)")
+        # each token reads its slot's live K and V rows: what the kernel
+        # moves through L2 when no tile is shared between a slot's tokens
+        reads = tm["flops"] / (4 * H * D) * 2 * HKV * D * 4
+        log(f"[kernel] timing width {w}: {times_text(tm)}; the tokens' K/V "
+            f"reads {reads / 1e6:.1f} MB, {reads / tm['device_ms'] / 1e9:.2f}"
+            f" TB/s over the device time")
     return timings, worst
 
 
@@ -443,15 +554,18 @@ def phase_forward():
 
 # ---------------------------------------------------------------- phase 5 --
 
-def profile_summary(prof, wall: float, kernel: str = "hccs_packed_kernel",
+def profile_summary(prof, wall: float, kernel: str = "PackedRows",
                     tag: str = "profile"):
     """Device time of a profiled run by kernel (torch.profiler's CUDA
-    events): the HCCS kernel's total, the top kernels, and the share of the
-    wall time with no kernel on the card."""
+    events): the HCCS wrapper's total (every kernel whose name holds
+    `kernel`: all passes of a split-sweep wrapper), the top kernels, and
+    the share of the wall time with no kernel on the card. Returns the
+    number of those HCCS kernels that ran on the card, None where the
+    profiler delivered no device events."""
     kern = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
     if not kern:
         log(f"[{tag}] no device events recorded: device times not measured")
-        return
+        return None
     by_name: dict[str, float] = {}
     spans = []
     for e in kern:
@@ -465,12 +579,23 @@ def profile_summary(prof, wall: float, kernel: str = "hccs_packed_kernel",
             end = b
     total = sum(by_name.values())
     hccs = sum(t for n, t in by_name.items() if kernel in n)
+    n_hccs = sum(1 for e in kern if kernel in e.name)
     log(f"[{tag}] wall {wall * 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms"
         f" (idle share {1 - busy / 1e6 / wall:.3f}), kernel time "
         f"{total / 1e3:.1f} ms over {len(kern)} device events; "
-        f"{kernel} {hccs / 1e3:.1f} ms ({hccs / total:.3f})")
+        f"{kernel} kernels {hccs / 1e3:.1f} ms ({hccs / total:.3f}) over "
+        f"{n_hccs} launches")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"[{tag}]   {t / 1e3:9.2f} ms  {t / total:.3f}  {name[:90]}")
+    return n_hccs
+
+
+def per_call(n_device, calls):
+    """Kernels on the card per wrapper call of a profiled run, None where
+    the profiler counted none."""
+    return n_device / calls if n_device and calls else None
+
+
 def engine_model():
     """granite-3-2b at full width and depth, bf16 weights from seed 0, the
     default f32 cache, the fused kernels on."""
@@ -494,7 +619,7 @@ def phase_engine():
     cfg, params = engine_model()
     prompts = smoke_prompts(cfg)
     plens = [len(p) for p in prompts]
-    runs = []
+    runs, kernels_per_call = [], None
     for rep in range(3):
         eng = PagedEngine(params, cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
                           block_size=BS, device="cuda")
@@ -511,9 +636,9 @@ def phase_engine():
             done = eng.run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        if prof is not None:
-            profile_summary(prof, wall)
         launches = hccs_packed_prefill.launches
+        if prof is not None:
+            kernels_per_call = per_call(profile_summary(prof, wall), launches)
         steps = eng.occupancy_steps
         toks = {r.uid: list(r.out_tokens) for r in done}
         n_new = sum(len(t) for t in toks.values())
@@ -533,13 +658,17 @@ def phase_engine():
           "runs of the engine disagree")
     for toks in runs[0][0].values():
         check(all(0 <= t < cfg.vocab_size for t in toks), "token off vocab")
-    return runs[0][1], runs[0][0]
+    return runs[0][1], runs[0][0], kernels_per_call
 
 
 # ----------------------------------------------------------- phases 6, 7 --
 
 # 8 slots with frontiers 0-2048 (one empty row), as a decode step sees them
 DECODE_FRONTS = (2048, 1024, 777, 1500, 33, 0, 511, 1)
+# frontiers at and beside the split sweep's boundaries, one row whose live
+# keys lie in one split, one empty
+SPLIT_FRONTS = (SPLIT_KEYS - 1, SPLIT_KEYS, SPLIT_KEYS + 1, 2 * SPLIT_KEYS,
+                33, 0, 3 * SPLIT_KEYS + 1, 1)
 
 
 def kv_values(rng, q_shape, kv_shape, exact: bool):
@@ -651,10 +780,12 @@ def phase_decode_kernel(kind: str):
         dtypes = (torch.float32, torch.bfloat16)
         qint = (lambda c: decode_qint(c["q"], c["k"], c["lengths"],
                                       c["scale"]))
-        # the engine's arena (2048 rows) and one whose length is no
-        # multiple of the kernel's tile, filled to its last row
+        # the engine's arena (2048 rows), one whose length is no multiple
+        # of the kernel's split, filled to its last row, and frontiers at
+        # the split boundaries
         shapes = [(DECODE_FRONTS, MAX_LEN),
-                  ((MAX_LEN - 1,) + DECODE_FRONTS[1:], MAX_LEN - 1)]
+                  ((MAX_LEN - 1,) + DECODE_FRONTS[1:], MAX_LEN - 1),
+                  (SPLIT_FRONTS, MAX_LEN)]
     rows, timing, worst = [], None, 0.0
     for fronts, tmax in shapes:
         for kv_dtype in (dtypes if tmax == MAX_LEN else (torch.float32,)):
@@ -682,14 +813,16 @@ def phase_decode_kernel(kind: str):
                             if (~flip_rows).any() else 0.0
                         max_err = float(err.max())
                         worst = max(worst, max_err)
-                        rows.append((tmax, str(kv_dtype).split(".")[-1],
+                        rows.append((tmax, "split" if fronts == SPLIT_FRONTS
+                                     else "decode",
+                                     str(kv_dtype).split(".")[-1],
                                      mode, static_max, exact, flips, n_live,
                                      max_err, err_clean))
                         empty = [i for i in range(b) if fronts[i] == 0]
                         check(bool((got[empty] == 0).all()),
                               f"{tag}: a row of length 0 is not zero")
-                        what = (f"{tag} tmax {tmax} {kv_dtype} {mode} "
-                                f"static={static_max}")
+                        what = (f"{tag} tmax {tmax} fronts {fronts} "
+                                f"{kv_dtype} {mode} static={static_max}")
                         if exact:
                             check(flips == 0 and max_err == 0.0,
                                   f"exact case differs: {what} flips="
@@ -700,26 +833,22 @@ def phase_decode_kernel(kind: str):
                             check(err_clean <= RANDOM_MAX_ERR_NO_FLIP,
                                   f"max |d| {err_clean} on rows without "
                                   f"flips: {what}")
-                        if (tmax == MAX_LEN and kv_dtype == torch.float32
+                        if (fronts == DECODE_FRONTS and tmax == MAX_LEN
+                                and kv_dtype == torch.float32
                                 and mode == "wide" and not static_max
                                 and not exact):
-                            ms = cuda_time_ms(lambda: fn(**case, **kw))
-                            plain = cuda_time_ms(lambda: ref(**case, **kw),
-                                                 iters=5)
+                            tm = kernel_times(lambda: fn(**case, **kw),
+                                              lambda: ref(**case, **kw))
                             bound, by, nbytes, flops = decode_bound(kind,
                                                                     case)
-                            timing = dict(ms=ms, plain_ms=plain,
-                                          bound_ms=bound, bound_by=by,
+                            timing = dict(tm, bound_ms=bound, bound_by=by,
                                           bytes=nbytes, flops=flops)
-    log(f"[{tag}] tmax kv mode static exact flips/live max|d| "
+    log(f"[{tag}] tmax fronts kv mode static exact flips/live max|d| "
         f"max|d|(rows w/o flips)")
     for r in rows:
-        log(f"[{tag}] {r[0]:4d} {r[1]:8s} {r[2]:7s} {int(r[3])} {int(r[4])} "
-            f"{r[5]}/{r[6]} {r[7]:.3e} {r[8]:.3e}")
-    log(f"[{tag}] timing B=8: kernel {timing['ms']:.4f} ms, plain "
-        f"{timing['plain_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms "
-        f"({timing['bound_by']}: {timing['bytes'] / 1e6:.2f} MB, "
-        f"{timing['flops'] / 1e9:.3f} GFLOP)")
+        log(f"[{tag}] {r[0]:4d} {r[1]} {r[2]:8s} {r[3]:7s} {int(r[4])} "
+            f"{int(r[5])} {r[6]}/{r[7]} {r[8]:.3e} {r[9]:.3e}")
+    log(f"[{tag}] timing B=8, fronts {DECODE_FRONTS}: {times_text(timing)}")
     timing["max_abs_err"] = worst
     return timing
 
@@ -727,10 +856,11 @@ def phase_decode_kernel(kind: str):
 # ------------------------------------------------------- phases 8, 9, 10 --
 
 KERNELS = (hccs_packed_prefill, hccs_paged_decode, hccs_decode)
-# each wrapper's kernel, as the profiler names it
-KERNEL_SYMBOLS = {"hccs_packed_prefill": "hccs_packed_kernel",
+# what the profiler's names of each wrapper's kernels hold: the split
+# sweep's passes are instantiated on the wrapper's row type
+KERNEL_SYMBOLS = {"hccs_packed_prefill": "PackedRows",
                   "hccs_paged_decode": "hccs_paged_kernel",
-                  "hccs_decode": "hccs_arena_kernel"}
+                  "hccs_decode": "ArenaRows"}
 
 
 def agreement(toks, ref) -> tuple[int, int]:
@@ -746,8 +876,9 @@ def phase_engine_path(label: str, make, prompts, kernel, steps_of,
     tokens each), the third under torch.profiler: every request done,
     identical tokens in every run, and the path's kernel launched 40 times
     per decode step (once per layer) and the other kernels never. Returns
-    (tokens, launches)."""
-    runs = []
+    (tokens, launches, (kernels on the card, wrapper calls) of the profiled
+    run)."""
+    runs, profiled = [], (None, 0)
     for rep in range(3):
         eng = make()
         for i, p in enumerate(prompts):
@@ -764,10 +895,11 @@ def phase_engine_path(label: str, make, prompts, kernel, steps_of,
             done = eng.run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        if prof is not None:
-            profile_summary(prof, wall, KERNEL_SYMBOLS[kernel.__name__],
-                            f"{label} profile")
         launches = kernel.launches
+        if prof is not None:
+            profiled = (profile_summary(
+                prof, wall, KERNEL_SYMBOLS[kernel.__name__],
+                f"{label} profile"), launches)
         others = {k.__name__: k.launches for k in KERNELS if k is not kernel}
         steps = steps_of(eng)
         toks = {r.uid: list(r.out_tokens) for r in done}
@@ -796,7 +928,7 @@ def phase_engine_path(label: str, make, prompts, kernel, steps_of,
     if reference is not None:
         same, total = agreement(runs[0][0], reference)
         log(f"[{label}] tokens equal to the packed engine's: {same}/{total}")
-    return runs[0]
+    return runs[0] + (profiled,)
 
 
 M_LAYERS, VOCAB = 40, 49155       # granite-3-2b (checked in phase_paths)
@@ -805,28 +937,37 @@ M_LAYERS, VOCAB = 40, 49155       # granite-3-2b (checked in phase_paths)
 def phase_paths(packed_tokens, phases):
     """Phases 8-10: the lockstep PagedEngine, the ContinuousEngine and the
     wave ServeEngine on granite at full width. Returns the kernels' launch
-    counts {kernel name: launches} summed over the paths that ran."""
+    counts {kernel name: launches} summed over the paths that ran, and
+    {kernel name: kernels on the card per wrapper call} of their profiled
+    runs."""
     cfg, params = engine_model()
     check(cfg.num_layers == M_LAYERS and cfg.vocab_size == VOCAB,
           "granite-3-2b geometry changed")
     arena_cfg = cfg.replace(cache_layout="slot")
     prompts = smoke_prompts(cfg)
-    launches = {}
+    launches, profiled = {}, {}
+
+    def count(name, n, prof):
+        launches[name] = launches.get(name, 0) + n
+        dev, calls = profiled.get(name, (0, 0))
+        if prof[0]:                            # the profiler saw the kernels
+            profiled[name] = (dev + prof[0], calls + prof[1])
+        else:
+            profiled.setdefault(name, (0, 0))
     if 8 in phases:
-        _, n = phase_engine_path(
+        count("hccs_paged_decode", *phase_engine_path(
             "lockstep", lambda: PagedEngine(
                 params, cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
                 block_size=BS, packed=False, device="cuda"),
             prompts, hccs_paged_decode, lambda e: e.decode_steps,
-            packed_tokens)
-        launches["hccs_paged_decode"] = n
+            packed_tokens)[1:])
     if 9 in phases:
-        _, n = phase_engine_path(
+        count("hccs_decode", *phase_engine_path(
             "continuous", lambda: ContinuousEngine(
                 params, arena_cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
                 device="cuda"),
-            prompts, hccs_decode, lambda e: e.occupancy_steps, packed_tokens)
-        launches["hccs_decode"] = n
+            prompts, hccs_decode, lambda e: e.occupancy_steps,
+            packed_tokens)[1:])
     if 10 in phases:
         # one prompt length, so the 8 requests form one wave; its prefill
         # attends over the 2048-row arena, which takes the blockwise path
@@ -838,13 +979,13 @@ def phase_paths(packed_tokens, phases):
         for i, p in enumerate(wave_prompts):
             eng.submit(Request(uid=i, prompt=p.copy(), max_new_tokens=32))
         packed_wave = {r.uid: list(r.out_tokens) for r in eng.run()}
-        _, n = phase_engine_path(
+        count("hccs_decode", *phase_engine_path(
             "wave", lambda: ServeEngine(
                 params, arena_cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
                 device="cuda"),
-            wave_prompts, hccs_decode, lambda e: e.decode_steps, packed_wave)
-        launches["hccs_decode"] = launches.get("hccs_decode", 0) + n
-    return launches
+            wave_prompts, hccs_decode, lambda e: e.decode_steps,
+            packed_wave)[1:])
+    return launches, {k: per_call(*v) for k, v in profiled.items()}
 
 
 # ------------------------------------------------- phases 11-14: kernels --
@@ -1229,12 +1370,20 @@ def phase_table3():
 
 
 def kernel_entry(name, source, replaces, launches, tm, shape,
-                 library_ms=None):
-    return {"name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{source}",
+                 library_ms=None, headers=(), kernels_per_call=None):
+    """One kernel of phase 15's line. `launches` counts wrapper calls on
+    the main path; `kernels_per_call` is the kernels on the card per
+    wrapper call in the path's profiled run (None where not profiled).
+    `device_ms` / `cold_ms`: device-only time with K/V warm in L2 / with
+    L2 flushed, where measured."""
+    csrc = "src/repro_torch/kernels/csrc/"
+    return {"name": name, "route": "cuda", "source": csrc + source,
+            "headers": [csrc + h for h in headers],
             "replaces": replaces, "launches": launches,
+            "kernels_per_call": kernels_per_call,
             "max_abs_err": tm["max_abs_err"], "ms": tm["ms"],
-            "kernel_ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "kernel_ms": tm["ms"], "device_ms": tm.get("device_ms"),
+            "cold_ms": tm.get("cold_ms"), "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": library_ms, "shape": shape}
 
@@ -1254,17 +1403,17 @@ def main(argv=None):
         timings, worst = phase_kernel()
     if 4 in phases:
         phase_forward()
-    launches, packed_tokens = None, None
+    launches, packed_tokens, packed_per_call = None, None, None
     if 5 in phases:
-        launches, packed_tokens = phase_engine()
+        launches, packed_tokens, packed_per_call = phase_engine()
     decode_timings = {}
     if 6 in phases:
         decode_timings["paged"] = phase_decode_kernel("paged")
     if 7 in phases:
         decode_timings["arena"] = phase_decode_kernel("arena")
-    path_launches = {}
+    path_launches, path_per_call = {}, {}
     if phases & {8, 9, 10}:
-        path_launches = phase_paths(packed_tokens, phases)
+        path_launches, path_per_call = phase_paths(packed_tokens, phases)
     if 11 in phases:
         phase_rows()
     if 12 in phases:
@@ -1280,22 +1429,27 @@ def main(argv=None):
               and table3_launches, "phase 15 needs phases 3 and 5 to 14")
         tm = dict(timings[max(timings)], max_abs_err=worst)
         geo = f"granite H={H} Hkv={HKV} d={D}"
+        split_headers = ("hccs_split.cuh", "hccs_common.cuh")
         log(json.dumps({"kernels": [
             kernel_entry("hccs_packed_prefill", "hccs_packed.cu",
                          "src/repro/kernels/decode.py:400", launches, tm,
                          f"width {max(timings)}, {geo} bs={BS}, f32 pool, "
-                         f"mode wide"),
+                         f"mode wide", headers=split_headers,
+                         kernels_per_call=packed_per_call),
             kernel_entry("hccs_paged_decode", "hccs_paged.cu",
                          "src/repro/kernels/decode.py:316",
                          path_launches["hccs_paged_decode"],
                          decode_timings["paged"],
-                         f"B=8, {geo} bs={BS}, f32 pool, mode wide"),
+                         f"B=8, {geo} bs={BS}, f32 pool, mode wide",
+                         headers=("hccs_sweep.cuh", "hccs_common.cuh"),
+                         kernels_per_call=path_per_call["hccs_paged_decode"]),
             kernel_entry("hccs_decode", "hccs_arena.cu",
                          "src/repro/kernels/decode.py:254",
                          path_launches["hccs_decode"],
                          decode_timings["arena"],
                          f"B=8, {geo} Tmax={MAX_LEN}, f32 arena, mode "
-                         f"wide"),
+                         f"wide", headers=split_headers,
+                         kernels_per_call=path_per_call["hccs_decode"]),
             kernel_entry("hccs_rows", "hccs_rows.cu",
                          "src/repro/kernels/hccs.py:79",
                          table3_launches["hccs_rows"],
@@ -1312,7 +1466,8 @@ def main(argv=None):
                          "src/repro/kernels/attention.py:95",
                          table3_launches["hccs_mha_fused"],
                          kernel_t["hccs_mha_fused"],
-                         f"B=1, {geo} T={MAX_LEN}, f32, causal")]}))
+                         f"B=1, {geo} T={MAX_LEN}, f32, causal",
+                         headers=("hccs_common.cuh",))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

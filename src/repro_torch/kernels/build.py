@@ -1,9 +1,11 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
-Every `kernels/csrc/*.cu` is compiled on first use (the sources share the
-sweep in `csrc/hccs_sweep.cuh`), one nvcc process per source, all started
-together, for `sm_90a` (Hopper), then linked into one
-shared library with a plain C interface:
+Every `kernels/csrc/*.cu` is compiled on first use, one nvcc process per
+source, all started together, for `sm_90a` (Hopper), then linked into one
+shared library with a plain C interface. The sources share headers:
+`csrc/hccs_common.cuh` (element loads, locators, Stage 5), the split-KV
+sweep `csrc/hccs_split.cuh` (hccs_arena.cu, hccs_packed.cu) and the
+one-block-per-row sweep `csrc/hccs_sweep.cuh` (hccs_paged.cu). The library:
 
     build/repro_torch_kernels/libkernels-<hash>.so
 
@@ -112,12 +114,15 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        sz = ctypes.c_size_t
+        # the split-sweep entry points take a workspace pointer and its
+        # size in bytes after qint_out
         lib.hccs_packed_prefill_launch.argtypes = (
-            [vp] * 12 + [i] * 9 + [f, vp])
+            [vp] * 13 + [sz] + [i] * 9 + [f, vp])
         lib.hccs_packed_prefill_launch.restype = i
         lib.hccs_paged_decode_launch.argtypes = [vp] * 11 + [i] * 9 + [f, vp]
         lib.hccs_paged_decode_launch.restype = i
-        lib.hccs_decode_launch.argtypes = [vp] * 8 + [i] * 8 + [f, vp]
+        lib.hccs_decode_launch.argtypes = [vp] * 9 + [sz] + [i] * 8 + [f, vp]
         lib.hccs_decode_launch.restype = i
         lib.hccs_rows_launch.argtypes = [vp] * 3 + [i] * 3 + [vp]
         lib.hccs_rows_launch.restype = i

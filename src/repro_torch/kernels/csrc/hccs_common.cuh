@@ -1,0 +1,91 @@
+// hccs_common.cuh — pieces shared by the port's single-query HCCS kernels:
+// the old one-block-per-row sweep (hccs_sweep.cuh, run by hccs_paged.cu) and
+// the split-KV sweep (hccs_split.cuh, run by hccs_arena.cu and
+// hccs_packed.cu), and the fused kernel (hccs_fused.cu).
+//
+// Element loads of the four pool types, the warp max, the Stage 5
+// reciprocal (the float formulas of repro/core/hccs.py hccs_mode_inv), how
+// a block of a paged pool is located through a block-table row, the shared
+// memory opt-in and the launch geometry check.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hccs {
+
+constexpr int kNegBig = -(1 << 30);
+constexpr int kMaxColsPerLane = 8;  // head_dim <= 256
+constexpr int kStaticMax = 127;
+
+enum PoolType { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3 };
+enum Mode { kWide = 0, kI16Div = 1, kI16Clb = 2 };
+
+template <int PT>
+__device__ __forceinline__ float load_elem(const void* p, int64_t i);
+template <>
+__device__ __forceinline__ float load_elem<kF32>(const void* p, int64_t i) {
+  return static_cast<const float*>(p)[i];
+}
+template <>
+__device__ __forceinline__ float load_elem<kBF16>(const void* p, int64_t i) {
+  return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+}
+template <>
+__device__ __forceinline__ float load_elem<kF16>(const void* p, int64_t i) {
+  return __half2float(static_cast<const __half*>(p)[i]);
+}
+template <>
+__device__ __forceinline__ float load_elem<kI8>(const void* p, int64_t i) {
+  return static_cast<float>(static_cast<const int8_t*>(p)[i]);
+}
+
+__device__ __forceinline__ int warp_max(int v) {
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Stage 5 reciprocal, the float formulas of hccs_mode_inv (z >= 1)
+__device__ __forceinline__ float mode_inv(float z, int mode) {
+  const float t = 32767.0f;
+  if (mode == kI16Div) return __fdiv_rn(floorf(__fdiv_rn(t, z)), t);
+  if (mode == kI16Clb)
+    return __fdiv_rn(floorf(t * exp2f(-floorf(log2f(z)))), t);
+  return __fdiv_rn(1.0f, z);
+}
+
+// A tile of a paged pool: entry = row[j]; -1 is a sentinel (dead, unread).
+struct PagedLocator {
+  const int* row;          // this row's block-table row (nblk entries)
+  int num_kv, kv;
+  int64_t head_stride;     // block_size * d
+  const float* k_scales;   // (N, num_kv), int8 pools only
+  const float* v_scales;
+  __device__ __forceinline__ bool operator()(int j, int64_t* base, float* kdq,
+                                             float* vdq) const {
+    const int entry = row[j];
+    if (entry < 0) return false;
+    const int64_t e = static_cast<int64_t>(entry) * num_kv + kv;
+    *base = e * head_stride;
+    if (k_scales != nullptr) { *kdq = k_scales[e]; *vdq = v_scales[e]; }
+    return true;
+  }
+};
+
+// Raise the block's dynamic shared memory cap when a launch needs more than
+// the default 48 KB.
+template <class Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+inline bool valid_geometry(int group, int d) {
+  return group >= 1 && group <= 32 && d >= 1 && d <= 32 * kMaxColsPerLane;
+}
+
+}  // namespace hccs

@@ -1,5 +1,7 @@
-// hccs_sweep.cuh — the single-query HCCS sweep shared by the port's three
-// attention kernels (hccs_packed.cu, hccs_paged.cu, hccs_arena.cu).
+// hccs_sweep.cuh — the one-block-per-row single-query HCCS sweep, run by
+// hccs_paged.cu (the lockstep paged decode step). hccs_arena.cu and
+// hccs_packed.cu ran it until they moved to the split-KV sweep
+// (hccs_split.cuh); its shared pieces are in hccs_common.cuh.
 //
 // Replaces the body the Pallas TPU kernels share, `_decode_tile`
 // (src/repro/kernels/decode.py:65). One thread block runs one query row
@@ -13,12 +15,10 @@
 //   Z     = sum s,  acc = sum s * v     (f32)                    Stage 4
 //   out   = acc * mode_inv(max(Z, 1))                            Stage 5
 //
-// The three kernels differ only in how tile j of a row is located, which is
-// the `Locator` the sweep is templated on: a block of the paged pool through
-// block_table[slot_ids[t]] (packed), through block_table[b] (paged decode),
-// or a run of rows of a contiguous (B, Hkv, Tmax, d) arena. A locator
-// returns false for a tile that holds no live key (a sentinel -1 table
-// entry); such a tile is never read.
+// How tile j of a row is located is the `Locator` the sweep is templated on
+// (hccs_common.cuh); hccs_paged.cu walks a block of the paged pool through
+// block_table[b]. A locator returns false for a tile that holds no live key
+// (a sentinel -1 table entry); such a tile is never read.
 //
 // What bounds it on the H100: memory. Each (row, kv-head) reads its live K
 // and V rows once, about 2 * d flops per element read — far below the ~20
@@ -28,8 +28,10 @@
 // shared memory, so the second sweep reads V only and never recomputes a QK
 // product — K and V are each read exactly once, with or without static_max.
 // Tiles are staged in shared memory with a padded row stride (d + 1) so the
-// lanes' per-key dot products do not bank-conflict. Making it faster
-// (several queries per block, split KV walks, async copies) is later work.
+// lanes' per-key dot products do not bank-conflict. What holds it back is
+// the serial walk: one block per (row, kv head) walks the whole frontier
+// twice, so a decode step runs 64 blocks on 132 SMs. hccs_split.cuh splits
+// the walk; the paged kernel moves onto it next.
 //
 // Numerics that must match the JAX kernels bit for bit on exact inputs:
 // both divisions are true IEEE divisions (__fdiv_rn; never build with fast
@@ -38,52 +40,9 @@
 // as repro/core/hccs.py hccs_mode_inv.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hccs_common.cuh"
 
 namespace hccs {
-
-constexpr int kNegBig = -(1 << 30);
-constexpr int kMaxColsPerLane = 8;  // head_dim <= 256
-constexpr int kStaticMax = 127;
-
-enum PoolType { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3 };
-enum Mode { kWide = 0, kI16Div = 1, kI16Clb = 2 };
-
-template <int PT>
-__device__ __forceinline__ float load_elem(const void* p, int64_t i);
-template <>
-__device__ __forceinline__ float load_elem<kF32>(const void* p, int64_t i) {
-  return static_cast<const float*>(p)[i];
-}
-template <>
-__device__ __forceinline__ float load_elem<kBF16>(const void* p, int64_t i) {
-  return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
-}
-template <>
-__device__ __forceinline__ float load_elem<kF16>(const void* p, int64_t i) {
-  return __half2float(static_cast<const __half*>(p)[i]);
-}
-template <>
-__device__ __forceinline__ float load_elem<kI8>(const void* p, int64_t i) {
-  return static_cast<float>(static_cast<const int8_t*>(p)[i]);
-}
-
-__device__ __forceinline__ int warp_max(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Stage 5 reciprocal, the float formulas of hccs_mode_inv (z >= 1)
-__device__ __forceinline__ float mode_inv(float z, int mode) {
-  const float t = 32767.0f;
-  if (mode == kI16Div) return __fdiv_rn(floorf(__fdiv_rn(t, z)), t);
-  if (mode == kI16Clb)
-    return __fdiv_rn(floorf(t * exp2f(-floorf(log2f(z)))), t);
-  return __fdiv_rn(1.0f, z);
-}
 
 // Stage rows [0, rows) starting at element `base` (row stride d) into
 // `tile` (row stride d + 1) as f32, dequantized by `dq` for int8 pools.
@@ -98,36 +57,6 @@ __device__ __forceinline__ void stage_tile(float* tile, const void* src,
     tile[r * (d + 1) + c] = x;
   }
 }
-
-// A tile of a paged pool: entry = row[j]; -1 is a sentinel (dead, unread).
-struct PagedLocator {
-  const int* row;          // this row's block-table row (nblk entries)
-  int num_kv, kv;
-  int64_t head_stride;     // block_size * d
-  const float* k_scales;   // (N, num_kv), int8 pools only
-  const float* v_scales;
-  __device__ __forceinline__ bool operator()(int j, int64_t* base, float* kdq,
-                                             float* vdq) const {
-    const int entry = row[j];
-    if (entry < 0) return false;
-    const int64_t e = static_cast<int64_t>(entry) * num_kv + kv;
-    *base = e * head_stride;
-    if (k_scales != nullptr) { *kdq = k_scales[e]; *vdq = v_scales[e]; }
-    return true;
-  }
-};
-
-// A tile of a contiguous arena: rows [j * tile, (j + 1) * tile) of this
-// (row, kv-head)'s (Tmax, d) slab; every tile before the frontier is live.
-struct ArenaLocator {
-  int64_t slab;            // element offset of this (row, kv-head)'s slab
-  int64_t tile_stride;     // tile * d
-  __device__ __forceinline__ bool operator()(int j, int64_t* base, float*,
-                                             float*) const {
-    *base = slab + j * tile_stride;
-    return true;
-  }
-};
 
 // Dynamic shared memory of one block: the group's queries, one staged tile
 // and the int8 q_int row of every head in the group.
@@ -234,20 +163,6 @@ __device__ __forceinline__ void sweep(
     const int c = lane + 32 * u;
     if (c < d) out_row[c] = acc[u] * inv;
   }
-}
-
-// Raise the block's dynamic shared memory cap when a launch needs more than
-// the default 48 KB.
-template <class Kernel>
-inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
-inline bool valid_geometry(int group, int d) {
-  return group >= 1 && group <= 32 && d >= 1 && d <= 32 * kMaxColsPerLane;
 }
 
 }  // namespace hccs

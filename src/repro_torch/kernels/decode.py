@@ -1,7 +1,7 @@
 """Single-query HCCS attention kernels: the port of `repro/kernels/decode.py`.
 
-Three entry points run the same sweep (the JAX package's `_decode_tile`;
-on the card `csrc/hccs_sweep.cuh`) and differ in where a row's keys live:
+Three entry points compute the same single-query sweep (the JAX package's
+`_decode_tile`) and differ in where a row's keys live:
 
   hccs_packed_prefill  packed token steps: token t walks its OWNING slot's
                        block table, block_table[slot_ids[t]], up to its
@@ -12,11 +12,20 @@ on the card `csrc/hccs_sweep.cuh`) and differ in where a row's keys live:
                        [0, lengths[b]) of a contiguous (B, Hkv, Tmax, d)
                        arena (csrc/hccs_arena.cu)
 
+On the card `hccs_packed_prefill` and `hccs_decode` run the split-KV sweep
+(`csrc/hccs_split.cuh`): (row, kv head, SPLIT_KEYS-key split) work items in
+three passes (QK and split maxima; partial Z and s @ V; the fixed-order
+combine and Stage 5; passes 1 and 2 fused under static_max), all enqueued by
+one C call into one workspace the wrapper allocates (`workspace_bytes`).
+`hccs_paged_decode` still runs the one-block-per-row sweep of
+`csrc/hccs_sweep.cuh`.
+
 Each wrapper dispatches on the tensors' device: CUDA tensors launch the
-hand-written kernel (or raise) and bump the wrapper's `launches` counter;
-CPU tensors run the plain PyTorch version beside it (`*_ref`), which the CPU
-tests hold against the JAX kernel and `chip_smoke.py` holds the CUDA kernel
-against on the card. There is no fallback from one to the other.
+hand-written kernel (or raise) and bump the wrapper's `launches` counter,
+once per wrapper call whatever the number of passes; CPU tensors run the
+plain PyTorch version beside it (`*_ref`), which the CPU tests hold against
+the JAX kernel and `chip_smoke.py` holds the CUDA kernel against on the
+card. There is no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -28,7 +37,7 @@ from repro_torch.kernels.build import cuda_device, launch
 
 NEG_BIG = -(2 ** 30)
 MODES = ("wide", "i16_div", "i16_clb")
-# pool element codes shared with csrc/hccs_sweep.cuh
+# pool element codes shared with csrc/hccs_common.cuh
 POOL_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
               torch.int8: 3}
 MODE_CODES = {"wide": 0, "i16_div": 1, "i16_clb": 2}
@@ -37,7 +46,12 @@ MODE_CODES = {"wide": 0, "i16_div": 1, "i16_clb": 2}
 MAX_GROUP = 32
 MAX_HEAD_DIM = 256
 MAX_SMEM_BYTES = 232448          # H100: dynamic shared memory per block
-ARENA_TILE = 32                  # kTile of csrc/hccs_arena.cu
+# the split-KV sweep of csrc/hccs_split.cuh: keys per work item and
+# threads per block (kSplitKeys; a decode step at 2048 keys is 16 splits per
+# (row, kv head), enough blocks to fill 132 SMs at 8 slots x 8 kv heads),
+# and the alignment of each workspace region (kWsAlign)
+SPLIT_KEYS = 128
+WS_ALIGN = 256
 
 
 def sm_denom(head_dim: int) -> float:
@@ -45,13 +59,51 @@ def sm_denom(head_dim: int) -> float:
     return float(np.sqrt(np.float32(head_dim)))
 
 
-def smem_bytes(group: int, head_dim: int, tile: int, max_len: int) -> int:
-    """Dynamic shared memory of one kernel block: the group's queries, one
-    staged K/V tile (row stride head_dim + 1 against bank conflicts), and
-    the int8 quantized-logit row (max_len keys) of every head in the group
+def sweep_smem_bytes(group: int, head_dim: int, tile: int,
+                     max_len: int) -> int:
+    """Dynamic shared memory of one block of the one-block-per-row sweep
+    (`hccs_paged_decode`): the group's queries, one staged K/V tile (row
+    stride head_dim + 1 against bank conflicts), and the int8
+    quantized-logit row (max_len keys) of every head in the group
     (hccs::sweep_smem_bytes)."""
     floats = group * head_dim + tile * (head_dim + 1)
     return floats * 4 + -(-group * max_len // 16) * 16
+
+
+def split_smem_bytes(group: int, head_dim: int, elem_size: int,
+                     static_max: bool) -> int:
+    """Dynamic shared memory of the largest pass of the split sweep
+    (`hccs_packed_prefill`, `hccs_decode`; hccs::split_smem_bytes): per
+    key its pool offset and V scale, per (warp, head) a max, the group's
+    queries (QK) and s per (head, key) (PV, both in the static_max pass),
+    and the split's SPLIT_KEYS rows of K or V, each padded to 16 bytes plus
+    16. It does not depend on the row's length."""
+    def r16(n):
+        return -(-n // 16) * 16
+    fixed = (SPLIT_KEYS * 12 + r16(16 * group)
+             + SPLIT_KEYS * (r16(head_dim * elem_size) + 16))
+    qk, pv = r16(group * head_dim * 4), group * SPLIT_KEYS * 4
+    return fixed + (qk + pv if static_max else max(qk, pv))
+
+
+def split_count(max_len: int) -> int:
+    """Key splits of a row of capacity max_len."""
+    return -(-max_len // SPLIT_KEYS)
+
+
+def workspace_bytes(rows: int, heads: int, max_len: int, head_dim: int, *,
+                    qint_scratch: bool) -> int:
+    """Bytes of the one workspace a split-sweep call takes
+    (hccs::split_workspace_bytes): the int8 q_int scratch (rows, heads,
+    max_len) when the call needs its own (no qint_out, not static_max), the
+    split maxima and partial Z (rows, heads, nsplit) int32 and the partial
+    s @ V (rows, heads, nsplit, head_dim) f32, each region aligned to
+    WS_ALIGN bytes."""
+    def align(n):
+        return -(-n // WS_ALIGN) * WS_ALIGN
+    rh, ns = rows * heads, split_count(max_len)
+    return ((align(rh * max_len) if qint_scratch else 0)
+            + 2 * align(rh * ns * 4) + rh * ns * head_dim * 4)
 
 
 # ----------------------------------------------------------- plain versions --
@@ -237,20 +289,23 @@ def _check_table(block_table, rows=None):
                          f"{tuple(block_table.shape)}")
 
 
-def _launch(fn, entry: str, args, q, k, *, qint_out, qint_len, tile,
-            **ctx) -> torch.Tensor:
+def _launch(fn, entry: str, args, q, k, *, qint_out, qint_len,
+            split: bool, **ctx) -> torch.Tensor:
     """Launch one of the CUDA kernels on `q`'s device and stream: the shared
-    launch limits and qint_out checks and the output allocation, then
-    `build.launch` (device, contiguity, error check, launch count). `ctx`
-    are the entry point's trailing int arguments, in order, before pool
-    type, mode, static_max."""
+    launch limits and qint_out checks, the output (and, for the split
+    sweep, the workspace) allocation, then `build.launch` (device,
+    contiguity, error check, launch count): one C call, whatever the number
+    of passes. `ctx` are the entry point's trailing int arguments, in
+    order, before pool type, mode, static_max."""
     r, h, d = q.shape
     g = h // k.shape[1]
     dev = cuda_device(*args, qint_out)
     if g > MAX_GROUP or d > MAX_HEAD_DIM:
         raise ValueError(f"kernel takes GQA groups <= {MAX_GROUP} and "
                          f"head_dim <= {MAX_HEAD_DIM}, got {g} and {d}")
-    smem = smem_bytes(g, d, tile, qint_len)
+    static_max = ctx["static_max"]
+    smem = (split_smem_bytes(g, d, k.element_size(), static_max) if split
+            else sweep_smem_bytes(g, d, k.shape[2], qint_len))
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"kernel needs {smem} B of shared memory, over the "
                          f"{MAX_SMEM_BYTES} B a block can have")
@@ -261,8 +316,15 @@ def _launch(fn, entry: str, args, q, k, *, qint_out, qint_len, tile,
     out = torch.empty((r, h, d), dtype=torch.float32, device=dev)
     if r == 0:
         return out
+    extra = [qint_out]
+    if split:
+        ws = torch.empty(workspace_bytes(
+            r, h, qint_len, d,
+            qint_scratch=qint_out is None and not static_max),
+            dtype=torch.uint8, device=dev)
+        extra += [ws, ws.numel()]
     mode, static_max = ctx.pop("mode"), ctx.pop("static_max")
-    launch(fn, entry, dev, *args, out, qint_out, *ctx.values(),
+    launch(fn, entry, dev, *args, out, *extra, *ctx.values(),
            POOL_TYPES[k.dtype], MODE_CODES[mode], int(static_max),
            sm_denom(d))
     return out
@@ -290,10 +352,12 @@ def hccs_packed_prefill(q, k_pool, v_pool, block_table, slot_ids, lengths,
     scale: (H,) float32 logit scales; theta: (H, 3) int32 per-head
     (B, S, D). Returns (T, H, d) float32.
 
-    CUDA tensors launch the kernel (and bump `hccs_packed_prefill.launches`);
-    CPU tensors run `hccs_packed_prefill_ref`. qint_out, for on-card
-    testing only, is an int8 (T, H, nblk * block_size) CUDA tensor that
-    receives the kernel's quantized logits at the live keys."""
+    CUDA tensors run the split sweep's passes through one C call (and bump
+    `hccs_packed_prefill.launches` once); CPU tensors run
+    `hccs_packed_prefill_ref`. qint_out, for on-card testing only, is an
+    int8 (T, H, nblk * block_size) CUDA tensor, prefilled by the caller,
+    that receives the kernel's quantized logits at the live keys; it then
+    serves as the kernel's q_int scratch."""
     _check(q, k_pool, v_pool, scale, theta, mode, k_scales, v_scales,
            pool=True)
     _check_table(block_table)
@@ -311,7 +375,7 @@ def hccs_packed_prefill(q, k_pool, v_pool, block_table, slot_ids, lengths,
         hccs_packed_prefill, "hccs_packed_prefill_launch",
         [q, k_pool, v_pool, k_scales, v_scales, block_table, slot_ids,
          lengths, scale, theta], q, k_pool, qint_out=qint_out,
-        qint_len=nblk * bs, tile=bs, T=q.shape[0], num_kv=hkv,
+        qint_len=nblk * bs, split=True, T=q.shape[0], num_kv=hkv,
         group=q.shape[1] // hkv, block_size=bs, nblk=nblk, d=d, **kw)
 
 
@@ -346,9 +410,9 @@ def hccs_paged_decode(q, k_pool, v_pool, block_table, lengths, scale, theta,
     return _launch(
         hccs_paged_decode, "hccs_paged_decode_launch",
         [q, k_pool, v_pool, k_scales, v_scales, block_table, lengths, scale,
-         theta], q, k_pool, qint_out=qint_out, qint_len=nblk * bs, tile=bs,
-        B=q.shape[0], num_kv=hkv, group=q.shape[1] // hkv, block_size=bs,
-        nblk=nblk, d=d, **kw)
+         theta], q, k_pool, qint_out=qint_out, qint_len=nblk * bs,
+        split=False, B=q.shape[0], num_kv=hkv, group=q.shape[1] // hkv,
+        block_size=bs, nblk=nblk, d=d, **kw)
 
 
 def hccs_decode(q, k, v, lengths, scale, theta, *, mode: str = "wide",
@@ -361,9 +425,11 @@ def hccs_decode(q, k, v, lengths, scale, theta, *, mode: str = "wide",
     written at lengths - 1); scale: (H,) float32; theta: (H, 3) int32.
     Returns (B, H, d) float32; rows with length 0 return zeros.
 
-    CUDA tensors launch the kernel (and bump `hccs_decode.launches`); CPU
-    tensors run `hccs_decode_ref`. qint_out, for on-card testing only, is an
-    int8 (B, H, Tmax) CUDA tensor."""
+    CUDA tensors run the split sweep's passes through one C call (and bump
+    `hccs_decode.launches` once); CPU tensors run `hccs_decode_ref`.
+    qint_out, for on-card testing only, is an int8 (B, H, Tmax) CUDA tensor,
+    prefilled by the caller, that receives the quantized logits at the live
+    keys and serves as the kernel's q_int scratch."""
     _check(q, k, v, scale, theta, mode, None, None, pool=False)
     _check_index("lengths", lengths, (q.shape[0],))
     kw = dict(mode=mode, static_max=static_max)
@@ -374,7 +440,7 @@ def hccs_decode(q, k, v, lengths, scale, theta, *, mode: str = "wide",
     return _launch(
         hccs_decode, "hccs_decode_launch",
         [q, k, v, lengths, scale, theta], q, k, qint_out=qint_out,
-        qint_len=tmax, tile=ARENA_TILE, B=q.shape[0], num_kv=hkv,
+        qint_len=tmax, split=True, B=q.shape[0], num_kv=hkv,
         group=q.shape[1] // hkv, tmax=tmax, d=d, **kw)
 
 

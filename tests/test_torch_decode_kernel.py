@@ -18,6 +18,7 @@ of an arena whose length is no multiple of any tile (arena).
     bins are counted against the bound measured below, and rows without a
     flip are held to the float tolerance measured below.
 """
+import functools
 import zlib
 
 import jax.numpy as jnp
@@ -27,10 +28,11 @@ import torch
 
 from repro.kernels import ops
 from repro.kernels import ref as REF
-from repro_torch.kernels.decode import (decode_qint, hccs_decode,
+from repro_torch.core.hccs import hccs_mode_inv
+from repro_torch.kernels.decode import (NEG_BIG, decode_qint, hccs_decode,
                                         hccs_packed_prefill,
                                         hccs_paged_decode, packed_qint,
-                                        paged_qint)
+                                        paged_qint, sm_denom)
 
 HKV, D, BS, NBLK, N_BLOCKS = 2, 16, 8, 6, 24
 # token layout: slot 0 a 5-token chunk (frontiers 36..40) and a decode lane
@@ -422,3 +424,250 @@ def test_decode_never_reads_dead_keys(kind):
         k[tbl[3, 2], :, 17 - 2 * BS:] = 1e6       # slot 3 past row 17
     base = fn(t.get("k", t.get("k_pool")), t.get("v", t.get("v_pool")))
     np.testing.assert_array_equal(fn(k, v).numpy(), base.numpy())
+
+
+# ------------------------------------------- the split-KV sweep (emulated) --
+#
+# `hccs_decode` and `hccs_packed_prefill` run on the card as the split-KV
+# sweep of csrc/hccs_split.cuh, which the CPU cannot run. `_split_sweep`
+# emulates its passes in numpy — per (row, head) the logit as one
+# sequential fmaf chain, q_int at the live keys, the split maxima (NEG_BIG
+# for a split with no live key), m from them (127 under static_max), the
+# per-split int Z and f32 s @ V partials in key order, their sum in split
+# order, Stage 5 — and is held against the JAX kernels in interpret mode at
+# split lengths of 8, 12, 32 and 64 keys over 8-key pool blocks (12 puts
+# split boundaries inside blocks). Every case has rows at frontiers
+# split - 1, split and split + 1 of each split length, rows of length 0
+# and 1, and a long row; the arena is 137 rows (no multiple of any split)
+# with stale rows past every frontier; the packed case has sentinel blocks
+# inside the long frontier (one of them a whole 8-key split) and pad lanes.
+# Exact inputs must be bit-identical; random inputs are held to the gates
+# above (MAX_FLIPS, RANDOM_ATOL). On exact inputs every sum is exact in any
+# order, so the emulation must equal the port's plain version bit for bit,
+# as the CUDA kernel must on the card, and have the JAX kernel's q_int;
+# against the JAX output it is held to rtol 1e-6 as in (a): under jit, XLA
+# evaluates the reference's i16_div Stage 5 one ulp off the IEEE quotient
+# at Z = 14, 28, 37, 47, 56 and 61 (of Z < 40000), which these rows reach.
+# Measured on the 120 random cases: 0 flipped bins of 209,184 live logits,
+# max |d| 1.8e-7 against the JAX kernels.
+
+SPLITS = (8, 12, 32, 64)
+SPLIT_FRONTS = [7, 8, 9, 11, 12, 13, 31, 32, 33, 63, 64, 65, 0, 1, 133]
+SPLIT_TMAX = 137
+
+
+def _fma_f32(a, b, c):
+    """fmaf(a, b, c) in f32: the f32 product is exact in f64, and the sum
+    rounds once to f32 (double rounding aside, which these inputs never
+    meet)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _split_sweep(q, kg, vg, valid, scale, theta, mode, static_max, split):
+    """The split-KV sweep's three passes on gathered keys: q (R, H, d) f32;
+    kg, vg (R, Hkv, L, d) f32, dequantized; valid (R, L) the live keys.
+    Returns the output (R, H, d) f32 and q_int (R, H, L), NEG_BIG at dead
+    keys."""
+    r, h, d = q.shape
+    hkv, length = kg.shape[1], kg.shape[2]
+    g = h // hkv
+    nsplit = -(-length // split)
+    live = valid[:, None, :]
+    # pass 1: one fmaf chain per (row, head, key), q_int, split maxima
+    qg = np.repeat(q.reshape(r, hkv, g, 1, d), 1, 0)
+    kk = kg[:, :, None]                                   # (R, Hkv, 1, L, d)
+    dot = np.zeros((r, hkv, g, length), np.float32)
+    for c in range(d):
+        dot = _fma_f32(qg[..., c], kk[..., c], dot)
+    logits = dot.reshape(r, h, length) / np.float32(sm_denom(d))
+    logits = logits / scale[None, :, None]
+    q_int = np.where(live, np.clip(np.rint(logits), -128, 127), NEG_BIG)
+    q_int = q_int.astype(np.int64)
+    smax = np.stack([q_int[..., i * split:(i + 1) * split].max(-1)
+                     for i in range(nsplit)], -1)          # (R, H, nsplit)
+    # pass 2: m, the per-split partial Z (int) and s @ V (f32, key order)
+    m = (np.full((r, h, 1), 127) if static_max
+         else smax.max(-1, keepdims=True))
+    b_, s_, d_ = (theta[:, i].astype(np.int64)[None, :, None]
+                  for i in range(3))
+    sc = np.where(live, b_ - s_ * np.minimum(m - q_int, d_), 0)
+    v = np.repeat(vg, g, axis=1)                          # (R, H, L, d)
+    z_part, acc_part = [], []
+    for i in range(nsplit):
+        acc = np.zeros((r, h, d), np.float32)
+        for j in range(i * split, min((i + 1) * split, length)):
+            on = live[:, :, j, None]
+            acc = np.where(on, _fma_f32(sc[:, :, j, None].astype(np.float32),
+                                        v[:, :, j], acc), acc)
+        z_part.append(sc[..., i * split:(i + 1) * split].sum(-1))
+        acc_part.append(acc)
+    # pass 3: the partials in split order, then Stage 5
+    acc = np.zeros((r, h, d), np.float32)
+    for part in acc_part:
+        acc = acc + part
+    z = np.maximum(np.sum(z_part, 0).astype(np.float32), 1.0)
+    inv = hccs_mode_inv(torch.from_numpy(z), mode).numpy()[..., None]
+    return (acc * inv).astype(np.float32), q_int
+
+
+def _split_rng(kind, pool, exact):
+    return np.random.default_rng(zlib.crc32(repr((
+        "split", kind, pool, exact)).encode()))
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(kind, pool, exact):
+    """The shared case of every split length (see the section comment):
+    kind "arena" — one slot per frontier of SPLIT_FRONTS in a
+    (15, Hkv, SPLIT_TMAX, d) arena — or "packed" — one token per frontier,
+    all owned by slot 0 (the length-0 row by slot 2, the length-1 row by
+    slot 1), two pad lanes, slot 0's blocks 1 and 9 sentinels."""
+    rng = _split_rng(kind, pool, exact)
+    h = 2 * HKV
+    n = len(SPLIT_FRONTS)
+    if kind == "arena":
+        shape = (n, HKV, SPLIT_TMAX, D)
+        rows = n
+    else:
+        nblk = -(-max(SPLIT_FRONTS) // BS) + 1
+        n_blocks = nblk + 4
+        shape = (n_blocks, HKV, BS, D)
+        rows = n + 2
+    if exact:
+        q = rng.integers(-8, 9, (rows, h, D)) / 8.0
+        k = rng.integers(-8, 9, shape) / 8.0
+        v = rng.integers(-8, 9, shape) / 8.0
+        scale = rng.uniform(0.015, 0.03, h)
+    else:
+        q = rng.normal(0, 1, (rows, h, D))
+        k = rng.normal(0, 1, shape)
+        v = rng.normal(0, 1, shape)
+        scale = rng.uniform(0.01, 0.04, h)
+    theta = np.stack([rng.integers(120, 200, h), rng.integers(0, 2, h),
+                      rng.integers(16, 100, h)], -1).astype(np.int32)
+    case = dict(q=q.astype(np.float32), scale=scale.astype(np.float32),
+                theta=theta)
+    if kind == "arena":
+        case.update(k=k.astype(np.float32), v=v.astype(np.float32),
+                    lengths=np.asarray(SPLIT_FRONTS, np.int32))
+        return case
+    sid = [1 if f == 1 else 2 if f == 0 else 0 for f in SPLIT_FRONTS]
+    table = np.full((3, nblk), -1, np.int32)
+    blocks = rng.permutation(np.arange(1, n_blocks))
+    table[0, :nblk - 1] = blocks[:nblk - 1]
+    table[0, [1, 9]] = -1                     # sentinels inside frontiers
+    table[1, 0] = blocks[nblk - 1]
+    case.update(block_table=table,
+                slot_ids=np.asarray(sid + [-1, -1], np.int32),
+                lengths=np.asarray(SPLIT_FRONTS + [0, 0], np.int32))
+    if pool == "int8":
+        sc = (np.full((n_blocks, HKV), 0.125) if exact
+              else rng.uniform(0.05, 0.2, (n_blocks, HKV)))
+        case.update(k_pool=np.clip(np.round(k * 8), -127, 127)
+                    .astype(np.int8),
+                    v_pool=np.clip(np.round(v * 8), -127, 127)
+                    .astype(np.int8),
+                    k_scales=sc.astype(np.float32),
+                    v_scales=sc[::-1].astype(np.float32).copy())
+    else:
+        case.update(k_pool=k.astype(np.float32), v_pool=v.astype(np.float32))
+    return case
+
+
+@functools.lru_cache(maxsize=None)
+def _split_want(kind, pool, exact, mode, static_max):
+    """The JAX kernel's output and quantized logits on the shared case, and
+    the port's plain version's output."""
+    case = _split_case(kind, pool, exact)
+    j, t = _as(case, pool, "jax"), _as(case, pool, "torch")
+    kw = dict(mode=mode, static_max=static_max)
+    if kind == "arena":
+        out = ops.hccs_decode(j["q"], j["k"], j["v"], j["lengths"],
+                              j["scale"], j["theta"], **kw)
+        jq = _jax_qint_of(case["q"], j["k"].astype(jnp.float32),
+                          case["scale"])
+        plain = hccs_decode(t["q"], t["k"], t["v"], t["lengths"],
+                            t["scale"], t["theta"], **kw)
+    else:
+        out = ops.hccs_packed_prefill(
+            j["q"], j["k_pool"], j["v_pool"], j["block_table"],
+            j["slot_ids"], j["lengths"], j["scale"], j["theta"],
+            k_scales=j.get("k_scales"), v_scales=j.get("v_scales"), **kw)
+        kp = dict(case, k_pool=np.asarray(j["k_pool"].astype(jnp.float32)))
+        jq = _jax_qint(kp, "int8" if pool == "int8" else "f32")
+        plain = hccs_packed_prefill(
+            t["q"], t["k_pool"], t["v_pool"], t["block_table"],
+            t["slot_ids"], t["lengths"], t["scale"], t["theta"],
+            k_scales=t.get("k_scales"), v_scales=t.get("v_scales"), **kw)
+    return np.asarray(out), jq, plain.numpy()
+
+
+def _split_inputs(kind, pool, exact):
+    """The case's gathered f32 keys and values (R, Hkv, L, d) and live keys
+    (R, L), exactly as the kernels read them."""
+    case = _split_case(kind, pool, exact)
+    t = _as(case, pool, "torch")
+    if kind == "arena":
+        cols = np.arange(SPLIT_TMAX)
+        valid = cols[None, :] < case["lengths"][:, None]
+        return t["k"].float().numpy(), t["v"].float().numpy(), valid
+    _, valid = packed_qint(t["q"], t["k_pool"], t["block_table"],
+                           t["slot_ids"], t["lengths"], t["scale"],
+                           t.get("k_scales"))
+    sid = case["slot_ids"]
+    tbl = torch.from_numpy(np.maximum(case["block_table"][np.maximum(sid, 0)],
+                                      0)).long()
+    r, nblk = tbl.shape
+
+    def gather(pool_, scales):
+        g = pool_[tbl].float()
+        if scales is not None:
+            g = g * scales[tbl][..., None, None]
+        return g.permute(0, 2, 1, 3, 4).reshape(r, HKV, nblk * BS, D)
+    return (gather(t["k_pool"], t.get("k_scales")).numpy(),
+            gather(t["v_pool"], t.get("v_scales")).numpy(), valid.numpy())
+
+
+def _check_split(kind, pool, inputs, mode, static_max, split):
+    exact = inputs == "exact"
+    case = _split_case(kind, pool, exact)
+    want, jq, plain = _split_want(kind, pool, exact, mode, static_max)
+    kg, vg, valid = _split_inputs(kind, pool, exact)
+    got, qi = _split_sweep(case["q"], kg, vg, valid, case["scale"],
+                           case["theta"], mode, static_max, split)
+    live = np.broadcast_to(valid[:, None, :], qi.shape)
+    flipped = (qi != jq) & live
+    assert live.sum() > 0
+    empty = np.flatnonzero(~valid.any(-1))
+    assert len(empty) >= 1
+    np.testing.assert_array_equal(got[empty], 0.0)
+    np.testing.assert_array_equal(want[empty], 0.0)
+    if exact:
+        assert not flipped.any()
+        np.testing.assert_array_equal(got, plain)
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    else:
+        clean = ~flipped.any(-1)
+        assert flipped.sum() <= MAX_FLIPS
+        np.testing.assert_allclose(got[clean], want[clean], rtol=0,
+                                   atol=RANDOM_ATOL)
+
+
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("kv", ["f32", "bf16"])
+@pytest.mark.parametrize("static_max", [False, True])
+@pytest.mark.parametrize("mode", ["wide", "i16_div", "i16_clb"])
+@pytest.mark.parametrize("inputs", ["exact", "random"])
+def test_split_sweep_matches_jax_decode_kernel(inputs, mode, static_max, kv,
+                                               split):
+    _check_split("arena", kv, inputs, mode, static_max, split)
+
+
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("static_max", [False, True])
+@pytest.mark.parametrize("mode", ["wide", "i16_div", "i16_clb"])
+@pytest.mark.parametrize("inputs", ["exact", "random"])
+def test_split_sweep_matches_jax_packed_kernel(inputs, mode, static_max,
+                                               pool, split):
+    _check_split("packed", pool, inputs, mode, static_max, split)

@@ -329,6 +329,90 @@ def test_wrappers_raise_on_cuda_when_the_build_fails(name, monkeypatch):
     assert wrapper.launches == before
 
 
+def _record_launches(monkeypatch):
+    """Replace the `launch` that kernels/decode.py imports from build with a
+    recorder that counts the launch as build.launch does; the wrappers'
+    counters are restored afterwards."""
+    from repro_torch.kernels import decode
+    calls = []
+
+    def record(fn, entry, device, *args):
+        calls.append((fn, entry, args))
+        fn.launches += 1
+
+    for fn in (decode.hccs_decode, decode.hccs_packed_prefill,
+               decode.hccs_paged_decode):
+        monkeypatch.setattr(fn, "launches", fn.launches)
+    monkeypatch.setattr(decode, "launch", record)
+    return calls
+
+
+@pytest.mark.parametrize("with_qint", [False, True])
+@pytest.mark.parametrize("static_max", [False, True])
+@pytest.mark.parametrize("name", ["hccs_decode", "hccs_packed_prefill"])
+def test_split_wrappers_make_one_c_call_with_their_workspace(
+        name, static_max, with_qint, monkeypatch):
+    """The split-sweep wrappers enqueue all their passes through one C
+    call: it gets a uint8 workspace of `workspace_bytes` (no q_int scratch
+    of its own when qint_out is given or under static_max), qint_out in the
+    scratch's place right before it, and the wrapper counts one launch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import decode
+    calls = _record_launches(monkeypatch)
+    wrapper = getattr(decode, name)
+    before = wrapper.launches
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        args = _fake_cuda_args(name)
+        r, h, d = args[0].shape
+        length = 11 if name == "hccs_decode" else 3 * 8
+        qo = (torch.empty((r, h, length), dtype=torch.int8, device="cuda")
+              if with_qint else None)
+        out = wrapper(*args, static_max=static_max, qint_out=qo)
+        assert out.shape == (r, h, d) and out.device.type == "cuda"
+        assert len(calls) == 1
+        fn, entry, cargs = calls[0]
+        ws = [i for i, a in enumerate(cargs) if isinstance(a, torch.Tensor)
+              and a.dtype == torch.uint8]
+        assert len(ws) == 1
+        i = ws[0]
+        want = decode.workspace_bytes(
+            r, h, length, d, qint_scratch=not with_qint and not static_max)
+        assert cargs[i].numel() == cargs[i + 1] == want
+        assert cargs[i - 1] is qo and cargs[i - 2] is out
+        assert cargs[-2] == int(static_max)
+    assert fn is wrapper and entry == f"{name}_launch"
+    assert wrapper.launches == before + 1
+
+
+def test_shared_memory_limit_binds_only_the_row_sweep(monkeypatch):
+    """The split sweep keeps no per-key state in shared memory, so a row of
+    any length launches; hccs_paged_decode's one-block-per-row sweep still
+    holds group x max_len bytes of q_int there and refuses past the
+    card's limit."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import decode
+    calls = _record_launches(monkeypatch)
+    nblk = decode.MAX_SMEM_BYTES // 8            # group 2 x 8-key blocks
+    assert decode.sweep_smem_bytes(2, 16, 8, nblk * 8) > \
+        decode.MAX_SMEM_BYTES
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        f32, i32 = torch.float32, torch.int32
+        cuda = (lambda shape, dt=f32: torch.empty(shape, dtype=dt,
+                                                  device="cuda"))
+        q, pool = cuda((2, 4, 16)), cuda((5, 2, 8, 16))
+        sc, th = cuda((4,)), cuda((4, 3), i32)
+        table, lens = cuda((2, nblk), i32), cuda((2,), i32)
+        arena = cuda((2, 2, nblk * 8, 16))
+        with pytest.raises(ValueError, match="shared memory"):
+            decode.hccs_paged_decode(q, pool, pool, table, lens, sc, th)
+        decode.hccs_packed_prefill(q, pool, pool, table, lens, lens, sc, th)
+        decode.hccs_decode(q, arena, arena, lens, sc, th)
+    assert [c[1] for c in calls] == ["hccs_packed_prefill_launch",
+                                     "hccs_decode_launch"]
+
+
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 def test_fused_wrapper_takes_non_contiguous_inputs(device, monkeypatch):
     """hccs_attention accepts a (B, T, H, d) -> (B, H, T, d) transposed view
