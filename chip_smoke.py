@@ -25,8 +25,9 @@ Phases, in order:
   5 engine      packed PagedEngine: granite, 40 layers, bf16, 8 requests x 32
                 new tokens, twice, then once profiled
   6 kernel      hccs_paged_decode against hccs_paged_decode_ref (8 slots,
-                frontiers 0-2048, f32/bf16/int8 pools); times as phase 3's
-                (the old one-block-per-row sweep: the control of phase 7)
+                frontiers 0-2048 and at the split boundaries, f32/bf16/int8
+                pools, a sentinel block inside a frontier); times as
+                phase 3's
   7 kernel      hccs_decode against hccs_decode_ref (8 slots, frontiers
                 0-2048, f32/bf16 arenas, an arena of odd length, frontiers
                 at the split boundaries); times as phase 3's
@@ -42,15 +43,17 @@ Phases, in order:
  12 softmax     softmax_bf16 against softmax_bf16_ref and torch.softmax,
                 bf16 and f32, at the same shapes
  13 fused       hccs_mha_fused against hccs_mha_fused_ref (granite's full
-                prefill attention, B 8 x 512, Tq != Tk; causal and not;
-                f32 and bf16; exact and random), then against the served
-                model's blockwise STE attention at full width
+                prefill attention, B 8 x 512, Tq != Tk, rows past the q_int
+                cache so that both variants run, head dims 18-128; causal
+                and not; f32 and bf16; exact and random), then against the
+                served model's blockwise STE attention at full width
  14 table3      the entry point: Table III through repro_torch.kernels
                 (softmax_reference bf16, hccs_softmax i16_div and i8_clb at
                 4096 x 32/64/128 and 65,536 x 2048) and hccs_attention at
                 granite's full prefill shape; launches counted; the times
-                of phases 11-14 (per call, device only, plain versions,
-                torch.softmax, the blockwise STE attention)
+                of phases 11-14 (per call, device only warm and L2-cold,
+                plain versions, torch.softmax, the blockwise STE
+                attention)
  15 report      one JSON line per the kernel table
 
 The last line is {"ok": true, "device": {...}}; any failed phase exits
@@ -76,7 +79,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.constraints import (default_params,  # noqa: E402
                                           feasible_grid, validate_params)
 from repro_torch.kernels import build as kbuild  # noqa: E402
-from repro_torch.kernels.attention import (hccs_mha_fused,  # noqa: E402
+from repro_torch.kernels.attention import (fused_plan,  # noqa: E402
+                                           fused_smem_bytes, hccs_mha_fused,
                                            hccs_mha_fused_ref, mha_qint)
 from repro_torch.kernels.decode import (SPLIT_KEYS,  # noqa: E402
                                         decode_qint, hccs_decode,
@@ -85,8 +89,7 @@ from repro_torch.kernels.decode import (SPLIT_KEYS,  # noqa: E402
                                         hccs_paged_decode,
                                         hccs_paged_decode_ref, packed_qint,
                                         paged_qint, split_count,
-                                        split_smem_bytes, sweep_smem_bytes,
-                                        workspace_bytes)
+                                        split_smem_bytes, workspace_bytes)
 from repro_torch.kernels.hccs import hccs_rows, hccs_rows_ref  # noqa: E402
 from repro_torch.kernels.softmax_bf16 import (softmax_bf16,  # noqa: E402
                                               softmax_bf16_ref)
@@ -295,15 +298,34 @@ def phase_build():
     g = H // HKV
     split = [" / ".join(str(split_smem_bytes(g, D, e, static))
                         for e in (4, 2, 1)) for static in (False, True)]
-    log(f"[build] dynamic shared memory per block at granite shapes: "
-        f"{sweep_smem_bytes(g, D, BS, MAX_LEN)} B (paged, one-block-per-row "
-        f"sweep); split sweep (packed, arena), f32 / bf16 / int8 K/V: "
+    log(f"[build] dynamic shared memory per block at granite shapes, split "
+        f"sweep (packed, paged, arena), f32 / bf16 / int8 K/V: "
         f"{split[0]} B (passes 1-2), {split[1]} B (static_max pass); "
         f"{SPLIT_KEYS}-key splits, "
         f"{split_count(MAX_LEN)} a {MAX_LEN}-key row; workspace of a decode "
         f"step {workspace_bytes(MAX_BATCH, H, MAX_LEN, D, qint_scratch=True)}"
         f" B, of a width-256 step "
         f"{workspace_bytes(256, H, MAX_LEN, D, qint_scratch=True)} B")
+    # the fused kernel's shared memory: the Python mirror against the C
+    # formula, and the variant each of phase 13's shapes runs
+    lib = kbuild.load_library()
+    for d in (1, 20, 32, 64, 96, 128):
+        for elem in (4, 2):
+            for nk in (1, 64, 65, 2048, 2752, 8192):
+                for cache in (True, False):
+                    c = lib.hccs_fused_smem_bytes(d, elem, nk, int(cache))
+                    py = fused_smem_bytes(d, elem, nk, cache)
+                    check(c == py, f"fused_smem_bytes({d}, {elem}, {nk}, "
+                          f"{cache}): C {c} != Python {py}")
+    plans = {f"Tq {tq} Tk {tk} {'causal' if causal else 'full'}":
+             fused_plan(tq, tk, D, 4, causal)
+             for tq, tk, causal in ((MAX_LEN, MAX_LEN, True),
+                                    (FUSED_LONG[1], FUSED_LONG[2], True),
+                                    (FUSED_LONG[1], FUSED_LONG[2], False),
+                                    (FUSED_DEEP, FUSED_DEEP, True))}
+    log("[build] fused kernel, f32, d 64: " + "; ".join(
+        f"{k}: {'q_int cached' if c else 'QK recomputed'}, {b} B"
+        for k, (c, b) in plans.items()) + " (C and Python formulas agree)")
 
 
 # ---------------------------------------------------------------- phase 3 --
@@ -774,7 +796,8 @@ def phase_decode_kernel(kind: str):
         qint = (lambda c: paged_qint(c["q"], c["k_pool"], c["block_table"],
                                      c["lengths"], c["scale"],
                                      c["k_scales"]))
-        shapes = [(DECODE_FRONTS, MAX_LEN)]
+        # the engine's pool, and frontiers at the split boundaries
+        shapes = [(DECODE_FRONTS, MAX_LEN), (SPLIT_FRONTS, MAX_LEN)]
     else:
         fn, ref, tag = hccs_decode, hccs_decode_ref, "arena"
         dtypes = (torch.float32, torch.bfloat16)
@@ -859,7 +882,7 @@ KERNELS = (hccs_packed_prefill, hccs_paged_decode, hccs_decode)
 # what the profiler's names of each wrapper's kernels hold: the split
 # sweep's passes are instantiated on the wrapper's row type
 KERNEL_SYMBOLS = {"hccs_packed_prefill": "PackedRows",
-                  "hccs_paged_decode": "hccs_paged_kernel",
+                  "hccs_paged_decode": "PagedRows",
                   "hccs_decode": "ArenaRows"}
 
 
@@ -1130,6 +1153,14 @@ def phase_softmax():
             check(bool(torch.isfinite(got).all()), "softmax not finite")
 
 
+# phase 13's rows past the fused kernel's q_int cache (fused_plan): a long
+# row (B, Tq, Tk), cached under causal (its rows see 128 keys) and
+# recomputed without; and a causal prefill of FUSED_DEEP tokens
+FUSED_LONG = (1, 128, 8192)
+FUSED_DEEP = 2880
+FUSED_DIMS = (18, 32, 96, 128)
+
+
 def fused_case(b, tq, tk, dtype, exact: bool, seed: int):
     """Granite-headed attention inputs (H 32 over Hkv 8, d 64) on the card,
     the decode phases' value ranges and theta."""
@@ -1161,53 +1192,87 @@ def fused_bound(case, causal: bool):
     return (*bound(nbytes, flops), nbytes, flops)
 
 
-def phase_fused():
-    """hccs_mha_fused against hccs_mha_fused_ref on the card (exact inputs
+def check_fused(case, causal: bool, what: str):
+    """One hccs_mha_fused call against hccs_mha_fused_ref: exact inputs
     bit-identical, random inputs with their int8 bin flips counted through
-    qint_out), then against the served model's blockwise STE attention at
-    granite's full width."""
-    shapes = [(1, MAX_LEN, MAX_LEN), (8, 512, 512), (1, 300, 1000)]
+    qint_out within the decode phases' gates. Returns the kernel's output."""
+    b, h, tq, _ = case["q"].shape
+    tk = case["k"].shape[2]
+    qo = torch.full((b, h, tq, tk), -128, dtype=torch.int8, device="cuda")
+    got = hccs_mha_fused(**case, causal=causal, qint_out=qo)
+    want = hccs_mha_fused_ref(**case, causal=causal)
+    qi, valid = mha_qint(case["q"], case["k"], case["scale"], causal)
+    torch.cuda.synchronize()
+    flipped = (qo.int() != qi) & valid
+    flips = int(flipped.sum())
+    n_live = int(valid.sum()) * b * h
+    err = (got.float() - want.float()).abs()
+    flip_rows = flipped.any(-1)
+    err_clean = float(err[~flip_rows].max()) if (~flip_rows).any() else 0.0
+    max_err = float(err.max())
+    log(f"[fused] {what}: flips {flips}/{n_live}, max|d| {max_err:.3e}, "
+        f"rows w/o flips {err_clean:.3e}")
+    check(bool(torch.isfinite(got).all()), f"fused output not finite: {what}")
+    if "exact" in what:
+        check(flips == 0 and max_err == 0.0, f"exact case differs: {what}")
+    else:
+        check(flips <= RANDOM_FLIP_FRACTION * n_live,
+              f"{flips} bin flips of {n_live}: {what}")
+        check(err_clean <= RANDOM_MAX_ERR_NO_FLIP,
+              f"max |d| {err_clean} on rows without flips: {what}")
+    return got
+
+
+def other_dims_case(d, dtype, exact: bool, seed: int):
+    """Attention inputs at head_dim d: B 1, 8 heads over 4 kv heads, T 200,
+    the decode phases' value ranges."""
+    rng = np.random.default_rng(seed)
+    h, hkv, t = 8, 4, 200
+    if exact:
+        q, k, v = (rng.integers(-8, 9, (1, n, t, d)) / 8.0
+                   for n in (h, hkv, hkv))
+        scale = rng.uniform(0.007, 0.013, h) * np.sqrt(d / D)
+    else:
+        q, k, v = (rng.normal(0, 1, (1, n, t, d)) for n in (h, hkv, hkv))
+        scale = rng.uniform(0.005, 0.02, h)
+    theta = np.stack([rng.integers(120, 200, h), rng.integers(0, 2, h),
+                      rng.integers(16, 100, h)], -1)
+    to = (lambda a: torch.tensor(a, dtype=torch.float32,
+                                 device="cuda").to(dtype))
+    return dict(q=to(q), k=to(k), v=to(v),
+                scale=torch.tensor(scale, dtype=torch.float32, device="cuda"),
+                theta=torch.tensor(theta, dtype=torch.int32, device="cuda"))
+
+
+def phase_fused():
+    """hccs_mha_fused against hccs_mha_fused_ref on the card (check_fused)
+    at granite's heads: its full prefill, B 8 x 512, Tq != Tk, a long row
+    past the q_int cache (FUSED_LONG) and a causal prefill past it
+    (FUSED_DEEP), so that both variants run; then other head dims (the
+    second column group at d 96 and 128, the element path at d 18); then
+    against the served model's blockwise STE attention at granite's full
+    width."""
+    shapes = [(1, MAX_LEN, MAX_LEN), (8, 512, 512), (1, 300, 1000),
+              FUSED_LONG, (1, FUSED_DEEP, FUSED_DEEP)]
     seed = 0
+    variants = set()
     for b, tq, tk in shapes:
         full = (b, tq, tk) == shapes[0]
-        for dtype in ((torch.float32, torch.bfloat16) if full or tq != tk
+        both = full or tq != tk
+        for dtype in ((torch.float32, torch.bfloat16) if both
                       else (torch.float32,)):
             for exact in (True, False):
                 seed += 1
                 case = fused_case(b, tq, tk, dtype, exact, seed)
-                for causal in ((True, False) if full or tq != tk
-                               else (True,)):
-                    qo = torch.full((b, H, tq, tk), -128, dtype=torch.int8,
-                                    device="cuda")
-                    got = hccs_mha_fused(**case, causal=causal, qint_out=qo)
-                    want = hccs_mha_fused_ref(**case, causal=causal)
-                    qi, valid = mha_qint(case["q"], case["k"], case["scale"],
-                                         causal)
-                    torch.cuda.synchronize()
-                    flipped = (qo.int() != qi) & valid
-                    flips = int(flipped.sum())
-                    n_live = int(valid.sum()) * b * H
-                    err = (got.float() - want.float()).abs()
-                    flip_rows = flipped.any(-1)
-                    err_clean = float(err[~flip_rows].max()) \
-                        if (~flip_rows).any() else 0.0
-                    max_err = float(err.max())
-                    what = (f"B {b} Tq {tq} Tk {tk} {str(dtype)[6:]} "
-                            f"{'exact' if exact else 'random'} "
-                            f"{'causal' if causal else 'full'}")
-                    log(f"[fused] {what}: flips {flips}/{n_live}, max|d| "
-                        f"{max_err:.3e}, rows w/o flips {err_clean:.3e}")
-                    check(bool(torch.isfinite(got).all()),
-                          f"fused output not finite: {what}")
-                    if exact:
-                        check(flips == 0 and max_err == 0.0,
-                              f"exact case differs: {what}")
-                    else:
-                        check(flips <= RANDOM_FLIP_FRACTION * n_live,
-                              f"{flips} bin flips of {n_live}: {what}")
-                        check(err_clean <= RANDOM_MAX_ERR_NO_FLIP,
-                              f"max |d| {err_clean} on rows without flips: "
-                              f"{what}")
+                for causal in ((True, False) if both else (True,)):
+                    cache = fused_plan(tq, tk, D, case["q"].element_size(),
+                                       causal)[0]
+                    variants.add(cache)
+                    got = check_fused(case, causal, (
+                        f"B {b} Tq {tq} Tk {tk} {str(dtype)[6:]} "
+                        f"{'exact' if exact else 'random'} "
+                        f"{'causal' if causal else 'full'} "
+                        f"({'q_int cached' if cache else 'QK recomputed'})"))
                     if (full and dtype == torch.float32 and causal
                             and not exact):
                         with torch.inference_mode():
@@ -1218,6 +1283,17 @@ def phase_fused():
                             f"(granite cfg, block_k 512): max|d| {err:.3e}")
                         check(err <= BLOCKWISE_ATOL, f"fused kernel against "
                               f"the blockwise attention: max |d| {err}")
+    check(variants == {True, False}, f"fused variants run: {variants}")
+    for d in FUSED_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for exact in (True, False):
+                seed += 1
+                case = other_dims_case(d, dtype, exact, seed)
+                for causal in (True, False):
+                    check_fused(case, causal, (
+                        f"d {d} H 8 Hkv 4 T 200 {str(dtype)[6:]} "
+                        f"{'exact' if exact else 'random'} "
+                        f"{'causal' if causal else 'full'}"))
 
 
 def blockwise_run(case):
@@ -1334,10 +1410,12 @@ def phase_table3():
         f"rows), hccs_softmax identical, hccs_attention max |d| "
         f"{attn_err:.3e}")
 
-    def entry(ms, plain, library, nbytes, ops, err):
+    def entry(ms, fn, plain, library, nbytes, ops, err):
         b, by = bound(nbytes, ops)
-        return dict(ms=ms, plain_ms=plain, library_ms=library, bound_ms=b,
-                    bound_by=by, max_abs_err=err, bytes=nbytes, ops=ops)
+        return dict(ms=ms, device_ms=graph_time_ms(fn),
+                    cold_ms=cold_time_ms(fn), plain_ms=plain,
+                    library_ms=library, bound_ms=b, bound_by=by,
+                    max_abs_err=err, bytes=nbytes, ops=ops)
 
     with torch.inference_mode():
         blockwise_ms = cuda_time_ms(blockwise_run(attn), iters=3, warmup=1)
@@ -1345,23 +1423,28 @@ def phase_table3():
     _, _, fused_bytes, fused_flops = fused_bound(attn, True)
     timings = {
         "hccs_rows": entry(
-            per_call[g][1], cuda_time_ms(lambda: hccs_rows_ref(
-                xi, theta, "i16_div"), iters=5), None,
+            per_call[g][1], lambda: KAPI.hccs_softmax(xi, theta, "i16_div"),
+            cuda_time_ms(lambda: hccs_rows_ref(xi, theta, "i16_div"),
+                         iters=5), None,
             xi.numel() * 5 + theta.numel() * 4, 10.0 * xi.numel(), 0.0),
         "softmax_bf16": entry(
-            per_call[g][0], cuda_time_ms(lambda: softmax_bf16_ref(xb),
-                                         iters=5),
+            per_call[g][0], lambda: KAPI.softmax_reference(xb),
+            cuda_time_ms(lambda: softmax_bf16_ref(xb), iters=5),
             cuda_time_ms(lambda: torch.softmax(xb, -1)),
             2 * xb.numel() * xb.element_size(), 5.0 * xb.numel(), sm_err),
         "hccs_mha_fused": entry(
-            t_attn, cuda_time_ms(lambda: hccs_mha_fused_ref(**attn),
-                                 iters=5), None,
+            t_attn, lambda: KAPI.hccs_attention(
+                attn["q"], attn["k"], attn["v"], attn["scale"],
+                attn["theta"]),
+            cuda_time_ms(lambda: hccs_mha_fused_ref(**attn), iters=5), None,
             fused_bytes, fused_flops, attn_err)}
     for name, tm in timings.items():
         lib = (f", torch.softmax {tm['library_ms']:.4f} ms"
                if tm["library_ms"] is not None else "")
         log(f"[table3] timing {name} at granite's shape: kernel "
-            f"{tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms{lib}, bound "
+            f"{tm['ms']:.4f} ms per call, device {tm['device_ms']:.4f} ms "
+            f"warm / {tm['cold_ms']:.4f} ms L2-cold, plain "
+            f"{tm['plain_ms']:.4f} ms{lib}, bound "
             f"{tm['bound_ms']:.4f} ms ({tm['bound_by']}: "
             f"{tm['bytes'] / 1e6:.2f} MB, {tm['ops'] / 1e9:.3f} G ops)")
     log(f"[table3] the blockwise STE attention on hccs_attention's inputs: "
@@ -1441,7 +1524,7 @@ def main(argv=None):
                          path_launches["hccs_paged_decode"],
                          decode_timings["paged"],
                          f"B=8, {geo} bs={BS}, f32 pool, mode wide",
-                         headers=("hccs_sweep.cuh", "hccs_common.cuh"),
+                         headers=split_headers,
                          kernels_per_call=path_per_call["hccs_paged_decode"]),
             kernel_entry("hccs_decode", "hccs_arena.cu",
                          "src/repro/kernels/decode.py:254",

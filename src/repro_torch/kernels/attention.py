@@ -10,11 +10,13 @@ semantics of the served model's blockwise attention:
   out   = acc / max(Z, 1), a true division               (Stage 5)
 
 HCCS is linear in the active window, so pass 1 needs no per-block rescaling,
-only the one final division. `sm_scale` is the JAX kernel's constant
-1 / sqrt(d), taken in double and rounded once to f32, and it MULTIPLIES the
-f32 logits (the decode kernels divide by sqrt(d) instead; the two constants
-agree at d = 32, 64 and 128 and differ by an ulp at d = 96). Causal masking
-is aligned at the start, cols <= rows, whatever Tk - Tq is.
+only the one final division. On the card pass 0 keeps q_int in shared
+memory for pass 1 where a block's rows fit (`fused_plan`), and recomputes
+it otherwise. `sm_scale` is the JAX kernel's constant 1 / sqrt(d), taken
+in double and rounded once to f32, and it MULTIPLIES the f32 logits (the
+decode kernels divide by sqrt(d) instead; the two constants agree at
+d = 32, 64 and 128 and differ by an ulp at d = 96). Causal masking is
+aligned at the start, cols <= rows, whatever Tk - Tq is.
 
 `hccs_mha_fused` dispatches on the tensors' device: CUDA tensors launch the
 hand-written kernel `csrc/hccs_fused.cu` (or raise) and bump
@@ -29,13 +31,50 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import cuda_device, launch
-from repro_torch.kernels.decode import NEG_BIG, POOL_TYPES
+from repro_torch.kernels.decode import MAX_SMEM_BYTES, NEG_BIG, POOL_TYPES
 
 DTYPES = (torch.float32, torch.bfloat16)     # q, k, v and the output
 # launch limits of csrc/hccs_fused.cu: 64 query-head rows per block, so a
 # GQA group of at most 64 heads; 16 column groups of at most 8 columns
+# (two groups of four a thread)
 MAX_GROUP = 64
 MAX_HEAD_DIM = 128
+# the kernel's block: kRows query-head rows, a ring of two kKeys1-row K/V
+# slots
+ROWS, RING_ROWS = 64, 128
+
+
+def fused_smem_bytes(head_dim: int, elem_size: int, nk_max: int,
+                     cache: bool) -> int:
+    """Dynamic shared memory of one block of the fused kernel
+    (csrc/hccs_fused.cu fused_smem_bytes), at the tile width dq (head_dim
+    rounded up to 32, 64 or 128): the queries (f32, row stride dq + 4) and
+    the 64-key s tile (ROWS x 68 f32), one region when q_int is cached; a
+    two-slot ring of RING_ROWS staged K/V rows a slot (row stride
+    dq * elem + 16 bytes); the exchange of row maxima and Z (8 ints a row);
+    and, cached, the int8 q_int of ROWS rows x nk_max keys (row stride
+    nk_max rounded up to 64, plus 16)."""
+    dq = 32 if head_dim <= 32 else 64 if head_dim <= 64 else 128
+    qb = ROWS * (dq + 4) * 4
+    sb = ROWS * 68 * 4
+    ring = 2 * RING_ROWS * (dq * elem_size + 16)
+    region = max(qb, sb) if cache else qb + sb
+    return (region + ring + 8 * ROWS * 4
+            + (ROWS * (-(-nk_max // 64) * 64 + 16) if cache else 0))
+
+
+def fused_plan(tq: int, tk: int, head_dim: int, elem_size: int,
+               causal: bool) -> tuple[bool, int]:
+    """Which variant of the fused kernel a shape runs, and its dynamic
+    shared memory: q_int kept in shared memory when a block's rows (who see
+    at most min(tk, tq) keys under causal, else tk) fit, else QK recomputed
+    in the second stage. The recompute variant fits at every shape the
+    launch accepts."""
+    nk_max = min(tk, tq) if causal else tk
+    smem = fused_smem_bytes(head_dim, elem_size, nk_max, True)
+    if smem <= MAX_SMEM_BYTES:
+        return True, smem
+    return False, fused_smem_bytes(head_dim, elem_size, nk_max, False)
 
 
 def sm_scale(head_dim: int) -> float:
@@ -92,9 +131,9 @@ def hccs_mha_fused(q, k, v, scale, theta, *, causal: bool = True,
 
     `block_q` and `block_k` are accepted for parity with the JAX signature:
     the CUDA kernel's tiles (64 query-head rows, 64 keys) are its own
-    choice. qint_out, for on-card testing only, is a contiguous int8
-    (B, H, Tq, Tk) CUDA tensor that receives the kernel's quantized logits
-    at the live keys.
+    choice, and `fused_plan` picks its variant from the shape. qint_out,
+    for on-card testing only, is a contiguous int8 (B, H, Tq, Tk) CUDA
+    tensor that receives the kernel's quantized logits at the live keys.
 
     CUDA tensors launch the kernel (and bump `hccs_mha_fused.launches`);
     CPU tensors run `hccs_mha_fused_ref`."""
@@ -129,11 +168,12 @@ def hccs_mha_fused(q, k, v, scale, theta, *, causal: bool = True,
             qint_out.shape) != (b, h, tq, tk)):
         raise ValueError(f"qint_out must be a contiguous int8 "
                          f"{(b, h, tq, tk)} tensor on {dev}")
+    cache, _ = fused_plan(tq, tk, d, q.element_size(), causal)
     out = torch.empty_like(q)
     if b and tq:
         launch(hccs_mha_fused, "hccs_fused_launch", dev, q, k, v, scale,
                theta, out, qint_out, b, h, hkv, tq, tk, d,
-               POOL_TYPES[q.dtype], int(causal), sm_scale(d))
+               POOL_TYPES[q.dtype], int(causal), sm_scale(d), int(cache))
     return out
 
 

@@ -3,9 +3,9 @@
 Every `kernels/csrc/*.cu` is compiled on first use, one nvcc process per
 source, all started together, for `sm_90a` (Hopper), then linked into one
 shared library with a plain C interface. The sources share headers:
-`csrc/hccs_common.cuh` (element loads, locators, Stage 5), the split-KV
-sweep `csrc/hccs_split.cuh` (hccs_arena.cu, hccs_packed.cu) and the
-one-block-per-row sweep `csrc/hccs_sweep.cuh` (hccs_paged.cu). The library:
+`csrc/hccs_common.cuh` (element loads, locators, Stage 5) and the split-KV
+sweep `csrc/hccs_split.cuh` (hccs_arena.cu, hccs_packed.cu, hccs_paged.cu).
+The library:
 
     build/repro_torch_kernels/libkernels-<hash>.so
 
@@ -120,7 +120,8 @@ def load_library() -> ctypes.CDLL:
         lib.hccs_packed_prefill_launch.argtypes = (
             [vp] * 13 + [sz] + [i] * 9 + [f, vp])
         lib.hccs_packed_prefill_launch.restype = i
-        lib.hccs_paged_decode_launch.argtypes = [vp] * 11 + [i] * 9 + [f, vp]
+        lib.hccs_paged_decode_launch.argtypes = (
+            [vp] * 12 + [sz] + [i] * 9 + [f, vp])
         lib.hccs_paged_decode_launch.restype = i
         lib.hccs_decode_launch.argtypes = [vp] * 9 + [sz] + [i] * 8 + [f, vp]
         lib.hccs_decode_launch.restype = i
@@ -128,8 +129,10 @@ def load_library() -> ctypes.CDLL:
         lib.hccs_rows_launch.restype = i
         lib.softmax_bf16_launch.argtypes = [vp] * 2 + [i] * 3 + [vp]
         lib.softmax_bf16_launch.restype = i
-        lib.hccs_fused_launch.argtypes = [vp] * 7 + [i] * 8 + [f, vp]
+        lib.hccs_fused_launch.argtypes = [vp] * 7 + [i] * 8 + [f, i, vp]
         lib.hccs_fused_launch.restype = i
+        lib.hccs_fused_smem_bytes.argtypes = [i] * 4
+        lib.hccs_fused_smem_bytes.restype = sz
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

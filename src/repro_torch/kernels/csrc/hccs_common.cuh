@@ -1,12 +1,12 @@
-// hccs_common.cuh — pieces shared by the port's single-query HCCS kernels:
-// the old one-block-per-row sweep (hccs_sweep.cuh, run by hccs_paged.cu) and
-// the split-KV sweep (hccs_split.cuh, run by hccs_arena.cu and
-// hccs_packed.cu), and the fused kernel (hccs_fused.cu).
+// hccs_common.cuh — pieces shared by the port's single-query HCCS kernels
+// (the split-KV sweep hccs_split.cuh, run by hccs_arena.cu, hccs_packed.cu
+// and hccs_paged.cu) and the fused kernel (hccs_fused.cu).
 //
-// Element loads of the four pool types, the warp max, the Stage 5
-// reciprocal (the float formulas of repro/core/hccs.py hccs_mode_inv), how
-// a block of a paged pool is located through a block-table row, the shared
-// memory opt-in and the launch geometry check.
+// Element types and loads of the four pool types, 16-byte cp.async, the
+// warp max, the Stage 5 reciprocal (the float formulas of
+// repro/core/hccs.py hccs_mode_inv), how a block of a paged pool is located
+// through a block-table row, the shared memory opt-in and the launch
+// geometry check.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -22,6 +22,33 @@ constexpr int kStaticMax = 127;
 
 enum PoolType { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3 };
 enum Mode { kWide = 0, kI16Div = 1, kI16Clb = 2 };
+
+template <int PT> struct Elem;
+template <> struct Elem<kF32> { using T = float; };
+template <> struct Elem<kBF16> { using T = uint16_t; };
+template <> struct Elem<kF16> { using T = uint16_t; };
+template <> struct Elem<kI8> { using T = int8_t; };
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 template <int PT>
 __device__ __forceinline__ float load_elem(const void* p, int64_t i);

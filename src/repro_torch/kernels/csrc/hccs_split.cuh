@@ -1,7 +1,8 @@
 // hccs_split.cuh — the split-KV single-query HCCS sweep, run by
-// hccs_arena.cu (hccs_decode) and hccs_packed.cu (hccs_packed_prefill).
+// hccs_arena.cu (hccs_decode), hccs_packed.cu (hccs_packed_prefill) and
+// hccs_paged.cu (hccs_paged_decode).
 //
-// Replaces, for those two kernels, the body the Pallas TPU kernels share,
+// Replaces, for those three kernels, the body the Pallas TPU kernels share,
 // `_decode_tile` (src/repro/kernels/decode.py:65). Each query row (a slot or
 // a packed token) computes, per query head h, over its live keys j < nk:
 //
@@ -34,8 +35,8 @@
 //
 // What bounds it on the H100: memory and latency. Every live K and V row is
 // read once per (row, kv head), for about 2 * d flops an element, far below
-// the f32 pipes' line. The one-block-per-row sweep (hccs_sweep.cuh) ran a
-// decode step as 64 blocks on 132 SMs, each walking up to 2048 keys twice
+// the f32 pipes' line. The one-block-per-row sweep it replaced put a
+// decode step on 64 blocks of 132 SMs, each walking up to 2048 keys twice
 // with two barriers a 32-key tile. Here a block of kSplitKeys threads owns
 // a split, a thread one key, so a decode step at 2048 keys is 16 blocks per
 // (row, kv head), each with its whole split in flight: warp w stages the
@@ -68,12 +69,6 @@ namespace hccs {
 constexpr int kSplitKeys = 128;   // keys per work item = threads per block
 constexpr int kWarps = kSplitKeys / 32;
 constexpr size_t kWsAlign = 256;  // alignment of each workspace region
-
-template <int PT> struct Elem;
-template <> struct Elem<kF32> { using T = float; };
-template <> struct Elem<kBF16> { using T = uint16_t; };
-template <> struct Elem<kF16> { using T = uint16_t; };
-template <> struct Elem<kI8> { using T = int8_t; };
 
 __host__ __device__ inline int split_count(int max_len) {
   return (max_len + kSplitKeys - 1) / kSplitKeys;
@@ -124,21 +119,6 @@ struct SplitWorkspace {
   int* z;        // (R, H, nsplit) partial Z
   float* acc;    // (R, H, nsplit, d) partial acc
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 __device__ __forceinline__ int warp_sum(int v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

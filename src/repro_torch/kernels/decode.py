@@ -12,13 +12,13 @@ Three entry points compute the same single-query sweep (the JAX package's
                        [0, lengths[b]) of a contiguous (B, Hkv, Tmax, d)
                        arena (csrc/hccs_arena.cu)
 
-On the card `hccs_packed_prefill` and `hccs_decode` run the split-KV sweep
-(`csrc/hccs_split.cuh`): (row, kv head, SPLIT_KEYS-key split) work items in
-three passes (QK and split maxima; partial Z and s @ V; the fixed-order
-combine and Stage 5; passes 1 and 2 fused under static_max), all enqueued by
-one C call into one workspace the wrapper allocates (`workspace_bytes`).
-`hccs_paged_decode` still runs the one-block-per-row sweep of
-`csrc/hccs_sweep.cuh`.
+On the card all three run the split-KV sweep (`csrc/hccs_split.cuh`):
+(row, kv head, SPLIT_KEYS-key split) work items in three passes (QK and
+split maxima; partial Z and s @ V; the fixed-order combine and Stage 5;
+passes 1 and 2 fused under static_max), all enqueued by one C call into
+one workspace the wrapper allocates (`workspace_bytes`). The row type each
+source instantiates the sweep on (PackedRows, PagedRows, ArenaRows) says
+where a row's keys live.
 
 Each wrapper dispatches on the tensors' device: CUDA tensors launch the
 hand-written kernel (or raise) and bump the wrapper's `launches` counter,
@@ -59,21 +59,10 @@ def sm_denom(head_dim: int) -> float:
     return float(np.sqrt(np.float32(head_dim)))
 
 
-def sweep_smem_bytes(group: int, head_dim: int, tile: int,
-                     max_len: int) -> int:
-    """Dynamic shared memory of one block of the one-block-per-row sweep
-    (`hccs_paged_decode`): the group's queries, one staged K/V tile (row
-    stride head_dim + 1 against bank conflicts), and the int8
-    quantized-logit row (max_len keys) of every head in the group
-    (hccs::sweep_smem_bytes)."""
-    floats = group * head_dim + tile * (head_dim + 1)
-    return floats * 4 + -(-group * max_len // 16) * 16
-
-
 def split_smem_bytes(group: int, head_dim: int, elem_size: int,
                      static_max: bool) -> int:
     """Dynamic shared memory of the largest pass of the split sweep
-    (`hccs_packed_prefill`, `hccs_decode`; hccs::split_smem_bytes): per
+    (every decode wrapper; hccs::split_smem_bytes): per
     key its pool offset and V scale, per (warp, head) a max, the group's
     queries (QK) and s per (head, key) (PV, both in the static_max pass),
     and the split's SPLIT_KEYS rows of K or V, each padded to 16 bytes plus
@@ -129,7 +118,7 @@ def _qint(q, kg, valid, scale):
     qg = q.float().reshape(r, hkv, g, d)
     logits = torch.einsum("rkgd,rkld->rkgl", qg, kg)
     # true divisions, in this order: a reciprocal multiply can move a logit
-    # across an int8 bin boundary (see csrc/hccs_sweep.cuh)
+    # across an int8 bin boundary (see csrc/hccs_split.cuh)
     logits = logits / torch.tensor(sm_denom(d), dtype=torch.float32,
                                    device=q.device)
     logits = logits / scale.float().reshape(1, hkv, g, 1)
@@ -290,13 +279,13 @@ def _check_table(block_table, rows=None):
 
 
 def _launch(fn, entry: str, args, q, k, *, qint_out, qint_len,
-            split: bool, **ctx) -> torch.Tensor:
+            **ctx) -> torch.Tensor:
     """Launch one of the CUDA kernels on `q`'s device and stream: the shared
-    launch limits and qint_out checks, the output (and, for the split
-    sweep, the workspace) allocation, then `build.launch` (device,
-    contiguity, error check, launch count): one C call, whatever the number
-    of passes. `ctx` are the entry point's trailing int arguments, in
-    order, before pool type, mode, static_max."""
+    launch limits and qint_out checks, the output and workspace
+    allocation, then `build.launch` (device, contiguity, error check,
+    launch count): one C call, whatever the number of passes. `ctx` are
+    the entry point's trailing int arguments, in order, before pool type,
+    mode, static_max."""
     r, h, d = q.shape
     g = h // k.shape[1]
     dev = cuda_device(*args, qint_out)
@@ -304,8 +293,7 @@ def _launch(fn, entry: str, args, q, k, *, qint_out, qint_len,
         raise ValueError(f"kernel takes GQA groups <= {MAX_GROUP} and "
                          f"head_dim <= {MAX_HEAD_DIM}, got {g} and {d}")
     static_max = ctx["static_max"]
-    smem = (split_smem_bytes(g, d, k.element_size(), static_max) if split
-            else sweep_smem_bytes(g, d, k.shape[2], qint_len))
+    smem = split_smem_bytes(g, d, k.element_size(), static_max)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"kernel needs {smem} B of shared memory, over the "
                          f"{MAX_SMEM_BYTES} B a block can have")
@@ -316,17 +304,13 @@ def _launch(fn, entry: str, args, q, k, *, qint_out, qint_len,
     out = torch.empty((r, h, d), dtype=torch.float32, device=dev)
     if r == 0:
         return out
-    extra = [qint_out]
-    if split:
-        ws = torch.empty(workspace_bytes(
-            r, h, qint_len, d,
-            qint_scratch=qint_out is None and not static_max),
-            dtype=torch.uint8, device=dev)
-        extra += [ws, ws.numel()]
+    ws = torch.empty(workspace_bytes(
+        r, h, qint_len, d, qint_scratch=qint_out is None and not static_max),
+        dtype=torch.uint8, device=dev)
     mode, static_max = ctx.pop("mode"), ctx.pop("static_max")
-    launch(fn, entry, dev, *args, out, *extra, *ctx.values(),
-           POOL_TYPES[k.dtype], MODE_CODES[mode], int(static_max),
-           sm_denom(d))
+    launch(fn, entry, dev, *args, out, qint_out, ws, ws.numel(),
+           *ctx.values(), POOL_TYPES[k.dtype], MODE_CODES[mode],
+           int(static_max), sm_denom(d))
     return out
 
 
@@ -375,7 +359,7 @@ def hccs_packed_prefill(q, k_pool, v_pool, block_table, slot_ids, lengths,
         hccs_packed_prefill, "hccs_packed_prefill_launch",
         [q, k_pool, v_pool, k_scales, v_scales, block_table, slot_ids,
          lengths, scale, theta], q, k_pool, qint_out=qint_out,
-        qint_len=nblk * bs, split=True, T=q.shape[0], num_kv=hkv,
+        qint_len=nblk * bs, T=q.shape[0], num_kv=hkv,
         group=q.shape[1] // hkv, block_size=bs, nblk=nblk, d=d, **kw)
 
 
@@ -392,9 +376,12 @@ def hccs_paged_decode(q, k_pool, v_pool, block_table, lengths, scale, theta,
     token; scale: (H,) float32; theta: (H, 3) int32. Returns (B, H, d)
     float32; rows with length 0 return zeros.
 
-    CUDA tensors launch the kernel (and bump `hccs_paged_decode.launches`);
-    CPU tensors run `hccs_paged_decode_ref`. qint_out, for on-card testing
-    only, is an int8 (B, H, nblk * block_size) CUDA tensor."""
+    CUDA tensors run the split sweep's passes through one C call (and bump
+    `hccs_paged_decode.launches` once); CPU tensors run
+    `hccs_paged_decode_ref`. qint_out, for on-card testing only, is an int8
+    (B, H, nblk * block_size) CUDA tensor, prefilled by the caller, that
+    receives the quantized logits at the live keys and serves as the
+    kernel's q_int scratch."""
     _check(q, k_pool, v_pool, scale, theta, mode, k_scales, v_scales,
            pool=True)
     _check_table(block_table, rows=q.shape[0])
@@ -411,7 +398,7 @@ def hccs_paged_decode(q, k_pool, v_pool, block_table, lengths, scale, theta,
         hccs_paged_decode, "hccs_paged_decode_launch",
         [q, k_pool, v_pool, k_scales, v_scales, block_table, lengths, scale,
          theta], q, k_pool, qint_out=qint_out, qint_len=nblk * bs,
-        split=False, B=q.shape[0], num_kv=hkv, group=q.shape[1] // hkv,
+        B=q.shape[0], num_kv=hkv, group=q.shape[1] // hkv,
         block_size=bs, nblk=nblk, d=d, **kw)
 
 
@@ -440,7 +427,7 @@ def hccs_decode(q, k, v, lengths, scale, theta, *, mode: str = "wide",
     return _launch(
         hccs_decode, "hccs_decode_launch",
         [q, k, v, lengths, scale, theta], q, k, qint_out=qint_out,
-        qint_len=tmax, split=True, B=q.shape[0], num_kv=hkv,
+        qint_len=tmax, B=q.shape[0], num_kv=hkv,
         group=q.shape[1] // hkv, tmax=tmax, d=d, **kw)
 
 

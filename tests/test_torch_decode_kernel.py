@@ -440,7 +440,9 @@ def test_decode_never_reads_dead_keys(kind):
 # split - 1, split and split + 1 of each split length, rows of length 0
 # and 1, and a long row; the arena is 137 rows (no multiple of any split)
 # with stale rows past every frontier; the packed case has sentinel blocks
-# inside the long frontier (one of them a whole 8-key split) and pad lanes.
+# inside the long frontier (one of them a whole 8-key split) and pad lanes;
+# the paged case gives each frontier a slot of its own, with sentinel
+# blocks inside the 133- and 65-key frontiers.
 # Exact inputs must be bit-identical; random inputs are held to the gates
 # above (MAX_FLIPS, RANDOM_ATOL). On exact inputs every sum is exact in any
 # order, so the emulation must equal the port's plain version bit for bit,
@@ -448,8 +450,9 @@ def test_decode_never_reads_dead_keys(kind):
 # against the JAX output it is held to rtol 1e-6 as in (a): under jit, XLA
 # evaluates the reference's i16_div Stage 5 one ulp off the IEEE quotient
 # at Z = 14, 28, 37, 47, 56 and 61 (of Z < 40000), which these rows reach.
-# Measured on the 120 random cases: 0 flipped bins of 209,184 live logits,
-# max |d| 1.8e-7 against the JAX kernels.
+# Measured on the 120 random arena and packed cases: 0 flipped bins of
+# 209,184 live logits, max |d| 1.8e-7 against the JAX kernels; on the 72
+# random paged cases 0 of 131,904, max |d| 3.0e-7.
 
 SPLITS = (8, 12, 32, 64)
 SPLIT_FRONTS = [7, 8, 9, 11, 12, 13, 31, 32, 33, 63, 64, 65, 0, 1, 133]
@@ -519,20 +522,27 @@ def _split_rng(kind, pool, exact):
 def _split_case(kind, pool, exact):
     """The shared case of every split length (see the section comment):
     kind "arena" — one slot per frontier of SPLIT_FRONTS in a
-    (15, Hkv, SPLIT_TMAX, d) arena — or "packed" — one token per frontier,
+    (15, Hkv, SPLIT_TMAX, d) arena — "packed" — one token per frontier,
     all owned by slot 0 (the length-0 row by slot 2, the length-1 row by
-    slot 1), two pad lanes, slot 0's blocks 1 and 9 sentinels."""
+    slot 1), two pad lanes, slot 0's blocks 1 and 9 sentinels — or
+    "paged" — one slot per frontier, each with blocks of its own from a
+    shuffled pool, sentinels past every frontier and inside three (the
+    133-key row's blocks 1 and 9, the 65-key row's block 4)."""
     rng = _split_rng(kind, pool, exact)
     h = 2 * HKV
     n = len(SPLIT_FRONTS)
+    nblk = -(-max(SPLIT_FRONTS) // BS) + 1
     if kind == "arena":
         shape = (n, HKV, SPLIT_TMAX, D)
         rows = n
-    else:
-        nblk = -(-max(SPLIT_FRONTS) // BS) + 1
+    elif kind == "packed":
         n_blocks = nblk + 4
         shape = (n_blocks, HKV, BS, D)
         rows = n + 2
+    else:
+        n_blocks = sum(-(-f // BS) for f in SPLIT_FRONTS) + 4
+        shape = (n_blocks, HKV, BS, D)
+        rows = n
     if exact:
         q = rng.integers(-8, 9, (rows, h, D)) / 8.0
         k = rng.integers(-8, 9, shape) / 8.0
@@ -551,15 +561,27 @@ def _split_case(kind, pool, exact):
         case.update(k=k.astype(np.float32), v=v.astype(np.float32),
                     lengths=np.asarray(SPLIT_FRONTS, np.int32))
         return case
-    sid = [1 if f == 1 else 2 if f == 0 else 0 for f in SPLIT_FRONTS]
-    table = np.full((3, nblk), -1, np.int32)
     blocks = rng.permutation(np.arange(1, n_blocks))
-    table[0, :nblk - 1] = blocks[:nblk - 1]
-    table[0, [1, 9]] = -1                     # sentinels inside frontiers
-    table[1, 0] = blocks[nblk - 1]
-    case.update(block_table=table,
-                slot_ids=np.asarray(sid + [-1, -1], np.int32),
-                lengths=np.asarray(SPLIT_FRONTS + [0, 0], np.int32))
+    if kind == "packed":
+        sid = [1 if f == 1 else 2 if f == 0 else 0 for f in SPLIT_FRONTS]
+        table = np.full((3, nblk), -1, np.int32)
+        table[0, :nblk - 1] = blocks[:nblk - 1]
+        table[0, [1, 9]] = -1                 # sentinels inside frontiers
+        table[1, 0] = blocks[nblk - 1]
+        case.update(block_table=table,
+                    slot_ids=np.asarray(sid + [-1, -1], np.int32),
+                    lengths=np.asarray(SPLIT_FRONTS + [0, 0], np.int32))
+    else:
+        table = np.full((n, nblk), -1, np.int32)
+        c = 0
+        for s_, f in enumerate(SPLIT_FRONTS):
+            nb = -(-f // BS)
+            table[s_, :nb] = blocks[c:c + nb]
+            c += nb
+        table[SPLIT_FRONTS.index(133), [1, 9]] = -1
+        table[SPLIT_FRONTS.index(65), 4] = -1
+        case.update(block_table=table,
+                    lengths=np.asarray(SPLIT_FRONTS, np.int32))
     if pool == "int8":
         sc = (np.full((n_blocks, HKV), 0.125) if exact
               else rng.uniform(0.05, 0.2, (n_blocks, HKV)))
@@ -588,17 +610,27 @@ def _split_want(kind, pool, exact, mode, static_max):
                           case["scale"])
         plain = hccs_decode(t["q"], t["k"], t["v"], t["lengths"],
                             t["scale"], t["theta"], **kw)
-    else:
+    elif kind == "packed":
         out = ops.hccs_packed_prefill(
             j["q"], j["k_pool"], j["v_pool"], j["block_table"],
             j["slot_ids"], j["lengths"], j["scale"], j["theta"],
             k_scales=j.get("k_scales"), v_scales=j.get("v_scales"), **kw)
-        kp = dict(case, k_pool=np.asarray(j["k_pool"].astype(jnp.float32)))
-        jq = _jax_qint(kp, "int8" if pool == "int8" else "f32")
         plain = hccs_packed_prefill(
             t["q"], t["k_pool"], t["v_pool"], t["block_table"],
             t["slot_ids"], t["lengths"], t["scale"], t["theta"],
             k_scales=t.get("k_scales"), v_scales=t.get("v_scales"), **kw)
+    else:
+        out = ops.hccs_paged_decode(
+            j["q"], j["k_pool"], j["v_pool"], j["block_table"],
+            j["lengths"], j["scale"], j["theta"],
+            k_scales=j.get("k_scales"), v_scales=j.get("v_scales"), **kw)
+        plain = hccs_paged_decode(
+            t["q"], t["k_pool"], t["v_pool"], t["block_table"],
+            t["lengths"], t["scale"], t["theta"],
+            k_scales=t.get("k_scales"), v_scales=t.get("v_scales"), **kw)
+    if kind != "arena":
+        kp = dict(case, k_pool=np.asarray(j["k_pool"].astype(jnp.float32)))
+        jq = _jax_qint(kp, "int8" if pool == "int8" else "f32")
     return np.asarray(out), jq, plain.numpy()
 
 
@@ -611,10 +643,15 @@ def _split_inputs(kind, pool, exact):
         cols = np.arange(SPLIT_TMAX)
         valid = cols[None, :] < case["lengths"][:, None]
         return t["k"].float().numpy(), t["v"].float().numpy(), valid
-    _, valid = packed_qint(t["q"], t["k_pool"], t["block_table"],
-                           t["slot_ids"], t["lengths"], t["scale"],
-                           t.get("k_scales"))
-    sid = case["slot_ids"]
+    if kind == "packed":
+        _, valid = packed_qint(t["q"], t["k_pool"], t["block_table"],
+                               t["slot_ids"], t["lengths"], t["scale"],
+                               t.get("k_scales"))
+        sid = case["slot_ids"]
+    else:
+        _, valid = paged_qint(t["q"], t["k_pool"], t["block_table"],
+                              t["lengths"], t["scale"], t.get("k_scales"))
+        sid = np.arange(len(case["q"]))
     tbl = torch.from_numpy(np.maximum(case["block_table"][np.maximum(sid, 0)],
                                       0)).long()
     r, nblk = tbl.shape
@@ -671,3 +708,13 @@ def test_split_sweep_matches_jax_decode_kernel(inputs, mode, static_max, kv,
 def test_split_sweep_matches_jax_packed_kernel(inputs, mode, static_max,
                                                pool, split):
     _check_split("packed", pool, inputs, mode, static_max, split)
+
+
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("static_max", [False, True])
+@pytest.mark.parametrize("mode", ["wide", "i16_div", "i16_clb"])
+@pytest.mark.parametrize("inputs", ["exact", "random"])
+def test_split_sweep_matches_jax_paged_kernel(inputs, mode, static_max,
+                                              pool, split):
+    _check_split("paged", pool, inputs, mode, static_max, split)

@@ -349,7 +349,8 @@ def _record_launches(monkeypatch):
 
 @pytest.mark.parametrize("with_qint", [False, True])
 @pytest.mark.parametrize("static_max", [False, True])
-@pytest.mark.parametrize("name", ["hccs_decode", "hccs_packed_prefill"])
+@pytest.mark.parametrize("name", ["hccs_decode", "hccs_packed_prefill",
+                                  "hccs_paged_decode"])
 def test_split_wrappers_make_one_c_call_with_their_workspace(
         name, static_max, with_qint, monkeypatch):
     """The split-sweep wrappers enqueue all their passes through one C
@@ -385,18 +386,18 @@ def test_split_wrappers_make_one_c_call_with_their_workspace(
     assert wrapper.launches == before + 1
 
 
-def test_shared_memory_limit_binds_only_the_row_sweep(monkeypatch):
-    """The split sweep keeps no per-key state in shared memory, so a row of
-    any length launches; hccs_paged_decode's one-block-per-row sweep still
-    holds group x max_len bytes of q_int there and refuses past the
-    card's limit."""
+def test_decode_wrappers_launch_past_the_row_sweeps_shared_memory(
+        monkeypatch):
+    """The split sweep keeps no per-key state in shared memory, so all
+    three decode wrappers launch a row whose int8 q_int alone (group x
+    max_len bytes) would not fit in a block's shared memory, as the
+    one-block-per-row sweep they replaced kept it."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.kernels import decode
     calls = _record_launches(monkeypatch)
     nblk = decode.MAX_SMEM_BYTES // 8            # group 2 x 8-key blocks
-    assert decode.sweep_smem_bytes(2, 16, 8, nblk * 8) > \
-        decode.MAX_SMEM_BYTES
+    assert 2 * nblk * 8 > decode.MAX_SMEM_BYTES
     with FakeTensorMode(allow_non_fake_inputs=True):
         f32, i32 = torch.float32, torch.int32
         cuda = (lambda shape, dt=f32: torch.empty(shape, dtype=dt,
@@ -405,12 +406,59 @@ def test_shared_memory_limit_binds_only_the_row_sweep(monkeypatch):
         sc, th = cuda((4,)), cuda((4, 3), i32)
         table, lens = cuda((2, nblk), i32), cuda((2,), i32)
         arena = cuda((2, 2, nblk * 8, 16))
-        with pytest.raises(ValueError, match="shared memory"):
-            decode.hccs_paged_decode(q, pool, pool, table, lens, sc, th)
-        decode.hccs_packed_prefill(q, pool, pool, table, lens, lens, sc, th)
-        decode.hccs_decode(q, arena, arena, lens, sc, th)
-    assert [c[1] for c in calls] == ["hccs_packed_prefill_launch",
-                                     "hccs_decode_launch"]
+        for static_max in (False, True):
+            kw = dict(static_max=static_max)
+            decode.hccs_paged_decode(q, pool, pool, table, lens, sc, th,
+                                     **kw)
+            decode.hccs_packed_prefill(q, pool, pool, table, lens, lens, sc,
+                                       th, **kw)
+            decode.hccs_decode(q, arena, arena, lens, sc, th, **kw)
+    assert [c[1] for c in calls] == 2 * ["hccs_paged_decode_launch",
+                                         "hccs_packed_prefill_launch",
+                                         "hccs_decode_launch"]
+
+
+@pytest.mark.parametrize("tq,tk,causal,dtype,cached", [
+    (8, 8, True, torch.float32, True),
+    (64, 4096, True, torch.bfloat16, True),    # rows see 64 keys
+    (64, 4096, False, torch.float32, False),   # past the q_int cache
+    (4096, 4096, True, torch.bfloat16, False),
+])
+def test_fused_wrapper_hands_the_launch_its_shape_and_variant(
+        tq, tk, causal, dtype, cached, monkeypatch):
+    """On CUDA tensors (fake) hccs_mha_fused makes one C call with the
+    shapes, dtype code, causal flag, the kernel's f32 sm_scale and the
+    variant fused_plan picks for the shape, and counts one launch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import attention
+    calls = []
+
+    def record(fn, entry, device, *args):
+        calls.append((fn, entry, args))
+        fn.launches += 1
+
+    monkeypatch.setattr(attention.hccs_mha_fused, "launches",
+                        attention.hccs_mha_fused.launches)
+    monkeypatch.setattr(attention, "launch", record)
+    before = attention.hccs_mha_fused.launches
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        q = torch.empty((1, 4, tq, 16), dtype=dtype, device="cuda")
+        k = torch.empty((1, 2, tk, 16), dtype=dtype, device="cuda")
+        sc = torch.empty((4,), device="cuda")
+        th = torch.empty((4, 3), dtype=torch.int32, device="cuda")
+        out = attention.hccs_mha_fused(q, k, k, sc, th, causal=causal)
+        assert out.shape == q.shape and out.dtype == dtype
+    (fn, entry, args), = calls
+    assert fn is attention.hccs_mha_fused and entry == "hccs_fused_launch"
+    assert args[0] is q and args[1] is k and args[2] is k
+    assert args[5] is out and args[6] is None
+    cache, smem = attention.fused_plan(tq, tk, 16, q.element_size(), causal)
+    assert smem <= attention.MAX_SMEM_BYTES
+    assert args[7:] == (1, 4, 2, tq, tk, 16, attention.POOL_TYPES[dtype],
+                        int(causal), attention.sm_scale(16), int(cache))
+    assert cache == cached
+    assert attention.hccs_mha_fused.launches == before + 1
 
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])

@@ -286,6 +286,53 @@ def test_fused_attention_sm_scale_is_the_kernels_constant():
     assert sm_scale(96) != float(np.float32(1) / np.sqrt(np.float32(96)))
 
 
+@pytest.mark.parametrize("tq,tk,d,elem,causal,want", [
+    # granite's causal prefill: q_int of 64 rows x 2048 keys cached;
+    # Q / s region 64 x 68 x 4, ring 2 x 128 x (64 * 4 + 16), exchange
+    # 64 x 8 x 4, cache 64 x (2048 + 16)
+    (2048, 2048, 64, 4, True, (True, 17408 + 69632 + 2048 + 132096)),
+    # its rows see 128 keys under causal: cached, 64 x (128 + 16)
+    (128, 8192, 64, 4, True, (True, 17408 + 69632 + 2048 + 9216)),
+    # past the cache: Q and s apart, no cache
+    (128, 8192, 64, 4, False, (False, 2 * 17408 + 69632 + 2048)),
+    (2880, 2880, 64, 4, True, (False, 2 * 17408 + 69632 + 2048)),
+    # the last length that fits at d 64 f32, and the first that does not
+    (2176, 2176, 64, 4, False, (True, 17408 + 69632 + 2048 + 140288)),
+    (2177, 2177, 64, 4, False, (False, 2 * 17408 + 69632 + 2048)),
+    # bf16 rows (64 * 2 + 16 bytes); d 128 (Q 64 x 132 x 4) past the cache
+    (2048, 2048, 64, 2, True, (True, 17408 + 36864 + 2048 + 132096)),
+    (2048, 2048, 128, 4, True, (False, 33792 + 17408 + 135168 + 2048)),
+    # d 18 runs at the 32-column tile width (Q 64 x 36 x 4 < the s tile),
+    # cache 64 x (256 + 16)
+    (200, 200, 18, 4, True, (True, 17408 + 36864 + 2048 + 17408)),
+])
+def test_fused_plan_and_shared_memory(tq, tk, d, elem, causal, want):
+    """The Python mirror of csrc/hccs_fused.cu fused_smem_bytes and the
+    variant the wrapper picks, against hand-computed values (chip_smoke.py
+    phase 2 holds the mirror against the C formula on the card)."""
+    from repro_torch.kernels.attention import MAX_SMEM_BYTES, fused_plan
+    assert fused_plan(tq, tk, d, elem, causal) == want
+    assert want[1] <= MAX_SMEM_BYTES
+
+
+def test_fused_plan_refuses_no_shape_the_launch_accepts():
+    """Every head dim (1..128), dtype and key count the launch takes fits
+    the card's shared memory in the variant fused_plan picks: the recompute
+    variant does not grow with the keys."""
+    from repro_torch.kernels.attention import (MAX_HEAD_DIM, MAX_SMEM_BYTES,
+                                               fused_plan, fused_smem_bytes)
+    for d in range(1, MAX_HEAD_DIM + 1):
+        for elem in (4, 2):
+            assert fused_smem_bytes(d, elem, 1, False) == \
+                fused_smem_bytes(d, elem, 1 << 30, False)
+            for tk in (1, 63, 64, 65, 1000, 2048, 4096, 1 << 20):
+                for causal in (True, False):
+                    cache, smem = fused_plan(tk, tk, d, elem, causal)
+                    assert smem <= MAX_SMEM_BYTES
+                    assert cache or fused_smem_bytes(
+                        d, elem, tk, True) > MAX_SMEM_BYTES
+
+
 def test_fused_attention_checks_its_arguments():
     q, k, v, scale, theta = (torch.from_numpy(a) for a in _attn_case(
         ("checks",), 1, 4, 2, 8, 8, 16))
