@@ -32,10 +32,12 @@ Phases, in order:
                 0-2048, f32/bf16 arenas, an arena of odd length, frontiers
                 at the split boundaries); times as phase 3's
   8 lockstep    lockstep PagedEngine on phase 5's requests, twice, then
-                once profiled
+                once profiled; its tokens held to phase 5's by the near-tie
+                rule (ROADMAP C1: every request's first divergence must be
+                a near tie of the model's logits)
   9 continuous  ContinuousEngine on phase 5's requests, the same way
  10 wave        ServeEngine on 8 requests of 512 prompt tokens, the same
-                way, and the packed engine on the same requests
+                way, held to the packed engine on the same requests
  11 rows        hccs_rows against hccs_rows_ref, four modes: the paper's
                 4096 x 32/64/128, granite's 65,536 x 2048 attention rows
                 with per-head feasible theta, C = 2047, degenerate rows,
@@ -54,7 +56,21 @@ Phases, in order:
                 of phases 11-14 (per call, device only warm and L2-cold,
                 plain versions, torch.softmax, the blockwise STE
                 attention)
- 15 report      one JSON line per the kernel table
+ 15 fold        paged_quant_scatter (the int8 pool's quantizing write)
+                against paged_quant_scatter_ref: f32/bf16 rows, writes of
+                8, 64 and 256 rows, exact and random, in one call, split
+                over three, with draft rows; pools and scales bit-identical;
+                times of a 256-row write
+ 16 sharing     the packed PagedEngine with int8 KV, prefix and decode
+                sharing, two turns of 8 sessions on a 512-token system
+                prefix: hits, COW, turn 2's skip rate, the int8/f32 byte
+                ratio, 80 fold and 40 packed launches a step; twice, once
+                profiled; then sharing off and an f32 pool, each held to it
+                by the near-tie rule
+ 17 grid        the packed PagedEngine without the kernel (the per-slot STE
+                grid) on phase 5's requests, profiled once, held to phase 5
+                by the near-tie rule
+ 18 report      one JSON line per the kernel table
 
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero before it. `--phases` runs a subset (for bring-up).
@@ -62,6 +78,7 @@ non-zero before it. `--phases` runs a subset (for bring-up).
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import subprocess
@@ -91,13 +108,18 @@ from repro_torch.kernels.decode import (SPLIT_KEYS,  # noqa: E402
                                         paged_qint, split_count,
                                         split_smem_bytes, workspace_bytes)
 from repro_torch.kernels.hccs import hccs_rows, hccs_rows_ref  # noqa: E402
+from repro_torch.kernels.kv_quant import (fold_smem_bytes,  # noqa: E402
+                                          paged_quant_scatter,
+                                          paged_quant_scatter_ref)
 from repro_torch.kernels.softmax_bf16 import (softmax_bf16,  # noqa: E402
                                               softmax_bf16_ref)
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.attention import _blockwise_attention  # noqa: E402
 from repro_torch.serve import (ContinuousEngine, ServeEngine)  # noqa: E402
+from repro_torch.serve.engine import kv_cache_byte_stats  # noqa: E402
 from repro_torch.serve.paged import (PagedEngine, Request,  # noqa: E402
-                                     pack_slot_ids, schedule_step_tokens)
+                                     pack_slot_ids, packed_write_positions,
+                                     schedule_step_tokens)
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12                # H100 SXM, f32 outside the tensor cores
@@ -225,11 +247,8 @@ def kernel_passes(fn, calls: int = 10) -> str:
         name = name.split("::")[-1]
         return SPLIT_PASSES.get(name, name)
     times: dict[str, list[float]] = {}
-    for e in sorted((e for e in prof.events()
-                     if str(e.device_type).endswith("CUDA")),
-                    key=lambda e: e.time_range.start):
-        times.setdefault(short(e.name), []).append(
-            e.time_range.elapsed_us())
+    for e in sorted(device_events(prof), key=lambda e: e.start):
+        times.setdefault(short(e.name), []).append(e.end - e.start)
     if not times:
         return "no device events: per-kernel times not measured"
     parts = [f"{name} {sum(us) / len(us):.1f} us" for name, us in
@@ -576,6 +595,26 @@ def phase_forward():
 
 # ---------------------------------------------------------------- phase 5 --
 
+# one device event of a profiled run: its name, start and end in us
+DevEvent = collections.namedtuple("DevEvent", "name start end")
+
+
+def device_events(prof) -> list:
+    """The CUDA events of a profiled run, read once from the profiler's raw
+    (kineto) results: building `prof.events()` for a full-width engine run
+    (150k-400k events with their host ops) takes minutes."""
+    if not hasattr(prof, "device_events"):
+        out = []
+        for e in prof.profiler.kineto_results.events():
+            if not str(e.device_type()).endswith("CUDA"):
+                continue
+            start = e.start_ns() / 1e3
+            out.append(DevEvent(e.name(), start, start + e.duration_ns()
+                                / 1e3))
+        prof.device_events = out
+    return prof.device_events
+
+
 def profile_summary(prof, wall: float, kernel: str = "PackedRows",
                     tag: str = "profile"):
     """Device time of a profiled run by kernel (torch.profiler's CUDA
@@ -584,16 +623,15 @@ def profile_summary(prof, wall: float, kernel: str = "PackedRows",
     the share of the wall time with no kernel on the card. Returns the
     number of those HCCS kernels that ran on the card, None where the
     profiler delivered no device events."""
-    kern = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    kern = device_events(prof)
     if not kern:
         log(f"[{tag}] no device events recorded: device times not measured")
         return None
     by_name: dict[str, float] = {}
     spans = []
     for e in kern:
-        us = e.time_range.elapsed_us()
-        by_name[e.name] = by_name.get(e.name, 0.0) + us
-        spans.append((e.time_range.start, e.time_range.end))
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.end - e.start
+        spans.append((e.start, e.end))
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):                  # union of kernel intervals
         if b > end:
@@ -886,15 +924,77 @@ KERNEL_SYMBOLS = {"hccs_packed_prefill": "PackedRows",
                   "hccs_decode": "ArenaRows"}
 
 
-def agreement(toks, ref) -> tuple[int, int]:
-    """Tokens equal at the same (request, position), of all tokens."""
-    same = sum(int(a == b) for uid in ref
-               for a, b in zip(toks[uid], ref[uid]))
-    return same, sum(len(t) for t in ref.values())
+# ROADMAP C1: two paths' greedy tokens may part where the model's top two
+# tokens nearly tie, since bf16 projections at other row counts round
+# differently. Each request's first divergent position is gated: the two
+# paths' tokens there must lie within NEAR_TIE_GAP of each other in a
+# reference forward of the common prefix (the model's logits, granite's
+# bf16 weights, an f32 slot-arena prefill). Set from the first two runs
+# with this rule on an H100 80GB HBM3 at 700 W (PERF.md section 6): 25 first
+# divergences across the paths, gaps 0 to 0.0625 (bf16 logits), while the
+# top-1/top-2 gap where paths agree has a median of 0.16-0.31; the gate is
+# 4x the largest gap seen. A forced wrong token gave 1.78.
+NEAR_TIE_GAP = 0.25
 
 
-def phase_engine_path(label: str, make, prompts, kernel, steps_of,
-                      reference=None):
+def first_divergence(a, b):
+    """The first position where two token lists differ, None if neither
+    differs within their common length."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def divergence(label, toks, ref, prompts, ref_prompts, params, cfg):
+    """ROADMAP C1's rule: for each request whose tokens differ between two
+    paths (`toks` against `ref`, {uid: tokens}), the first divergent
+    position k, and one model forward of the common prefix (the prompt and
+    ref[uid][:k]): the gap between the logits of the two paths' tokens at
+    k, and for scale the forward's top-1/top-2 gaps at the positions where
+    the paths agreed. Every first divergence must be a near tie (gap <=
+    NEAR_TIE_GAP). A request whose prompt differs between the paths (a
+    session turn after a diverged turn) continues an earlier divergence and
+    is counted apart. Returns the number of requests that diverge and the
+    largest gap."""
+    arena = cfg.replace(cache_layout="slot", kv_quant="none")
+    w, hc = params["weights"], params["hccs"]
+    gaps, agreed, carried = [], [], 0
+    for uid in sorted(ref):
+        if not np.array_equal(prompts[uid], ref_prompts[uid]):
+            carried += 1
+            continue
+        k = first_divergence(toks[uid], ref[uid])
+        if k is None:
+            continue
+        plen = len(prompts[uid])
+        seq = np.concatenate([np.asarray(prompts[uid], np.int32),
+                              np.asarray(ref[uid][:k], np.int32)])
+        with torch.inference_mode():
+            x, _, _ = M.forward(w, hc, {"tokens": torch.tensor(
+                seq[None], device="cuda")}, arena,
+                M.init_cache(arena, 1, len(seq), device="cuda"))
+            lg = M.logits_from_hidden(w, x[:, plen - 1:], arena)[0].float()
+        top = torch.topk(lg, 2).values
+        agreed += (top[:-1, 0] - top[:-1, 1]).tolist()
+        gap = abs(float(lg[-1, toks[uid][k]] - lg[-1, ref[uid][k]]))
+        gaps.append((uid, k, gap, float(top[-1, 0] - top[-1, 1])))
+    worst = max((g[2] for g in gaps), default=0.0)
+    typical = (f"; the top-1/top-2 gap where the paths agree: median "
+               f"{np.median(agreed):.4f}, 10th percentile "
+               f"{np.percentile(agreed, 10):.4f} over {len(agreed)} tokens"
+               if agreed else "")
+    log(f"[{label}] {len(gaps)} of {len(ref)} requests diverge"
+        f"{f', {carried} continue a diverged history' if carried else ''};"
+        f" largest gap at a first divergence {worst:.4f} (near-tie "
+        f"threshold {NEAR_TIE_GAP}){typical}")
+    for uid, k, gap, top2 in gaps:
+        log(f"[{label}]   request {uid}: first divergence at token {k} of "
+            f"{len(ref[uid])}, the two tokens' logit gap {gap:.4f}, the "
+            f"forward's top-1/top-2 gap {top2:.4f}")
+    check(worst <= NEAR_TIE_GAP, f"{label}: a first divergence with logit "
+          f"gap {worst:.4f} > {NEAR_TIE_GAP} is no near tie")
+    return len(gaps), worst
+
+
+def phase_engine_path(label: str, make, prompts, kernel, steps_of):
     """Drive one serving path three times on the same requests (32 new
     tokens each), the third under torch.profiler: every request done,
     identical tokens in every run, and the path's kernel launched 40 times
@@ -946,11 +1046,7 @@ def phase_engine_path(label: str, make, prompts, kernel, steps_of,
             check(all(0 <= x < VOCAB for x in t), f"{label}: token off "
                   f"vocab")
         runs.append((toks, launches))
-    check(runs[0][0] == runs[1][0] == runs[2][0],
-          f"{label}: the runs disagree")
-    if reference is not None:
-        same, total = agreement(runs[0][0], reference)
-        log(f"[{label}] tokens equal to the packed engine's: {same}/{total}")
+    check(all(r[0] == runs[0][0] for r in runs), f"{label}: the runs disagree")
     return runs[0] + (profiled,)
 
 
@@ -977,20 +1073,27 @@ def phase_paths(packed_tokens, phases):
             profiled[name] = (dev + prof[0], calls + prof[1])
         else:
             profiled.setdefault(name, (0, 0))
+    by_uid = dict(enumerate(prompts))
     if 8 in phases:
-        count("hccs_paged_decode", *phase_engine_path(
+        toks, *rest = phase_engine_path(
             "lockstep", lambda: PagedEngine(
                 params, cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
                 block_size=BS, packed=False, device="cuda"),
-            prompts, hccs_paged_decode, lambda e: e.decode_steps,
-            packed_tokens)[1:])
+            prompts, hccs_paged_decode, lambda e: e.decode_steps)
+        count("hccs_paged_decode", *rest)
+        if packed_tokens is not None:
+            divergence("lockstep", toks, packed_tokens, by_uid, by_uid,
+                       params, cfg)
     if 9 in phases:
-        count("hccs_decode", *phase_engine_path(
+        toks, *rest = phase_engine_path(
             "continuous", lambda: ContinuousEngine(
                 params, arena_cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
                 device="cuda"),
-            prompts, hccs_decode, lambda e: e.occupancy_steps,
-            packed_tokens)[1:])
+            prompts, hccs_decode, lambda e: e.occupancy_steps)
+        count("hccs_decode", *rest)
+        if packed_tokens is not None:
+            divergence("continuous", toks, packed_tokens, by_uid, by_uid,
+                       params, cfg)
     if 10 in phases:
         # one prompt length, so the 8 requests form one wave; its prefill
         # attends over the 2048-row arena, which takes the blockwise path
@@ -1002,12 +1105,15 @@ def phase_paths(packed_tokens, phases):
         for i, p in enumerate(wave_prompts):
             eng.submit(Request(uid=i, prompt=p.copy(), max_new_tokens=32))
         packed_wave = {r.uid: list(r.out_tokens) for r in eng.run()}
-        count("hccs_decode", *phase_engine_path(
+        toks, *rest = phase_engine_path(
             "wave", lambda: ServeEngine(
                 params, arena_cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
                 device="cuda"),
-            wave_prompts, hccs_decode, lambda e: e.decode_steps,
-            packed_wave)[1:])
+            wave_prompts, hccs_decode, lambda e: e.decode_steps)
+        count("hccs_decode", *rest)
+        wave_by_uid = dict(enumerate(wave_prompts))
+        divergence("wave", toks, packed_wave, wave_by_uid, wave_by_uid,
+                   params, cfg)
     return launches, {k: per_call(*v) for k, v in profiled.items()}
 
 
@@ -1452,9 +1558,374 @@ def phase_table3():
     return launches, timings
 
 
+# ------------------------------------------------------------ phase 15 --
+
+FOLD_ROWS = (8, 64, 256)        # a decode step, a mixed step, a prefill step
+
+
+def fold_case(n_rows: int, row_dtype, exact: bool, seed: int, draft: bool):
+    """One layer's K write of a packed step at granite's shapes, laid out by
+    the engine's host code: 8 slots at frontiers 5-2000 in a shuffled pool,
+    prefill chunks and decode lanes scheduled into n_rows lanes, pad lanes
+    steered into the trash block 0. Every block holds stale bytes; the
+    slots' written blocks (and the trash block) have scales, the blocks the
+    step opens have scale 0 (fresh). Exact rows are multiples of 2^-3; random
+    rows vary in magnitude row by row, so scales grow mid-block."""
+    rng = np.random.default_rng(seed)
+    fronts = np.array([700, 400, 1200, 5, 300, 64, 2000, 129])
+    remaining = {8: [0] * 8, 64: [40] + [0] * 7,
+                 256: [150, 60, 0, 30, 0, 0, 0, 0]}[n_rows]
+    t_valid = schedule_step_tokens(np.ones(MAX_BATCH, bool),
+                                   np.asarray(remaining), n_rows, 4 * BS)
+    sid, off = pack_slot_ids(t_valid, n_rows)
+    n_blocks = 1 + int(sum(-(-(f + tv) // BS) for f, tv in
+                           zip(fronts, t_valid)))
+    perm = rng.permutation(np.arange(1, n_blocks))
+    table = np.full((MAX_BATCH, NBLK), -1, np.int32)
+    scales = rng.uniform(0.005, 0.05, (n_blocks, HKV))
+    c = 0
+    for s, (f, tv) in enumerate(zip(fronts, t_valid)):
+        nb = -(-(f + int(tv)) // BS)
+        table[s, :nb] = perm[c:c + nb]
+        scales[table[s, -(-f // BS):nb]] = 0.0      # opened by this step
+        c += nb
+    wp = packed_write_positions(t_valid, off, table, fronts, BS, n_rows)
+    shape = (1, HKV, n_rows, D)
+    if exact:
+        rows = rng.integers(-32, 33, shape) / 8.0
+    else:
+        rows = (rng.normal(0, 1, shape)
+                * rng.choice([0.05, 1.0, 6.0], (1, 1, n_rows, 1)))
+    dev = "cuda"
+    return dict(
+        pool=torch.tensor(rng.integers(-128, 128, (n_blocks, HKV, BS, D)),
+                          dtype=torch.int8, device=dev),
+        scales=torch.tensor(scales, dtype=torch.float32, device=dev),
+        new_kv=torch.tensor(rows, dtype=torch.float32,
+                            device=dev).to(row_dtype),
+        write_pos=torch.tensor(wp[None], dtype=torch.int32, device=dev),
+        draft_rows=(torch.tensor(rng.random((1, n_rows)) < 0.25, device=dev)
+                    if draft else None))
+
+
+def fold_work(case) -> tuple[float, str, float, float]:
+    """Least time for one fold call: the rows and targets read once, each
+    distinct (block, kv head) payload and scale the step touches read and
+    written once, over the HBM rate; against its operations (per row value
+    the abs, max, division and rounding; per scale growth a requant of the
+    block's payload, replayed here from the data) over the f32 rate."""
+    wp = case["write_pos"].cpu().numpy().reshape(-1)
+    rows = case["new_kv"].float().cpu().numpy()[0].transpose(1, 0, 2)
+    sc = case["scales"].cpu().numpy().copy()
+    blocks = wp // BS
+    grows = 0
+    for i, blk in enumerate(blocks):          # the scale chain of the data
+        cand = (np.maximum(np.abs(rows[i]).max(-1), np.float32(1e-6))
+                .astype(np.float32) * np.float32(1.0 / 127.0))
+        s_new = np.maximum(sc[blk], cand)
+        grows += int((s_new != sc[blk]).sum())
+        sc[blk] = s_new
+    r, m = wp.shape[0], np.unique(blocks).shape[0]
+    elem = case["new_kv"].element_size()
+    nbytes = (r * HKV * D * elem + r * 4 + 2 * m * HKV * BS * D
+              + 2 * m * HKV * 4)
+    ops = 6.0 * r * HKV * D + 5.0 * grows * BS * D
+    return (*bound(nbytes, ops), nbytes, ops)
+
+
+def phase_fold():
+    """paged_quant_scatter against paged_quant_scatter_ref on the card: f32
+    and bf16 rows, writes of 8, 64 and 256 rows, exact and random values;
+    the rows in one call, the same rows split over three calls (against the
+    plain version's one call), and with draft rows. Gate: pools and scales
+    bit-identical. Then the times of a 256-row bf16 write."""
+    lib = kbuild.load_library()
+    for r in (1, 8, 256, 4096):
+        c = lib.paged_quant_scatter_smem_bytes(r, BS, D)
+        py = fold_smem_bytes(r, BS, D)
+        check(c == py, f"fold_smem_bytes({r}, {BS}, {D}): C {c} != Python "
+              f"{py}")
+    n_cases, timing = 0, {}
+    for n_rows in FOLD_ROWS:
+        for row_dtype in (torch.float32, torch.bfloat16):
+            for exact in (True, False):
+                for variant in ("one call", "split", "draft"):
+                    case = fold_case(n_rows, row_dtype, exact,
+                                     seed=n_rows + 3 * n_cases,
+                                     draft=variant == "draft")
+                    pool, sc = case["pool"].clone(), case["scales"].clone()
+                    paged_quant_scatter_ref(pool, sc, case["new_kv"],
+                                            case["write_pos"],
+                                            case["draft_rows"])
+                    got_pool, got_sc = (case["pool"].clone(),
+                                        case["scales"].clone())
+                    cuts = ((0, n_rows) if variant != "split" else
+                            (0, n_rows // 3, n_rows // 2, n_rows))
+                    for a, b in zip(cuts[:-1], cuts[1:]):
+                        dr = case["draft_rows"]
+                        paged_quant_scatter(
+                            got_pool, got_sc, case["new_kv"][:, :, a:b],
+                            case["write_pos"][:, a:b],
+                            None if dr is None else dr[:, a:b])
+                    torch.cuda.synchronize()
+                    what = (f"{n_rows} rows {row_dtype} "
+                            f"{'exact' if exact else 'random'} {variant}")
+                    check(torch.equal(got_pool, pool),
+                          f"fold pool differs: {what}, "
+                          f"{int((got_pool != pool).sum())} bytes")
+                    check(torch.equal(got_sc, sc),
+                          f"fold scales differ: {what}")
+                    n_cases += 1
+                    if (n_rows == FOLD_ROWS[-1] and not exact
+                            and variant == "one call"):
+                        timing[str(row_dtype).split(".")[-1]] = fold_times(
+                            case)
+    log(f"[fold] {n_cases} cases (rows {FOLD_ROWS}, f32 and bf16, exact and "
+        f"random, one call / split over three calls / draft rows): pools "
+        f"and scales bit-identical to the plain version")
+    for name, tm in timing.items():
+        log(f"[fold] timing 256 rows, {name}: kernel {tm['ms']:.4f} ms per "
+            f"call, device {tm['device_ms']:.4f} ms warm / "
+            f"{tm['cold_ms']:.4f} ms L2-cold rows, plain "
+            f"{tm['plain_ms']:.4f} ms, bound {tm['bound_ms']:.5f} ms "
+            f"({tm['bound_by']}: {tm['bytes'] / 1e6:.3f} MB, "
+            f"{tm['flops'] / 1e6:.2f} M ops); {tm['passes']}")
+    return dict(timing["bfloat16"], max_abs_err=0.0)
+
+
+def fold_times(case) -> dict:
+    """The fold's times at one case: the pool and scales are restored
+    before each call (the fold is in place), and the restore's own time is
+    taken off every number."""
+    p0, s0 = case["pool"].clone(), case["scales"].clone()
+    pool, sc = case["pool"], case["scales"]
+
+    def restore():
+        pool.copy_(p0)
+        sc.copy_(s0)
+
+    def kernel():
+        restore()
+        paged_quant_scatter(pool, sc, case["new_kv"], case["write_pos"])
+
+    def plain():
+        restore()
+        paged_quant_scatter_ref(pool, sc, case["new_kv"], case["write_pos"])
+    base = (cuda_time_ms(restore), graph_time_ms(restore),
+            cold_time_ms(restore))
+    bound_ms, by, nbytes, ops = fold_work(case)
+    return dict(ms=cuda_time_ms(kernel) - base[0],
+                device_ms=graph_time_ms(kernel) - base[1],
+                cold_ms=cold_time_ms(kernel) - base[2],
+                plain_ms=cuda_time_ms(plain, iters=5) - base[0],
+                passes=kernel_passes(
+                    lambda: paged_quant_scatter(pool, sc, case["new_kv"],
+                                                case["write_pos"])),
+                bound_ms=bound_ms, bound_by=by, bytes=nbytes, flops=ops)
+
+
+# ------------------------------------------------------------ phase 16 --
+
+SYSTEM_LEN = 512                # the sessions' shared system prefix
+TURN2_LEN = 64                  # each session's second message
+
+
+def session_traffic(cfg):
+    """Phase 16's traffic, seeded: one system prefix, 8 user parts of
+    32-480 tokens, 8 second-turn messages."""
+    rng = np.random.default_rng(2)
+    system = rng.integers(0, cfg.vocab_size, SYSTEM_LEN).astype(np.int32)
+    users = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+             for n in rng.integers(32, 481, MAX_BATCH)]
+    turn2 = [rng.integers(0, cfg.vocab_size, TURN2_LEN).astype(np.int32)
+             for _ in range(MAX_BATCH)]
+    return system, users, turn2
+
+
+def serve_sessions(params, cfg, traffic, profiled=False, **kw):
+    """Two turns of 8 sessions through the packed PagedEngine. Turn 1:
+    session 0 alone until its prefill is done, then sessions 1-7 and one
+    request whose prompt is exactly the system prefix (a block-aligned full
+    hit: its re-fed last token forces a COW). Turn 2: every session sends
+    TURN2_LEN more tokens. 32 new tokens a request. The kernels' counts are
+    set to 0 just before and read just after. Returns the run's record."""
+    system, users, turn2 = traffic
+    eng = PagedEngine(params, cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                      block_size=BS, device="cuda", **kw)
+    reqs = {}
+
+    def submit(uid, prompt, session=None):
+        reqs[uid] = Request(uid=uid, prompt=prompt.copy(), max_new_tokens=32)
+        eng.submit(reqs[uid], session=session)
+    torch.cuda.synchronize()
+    for k in KERNELS + (paged_quant_scatter,):
+        k.launches = 0
+    ctx = (torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]) if profiled
+        else contextlib.nullcontext())
+    with ctx as prof:
+        t0 = time.perf_counter()
+        submit(0, np.concatenate([system, users[0]]), "s0")
+        while not reqs[0].out_tokens:
+            eng.step()
+        for s in range(1, MAX_BATCH):
+            submit(s, np.concatenate([system, users[s]]), f"s{s}")
+        submit(MAX_BATCH, system)
+        eng.run()
+        turn1 = eng.prefix_stats()
+        for s in range(MAX_BATCH):
+            submit(100 + s, turn2[s], f"s{s}")
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    for r in reqs.values():
+        check(r.done and len(r.out_tokens) == 32, f"request {r.uid} not done")
+        check(all(0 <= t < cfg.vocab_size for t in r.out_tokens),
+              "token off vocab")
+    return dict(eng=eng, wall=wall, prof=prof, turn1=turn1,
+                stats=eng.prefix_stats(), steps=eng.occupancy_steps,
+                toks={u: list(r.out_tokens) for u, r in reqs.items()},
+                prompts={u: np.asarray(r.prompt) for u, r in reqs.items()},
+                launches={k.__name__: k.launches
+                          for k in KERNELS + (paged_quant_scatter,)})
+
+
+def kernel_total(prof, symbol: str) -> tuple[float, int]:
+    """Device ms and count of the profiled kernels whose name holds
+    `symbol`."""
+    ev = [e for e in device_events(prof) if symbol in e.name]
+    return sum(e.end - e.start for e in ev) / 1e3, len(ev)
+
+
+def phase_sharing():
+    """The packed PagedEngine with int8 KV, prefix and decode sharing,
+    serving two turns of 8 sessions (serve_sessions): twice unprofiled, once
+    profiled; the same traffic with sharing off and with an f32 pool, each
+    held to the sharing run by ROADMAP C1's rule. Gates: turn 1 hits >= 7,
+    COW copies >= 1, turn 2's skip rate >= 0.75, the int8/f32 pool bytes
+    0.25 + 1/(block_size * head_dim), the fold launched 80 and the packed
+    kernel 40 times a step, identical tokens in the three sharing runs."""
+    cfg, params = engine_model()
+    q8 = cfg.replace(kv_quant="int8")
+    traffic = session_traffic(cfg)
+    share = dict(prefix_sharing=True, decode_sharing=True)
+    runs = [serve_sessions(params, q8, traffic, profiled=rep == 2, **share)
+            for rep in range(3)]
+    main = runs[0]
+    for rep, run in enumerate(runs):
+        steps, la = run["steps"], run["launches"]
+        n_new = sum(len(t) for t in run["toks"].values())
+        log(f"[sharing] run {rep}{' (profiled)' if rep == 2 else ''}: "
+            f"{steps} packed steps, paged_quant_scatter launches "
+            f"{la['paged_quant_scatter']}, hccs_packed_prefill launches "
+            f"{la['hccs_packed_prefill']}; {n_new} tokens in "
+            f"{run['wall']:.3f}s = {n_new / run['wall']:.1f} new tok/s")
+        check(la["paged_quant_scatter"] == 2 * M_LAYERS * steps,
+              f"fold launches {la['paged_quant_scatter']} != 2 x "
+              f"{M_LAYERS} x {steps} steps")
+        check(la["hccs_packed_prefill"] == M_LAYERS * steps,
+              f"packed launches {la['hccs_packed_prefill']} != "
+              f"{M_LAYERS} x {steps} steps")
+        check(not la["hccs_paged_decode"] and not la["hccs_decode"],
+              "other kernels ran")
+        check(run["toks"] == main["toks"], "the sharing runs disagree")
+    t1, st = main["turn1"], main["stats"]
+    log(f"[sharing] turn 1: {t1['hits']}/{t1['lookups']} hits, "
+        f"{t1['prefill_tokens_skipped']}/{t1['prefill_tokens']} prefill "
+        f"tokens skipped, {t1['cow_copies']} COW copies; both turns: "
+        f"{st['hits']}/{st['lookups']} hits ({st['decode_hits']} "
+        f"decode-block), turn 2 skips {st['followup_tokens_skipped']}/"
+        f"{st['followup_prefill_tokens']} = {st['followup_skip_rate']:.4f} "
+        f"of its prefill tokens, {st['evictions']} evictions, "
+        f"{st['cached_blocks']} blocks cached")
+    check(t1["hits"] >= 7, f"turn 1 hits {t1['hits']} < 7")
+    check(st["cow_copies"] >= 1, "no COW copy")
+    check(st["followup_skip_rate"] >= 0.75,
+          f"turn 2 skip rate {st['followup_skip_rate']} < 0.75")
+    prof = runs[2]["prof"]
+    n_packed = profile_summary(prof, runs[2]["wall"], "PackedRows",
+                               "sharing profile")
+    fold_ms, n_fold = kernel_total(prof, "paged_quant_scatter")
+    busy = prof_busy_ms(prof)
+    log(f"[sharing] fold kernels {fold_ms:.1f} ms over {n_fold} launches; "
+        f"idle share of the unprofiled walls "
+        f"{1 - busy / 1e3 / runs[0]['wall']:.3f}, "
+        f"{1 - busy / 1e3 / runs[1]['wall']:.3f}")
+    plain = serve_sessions(params, q8, traffic)
+    f32 = serve_sessions(params, cfg, traffic, **share)
+    ratio = (kv_cache_byte_stats(main["eng"]._cache, q8)["cache_bytes_logical"]
+             / kv_cache_byte_stats(f32["eng"]._cache, cfg)
+             ["cache_bytes_logical"])
+    want = 0.25 + 1 / (BS * cfg.head_dim)
+    log(f"[sharing] int8 / f32 pool bytes {ratio:.7f} (0.25 + 1/({BS} x "
+        f"{cfg.head_dim}) = {want:.7f}); sharing off: "
+        f"{plain['steps']} steps in {plain['wall']:.3f}s; f32 pool: "
+        f"{f32['steps']} steps in {f32['wall']:.3f}s")
+    check(ratio == want, f"int8/f32 byte ratio {ratio}")
+    check(f32["launches"]["paged_quant_scatter"] == 0,
+          "the f32 pool launched the fold")
+    divergence("sharing off", plain["toks"], main["toks"], plain["prompts"],
+               main["prompts"], params, cfg)
+    divergence("f32 pool", f32["toks"], main["toks"], f32["prompts"],
+               main["prompts"], params, cfg)
+    return (main["launches"]["paged_quant_scatter"],
+            per_call(n_fold, runs[2]["launches"]["paged_quant_scatter"]))
+
+
+def prof_busy_ms(prof) -> float:
+    """Device busy time (ms) of a profiled run: the union of its kernels'
+    intervals."""
+    spans = sorted((e.start, e.end) for e in device_events(prof))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+# ------------------------------------------------------------ phase 17 --
+
+def phase_grid(packed_tokens):
+    """The packed PagedEngine with decode_kernel="none" (the per-slot STE
+    grid) on phase 5's traffic, once, profiled: its wall and device busy
+    time, no HCCS kernel launched, and its tokens held to phase 5's by
+    ROADMAP C1's rule."""
+    cfg, params = engine_model()
+    grid_cfg = cfg.replace(decode_kernel="none")
+    prompts = smoke_prompts(cfg)
+    eng = PagedEngine(params, grid_cfg, max_batch=MAX_BATCH,
+                      max_len=MAX_LEN, block_size=BS, device="cuda")
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p.copy(), max_new_tokens=32))
+    torch.cuda.synchronize()
+    for k in KERNELS + (paged_quant_scatter,):
+        k.launches = 0
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    toks = {r.uid: list(r.out_tokens) for r in done}
+    check(len(done) == MAX_BATCH and all(len(t) == 32 for t in toks.values()),
+          "grid: not every request done")
+    launched = {k.__name__: k.launches
+                for k in KERNELS + (paged_quant_scatter,)}
+    check(not any(launched.values()), f"grid: kernels ran {launched}")
+    log(f"[grid] {eng.occupancy_steps} packed steps, wall {wall:.3f}s "
+        f"(profiled), device busy {prof_busy_ms(prof):.1f} ms")
+    profile_summary(prof, wall, "PackedRows", "grid profile")
+    if packed_tokens is not None:
+        by_uid = dict(enumerate(prompts))
+        divergence("grid", toks, packed_tokens, by_uid, by_uid, params, cfg)
+
+
 def kernel_entry(name, source, replaces, launches, tm, shape,
                  library_ms=None, headers=(), kernels_per_call=None):
-    """One kernel of phase 15's line. `launches` counts wrapper calls on
+    """One kernel of phase 18's line. `launches` counts wrapper calls on
     the main path; `kernels_per_call` is the kernels on the card per
     wrapper call in the path's profiled run (None where not profiled).
     `device_ms` / `cold_ms`: device-only time with K/V warm in L2 / with
@@ -1474,42 +1945,69 @@ def kernel_entry(name, source, replaces, launches, tm, shape,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default=",".join(str(p) for p in range(1, 16)),
+                    default=",".join(str(p) for p in range(1, 19)),
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
+    t_start = time.perf_counter()
+
+    def mark(n):
+        log(f"[time] phase {n} done, {time.perf_counter() - t_start:.1f}s "
+            f"since the start")
     phase_device()
     if 2 in phases:
         phase_build()
+        mark(2)
     timings, worst = ({}, None)
     if 3 in phases:
         timings, worst = phase_kernel()
+        mark(3)
     if 4 in phases:
         phase_forward()
+        mark(4)
     launches, packed_tokens, packed_per_call = None, None, None
     if 5 in phases:
         launches, packed_tokens, packed_per_call = phase_engine()
+        mark(5)
     decode_timings = {}
     if 6 in phases:
         decode_timings["paged"] = phase_decode_kernel("paged")
+        mark(6)
     if 7 in phases:
         decode_timings["arena"] = phase_decode_kernel("arena")
+        mark(7)
     path_launches, path_per_call = {}, {}
     if phases & {8, 9, 10}:
         path_launches, path_per_call = phase_paths(packed_tokens, phases)
+        mark("8-10")
     if 11 in phases:
         phase_rows()
+        mark(11)
     if 12 in phases:
         phase_softmax()
+        mark(12)
     if 13 in phases:
         phase_fused()
+        mark(13)
     table3_launches, kernel_t = None, None
     if 14 in phases:
         table3_launches, kernel_t = phase_table3()
+        mark(14)
+    fold_t = fold_launches = fold_per_call = None
     if 15 in phases:
+        fold_t = phase_fold()
+        mark(15)
+    if 16 in phases:
+        fold_launches, fold_per_call = phase_sharing()
+        mark(16)
+    if 17 in phases:
+        phase_grid(packed_tokens)
+        mark(17)
+    if 18 in phases:
         check(launches and timings and len(decode_timings) == 2
-              and len(path_launches) == 2 and {11, 12, 13} <= phases
-              and table3_launches, "phase 15 needs phases 3 and 5 to 14")
+              and len(path_launches) == 2 and {11, 12, 13, 17} <= phases
+              and table3_launches and fold_t and fold_launches,
+              "phase 18 needs phases 3 and 5 to 17")
         tm = dict(timings[max(timings)], max_abs_err=worst)
         geo = f"granite H={H} Hkv={HKV} d={D}"
         split_headers = ("hccs_split.cuh", "hccs_common.cuh")
@@ -1550,7 +2048,14 @@ def main(argv=None):
                          table3_launches["hccs_mha_fused"],
                          kernel_t["hccs_mha_fused"],
                          f"B=1, {geo} T={MAX_LEN}, f32, causal",
-                         headers=("hccs_common.cuh",))]}))
+                         headers=("hccs_common.cuh",)),
+            kernel_entry("paged_quant_scatter", "kv_quant.cu",
+                         "src/repro/models/attention.py:178",
+                         fold_launches, fold_t,
+                         f"{FOLD_ROWS[-1]} bf16 rows, Hkv={HKV} bs={BS} "
+                         f"d={D}, int8 pool (XLA in the JAX package, no "
+                         f"Pallas kernel)", headers=("hccs_common.cuh",),
+                         kernels_per_call=fold_per_call)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,8 +3,9 @@
 Every `kernels/csrc/*.cu` is compiled on first use, one nvcc process per
 source, all started together, for `sm_90a` (Hopper), then linked into one
 shared library with a plain C interface. The sources share headers:
-`csrc/hccs_common.cuh` (element loads, locators, Stage 5) and the split-KV
-sweep `csrc/hccs_split.cuh` (hccs_arena.cu, hccs_packed.cu, hccs_paged.cu).
+`csrc/hccs_common.cuh` (element loads, locators, Stage 5; kv_quant.cu uses
+its loads) and the split-KV sweep `csrc/hccs_split.cuh` (hccs_arena.cu,
+hccs_packed.cu, hccs_paged.cu).
 The library:
 
     build/repro_torch_kernels/libkernels-<hash>.so
@@ -133,6 +134,10 @@ def load_library() -> ctypes.CDLL:
         lib.hccs_fused_launch.restype = i
         lib.hccs_fused_smem_bytes.argtypes = [i] * 4
         lib.hccs_fused_smem_bytes.restype = sz
+        lib.paged_quant_scatter_launch.argtypes = [vp] * 5 + [i] * 5 + [vp]
+        lib.paged_quant_scatter_launch.restype = i
+        lib.paged_quant_scatter_smem_bytes.argtypes = [i] * 3
+        lib.paged_quant_scatter_smem_bytes.restype = sz
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

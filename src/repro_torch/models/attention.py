@@ -1,20 +1,24 @@
 """GQA attention with HCCS — the port of `repro/models/attention.py`.
 
 Ported: the parameter init, the kernel-eligibility gate, the cache storage
-geometry, the KV writes (paged scatter and slot-arena scatter, both in
-place: the JAX package donates its buffers to XLA for the same effect), the
-projections + RoPE, the dense and blockwise two-pass attention (HCCS in its
-STE form, and the softmax baseline), and every cache branch serving runs:
+geometry, the KV writes (paged scatter, the int8 pool's quantizing fold
+`kernels/kv_quant.py` and slot-arena scatter, all in place: the JAX package
+donates its buffers to XLA for the same effect), the projections + RoPE,
+the dense and blockwise two-pass attention (HCCS in its STE form, and the
+softmax baseline), and every cache branch serving runs:
 
-  packed paged step   the fused `hccs_packed_prefill` kernel
+  packed paged step   the fused `hccs_packed_prefill` kernel, or (kernel
+                      off, i8 modes, softmax) the per-slot STE grid
   lockstep paged step blockwise/dense STE over the gathered pool;
                       `hccs_paged_decode` at t == 1 with the kernel on
   slot arena          wave (scalar length) and continuous ((B,) length)
                       caches; `hccs_decode` at t == 1 with the kernel on
 
+Paged pools are float, or int8 with per-(block, kv head) scales
+(cfg.kv_quant="int8"): every paged branch reads them dequantized.
+
 Not ported yet, and refused (NotImplementedError naming the ROADMAP.md
-item): hot buffers and the segment merge (A3), int8 paged KV (A4), the
-packed step without the kernel (the per-slot STE grid, A4), M-RoPE (A3) and
+item): hot buffers and the segment merge (A3), M-RoPE (A3) and
 `capture_attention_logits` (A9).
 
 One departure from the JAX package: the dense path returns the query's
@@ -31,6 +35,7 @@ from repro_torch.core.hccs import (HCCSParams, hccs_mode_inv, hccs_qat,
                                    true_div)
 from repro_torch.kernels.decode import (hccs_decode, hccs_packed_prefill,
                                         hccs_paged_decode)
+from repro_torch.kernels.kv_quant import paged_quant_scatter
 from repro_torch.models.layers import apply_rope
 
 NEG_INF = -1e30
@@ -86,18 +91,11 @@ def decode_kernel_blockers(cfg) -> list:
     return blockers
 
 
-def kernel_path_blockers(cfg) -> list:
-    """Why the fused kernels will not serve `cfg`: the static gate plus the
-    kernel being switched off (empty = they will)."""
-    blockers = decode_kernel_blockers(cfg)
-    if cfg.decode_kernel == "none":
-        blockers.append("decode_kernel='none'")
-    return blockers
-
-
 def kernel_on(cfg, hccs) -> bool:
-    """Whether the fused kernels serve this config's attention."""
-    return not kernel_path_blockers(cfg) and hccs is not None
+    """Whether the fused kernels serve this config's attention: switched
+    on, not blocked by the static gate, and HCCS params present."""
+    return (cfg.decode_kernel != "none" and not decode_kernel_blockers(cfg)
+            and hccs is not None)
 
 
 def kv_store_geometry(cfg, max_len: int) -> tuple[int, int]:
@@ -158,14 +156,19 @@ def _paged_scatter(pool, new_kv, write_pos):
     return pool
 
 
-def _paged_gather(pool, block_table):
-    """Contiguous (B, Hkv, nblk * block_size, hd) view of each slot's blocks
-    (float pools), the STE path over a paged cache. Sentinel (-1) entries
-    gather the trash block; they only occur at or past the slot's frontier,
-    so the kv_len mask hides them."""
+def _paged_gather(pool, block_table, scales=None):
+    """Contiguous (B, Hkv, nblk * block_size, hd) view of each slot's blocks,
+    the STE path over a paged cache. Sentinel (-1) entries gather the trash
+    block; they only occur at or past the slot's frontier, so the kv_len
+    mask hides them. With `scales` (N, Hkv; kv_quant="int8") the int8
+    payload is dequantized per (block, kv head) before attention: the same
+    values the kernels' tile dequant produces."""
     b, nblk = block_table.shape
     n, hkv, bs, hd = pool.shape
-    g = pool[block_table.clamp(min=0).long()]      # (B, nblk, Hkv, bs, hd)
+    tbl = block_table.clamp(min=0).long()
+    g = pool[tbl]                                  # (B, nblk, Hkv, bs, hd)
+    if scales is not None:
+        g = g.float() * scales[tbl][..., None, None]
     return g.permute(0, 2, 1, 3, 4).reshape(b, hkv, nblk * bs, hd)
 
 
@@ -289,21 +292,58 @@ def _blockwise_attention(q, k, v, q_pos, k_len, cfg, hccs):
     return (acc.float() / z).to(q.dtype)
 
 
-def _packed_attention(q, k_pool, v_pool, cache, cfg, hccs):
-    """Token-centric attention for the packed paged step, kernel branch.
+def _packed_attention(q, k_pool, v_pool, cache, cfg, hccs, k_scales=None,
+                      v_scales=None):
+    """Token-centric attention for the packed paged step.
 
     q: (1, H, T, hd) — the T lanes are ragged tokens from different slots;
     cache carries `slot_ids` (T,) owning slot (-1 = pad lane), `kv_len` (T,)
-    per-token causal frontiers (position + 1) and `block_table` (B, nblk).
-    The whole ragged batch runs the fused `hccs_packed_prefill` kernel.
-    Returns (1, T, H*hd)."""
+    per-token causal frontiers (position + 1), `block_table` (B, nblk), and
+    the grid steering below. Each token attends only within its slot's
+    blocks. Returns (1, T, H*hd).
+
+    With the fused kernel on, the whole ragged batch runs
+    `hccs_packed_prefill`, which walks block_table[slot_ids[t]] per token.
+    Otherwise (kernel off, i8 modes, softmax) the tokens ride a compact
+    PER-SLOT GRID for the attention core only: `grid_pos` (T,) scatters each
+    token to cell (slot, position - frontier) of a (B, Wb) grid (Wb is
+    `q_pos_grid`'s width; pad lanes land in a spill row), the grid runs the
+    same dense/blockwise STE attention as the lockstep layout at width Wb
+    over each slot's gathered blocks (one gather per slot, not per token),
+    and the outputs gather back to packed lanes."""
     _, h, t, hd = q.shape
-    qt = q[0].transpose(0, 1).float().contiguous()          # (T, H, hd)
-    o = hccs_packed_prefill(qt, k_pool, v_pool, cache["block_table"],
-                            cache["slot_ids"], cache["kv_len"],
-                            hccs["scale"], _theta(hccs), mode=cfg.hccs_mode,
-                            static_max=(cfg.decode_kernel == "static_max"))
-    return o.to(q.dtype).reshape(1, t, h * hd)
+    sid = cache["slot_ids"]
+    qt = q[0].transpose(0, 1)                               # (T, H, hd)
+    if kernel_on(cfg, hccs):
+        o = hccs_packed_prefill(qt.float().contiguous(), k_pool, v_pool,
+                                cache["block_table"], sid, cache["kv_len"],
+                                hccs["scale"], _theta(hccs),
+                                mode=cfg.hccs_mode,
+                                static_max=(cfg.decode_kernel
+                                            == "static_max"),
+                                k_scales=k_scales, v_scales=v_scales)
+        return o.to(q.dtype).reshape(1, t, h * hd)
+    q_pos_grid = cache["q_pos_grid"]                        # (B, Wb)
+    gp = cache["grid_pos"].long()                           # (T,) spill B*Wb
+    k_len = cache["kv_len_slot"]                            # (B,)
+    nb, wb = q_pos_grid.shape
+    qg = torch.zeros((nb * wb + 1, h, hd), dtype=qt.dtype, device=q.device)
+    qg[gp] = qt
+    qg = qg[:nb * wb].reshape(nb, wb, h, hd).transpose(1, 2)
+    kg = _paged_gather(k_pool, cache["block_table"], k_scales)
+    vg = _paged_gather(v_pool, cache["block_table"], v_scales)
+    tk = kg.shape[2]
+    use_blockwise = (cfg.attention_impl == "blockwise" or
+                     (cfg.attention_impl == "auto" and wb > 1 and
+                      tk >= cfg.blockwise_threshold))
+    if use_blockwise:
+        out = _blockwise_attention(qg, kg, vg, q_pos_grid, k_len, cfg, hccs)
+    else:
+        valid = _block_valid(cfg, q_pos_grid,
+                             torch.arange(tk, device=q.device), k_len)
+        out = _dense_attention(qg, kg, vg, valid, cfg, hccs)
+    out = out.transpose(1, 2).reshape(nb * wb, h * hd)
+    return out[torch.where(sid >= 0, gp, 0)][None]          # (1, T, H*hd)
 
 
 def _theta(hccs):
@@ -320,14 +360,6 @@ def _check_cache(cfg, hccs, cache):
         raise NotImplementedError(
             "hot buffers and the segment merge are not ported yet: "
             "ROADMAP.md item A3")
-    if "k_scale" in cache:
-        raise NotImplementedError(
-            "int8 paged KV (paged_quant_scatter) is not ported yet: "
-            "ROADMAP.md item A4")
-    if "slot_ids" in cache and not kernel_on(cfg, hccs):
-        raise NotImplementedError(
-            "the packed step without the fused kernel runs the per-slot STE "
-            "grid, not ported yet: ROADMAP.md item A4")
 
 
 def apply_attention(p, x, cfg, hccs=None, positions=None, cache=None):
@@ -339,9 +371,14 @@ def apply_attention(p, x, cfg, hccs=None, positions=None, cache=None):
     PAGED cache — k/v global block pools (N, Hkv, block_size, hd) plus
     `block_table` (B, nblk), `write_pos` (B, T) flat scatter targets and
     `kv_len` (B,) per-slot valid counts; PACKED paged steps add `slot_ids`
-    (T,), x is then a (1, T) ragged token batch and `kv_len` per token.
-    New K/V are written into the cache IN PLACE before attention reads
-    them; new_cache holds the written k/v."""
+    (T,), x is then a (1, T) ragged token batch and `kv_len` per token (and,
+    without the kernel, the grid steering of _packed_attention). int8 pools
+    come with `k_scale`/`v_scale` (N, Hkv) and `fresh_blocks`, the blocks
+    whose scales reset to 0 before the fold. New K/V are written into the
+    cache IN PLACE before attention reads them; new_cache holds the written
+    k/v (and scales). The engine guarantees `write_pos` never targets a
+    block with refcount > 1 (copy-on-write runs on the host before the
+    step), so shared blocks stay immutable."""
     _check_cache(cfg, hccs, cache)
     b, t, d = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -362,11 +399,28 @@ def apply_attention(p, x, cfg, hccs=None, positions=None, cache=None):
     new_cache = None
     k_len = None
     if cache is not None and "block_table" in cache:
-        kc = _paged_scatter(cache["k"], k, cache["write_pos"])
-        vc = _paged_scatter(cache["v"], v, cache["write_pos"])
+        ks = vs = None
+        if "k_scale" in cache:
+            # kv_quant="int8": reset the scales of blocks allocated since the
+            # last step (stale from a prior owner), then fold the rows in.
+            # COW copies are not fresh: they arrive with payload and scales.
+            ks, vs = cache["k_scale"], cache["v_scale"]
+            fresh = cache.get("fresh_blocks")
+            if fresh is not None:
+                ks[fresh.long()] = 0.0
+                vs[fresh.long()] = 0.0
+            kc, ks = paged_quant_scatter(cache["k"], ks, k,
+                                         cache["write_pos"])
+            vc, vs = paged_quant_scatter(cache["v"], vs, v,
+                                         cache["write_pos"])
+        else:
+            kc = _paged_scatter(cache["k"], k, cache["write_pos"])
+            vc = _paged_scatter(cache["v"], v, cache["write_pos"])
         new_cache = {"k": kc, "v": vc}
+        if ks is not None:
+            new_cache.update(k_scale=ks, v_scale=vs)
         if "slot_ids" in cache:
-            out = _packed_attention(q, kc, vc, cache, cfg, hccs)
+            out = _packed_attention(q, kc, vc, cache, cfg, hccs, ks, vs)
             return _project_out(out, p, b, t), new_cache
         # per-slot valid-KV counts for this step (length + per-slot t_valid;
         # chunked prefill makes t_valid ragged, so `length + t` is wrong here)
@@ -378,11 +432,12 @@ def apply_attention(p, x, cfg, hccs=None, positions=None, cache=None):
                                   hccs["scale"], _theta(hccs),
                                   mode=cfg.hccs_mode,
                                   static_max=(cfg.decode_kernel
-                                              == "static_max"))
+                                              == "static_max"),
+                                  k_scales=ks, v_scales=vs)
             out = o.to(q.dtype).reshape(b, 1, h * hd)
             return _project_out(out, p, b, 1), new_cache
-        k = _paged_gather(kc, cache["block_table"])
-        v = _paged_gather(vc, cache["block_table"])
+        k = _paged_gather(kc, cache["block_table"], ks)
+        v = _paged_gather(vc, cache["block_table"], vs)
     elif cache is not None:
         length = cache["length"]
         if length.dim() == 0 and cache["k"].shape[2:] == k.shape[2:]:

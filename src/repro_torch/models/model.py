@@ -23,11 +23,13 @@ from repro_torch.models.layers import (DTYPES, apply_norm, embed_tokens,
                                       lm_logits)
 
 # per-step keys the paged engine attaches to the cache; forward hands them
-# to every layer (one table, per-layer pools)
-PAGED_EXTRAS = ("block_table", "write_pos", "kv_len", "slot_ids")
-# the JAX package's other per-step keys steer paths not ported yet
-_UNPORTED_EXTRAS = ("q_pos_grid", "grid_pos", "kv_len_slot", "fresh_blocks",
-                    "stage_rows", "draft_rows")
+# to every layer (one table, per-layer pools): the packed step's slot ids,
+# its per-slot STE grid steering, and the int8 pool's fresh blocks
+PAGED_EXTRAS = ("block_table", "write_pos", "kv_len", "slot_ids",
+                "q_pos_grid", "grid_pos", "kv_len_slot", "fresh_blocks")
+# the JAX package's other per-step keys steer speculative verify, not
+# ported yet
+_UNPORTED_EXTRAS = ("stage_rows", "draft_rows")
 
 
 def _check_supported(cfg):
@@ -142,18 +144,19 @@ def forward(weights, hccs, batch, cfg, cache):
 
     cache: the model cache {"layers": {"k", "v": (L, ...)}, "length"} — a
     slot arena (L, B, Hkv, Tmax, hd) with a scalar or (B,) `length`, or the
-    paged pools (L, N, Hkv, bs, hd) plus the step's PAGED_EXTRAS (the
+    paged pools (L, N, Hkv, bs, hd) (int8 pools with "k_scale"/"v_scale"
+    (L, N, Hkv) beside them) plus the step's PAGED_EXTRAS (the
     lockstep step adds a (B,) `length`; the packed step passes explicit
     positions and no length). Default positions are length + arange(T).
-    Layer i's K/V are written into k[i]/v[i] in place. Returns (hidden,
-    cache, aux) like the JAX forward (aux is 0: no MoE); the returned
-    cache's length is advanced by T."""
+    Layer i's K/V (and scales) are written into its slices in place.
+    Returns (hidden, cache, aux) like the JAX forward (aux is 0: no MoE);
+    the returned cache's length is advanced by T."""
     _check_supported(cfg)
     unported = [k for k in _UNPORTED_EXTRAS if k in cache]
     if unported:
         raise NotImplementedError(
-            f"cache keys {unported} steer paths not ported yet (per-slot STE "
-            f"grid, int8 KV, speculative verify): ROADMAP.md items A4, A6")
+            f"cache keys {unported} steer speculative verify, not ported "
+            f"yet: ROADMAP.md item A6")
     x = embed_tokens(weights["embed"], batch["tokens"], cfg)
     b, t = x.shape[:2]
     length = cache.get("length")
@@ -165,8 +168,8 @@ def forward(weights, hccs, batch, cfg, cache):
                      ).expand(b, t)
     extras = {k: cache[k] for k in PAGED_EXTRAS if k in cache}
     for i in range(cfg.num_layers):
-        lc = {"k": cache["layers"]["k"][i], "v": cache["layers"]["v"][i],
-              **extras}
+        lc = {name: leaf[i] for name, leaf in cache["layers"].items()}
+        lc.update(extras)
         x, _ = blocks.apply_block(_layer(weights["layers"], i), x, cfg,
                                   {k: v[i] for k, v in hccs.items()} or None,
                                   lc, length, positions)

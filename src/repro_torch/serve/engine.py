@@ -30,13 +30,42 @@ from repro_torch.models.attention import decode_kernel_blockers
 
 @dataclasses.dataclass
 class Request:
-    """One serving request: `done` is set when it completes."""
+    """One serving request: `done` is set when it completes; `failed` is
+    the other terminal state (a cancelled turn, reason in `fail_reason`)."""
     uid: int
     prompt: np.ndarray            # (t,) int32
     max_new_tokens: int = 32
     temperature: float = 0.0
     out_tokens: list = dataclasses.field(default_factory=list)
     done: bool = False
+    failed: bool = False
+    fail_reason: str | None = None
+
+
+def kv_cache_bytes(cache) -> int:
+    """Allocated KV bytes of an engine cache (the slot arena or the paged
+    block pool): k/v payload plus the int8 pools' per-block scales."""
+    return sum(leaf.numel() * leaf.element_size()
+               for name, leaf in cache["layers"].items()
+               if name in ("k", "v", "k_scale", "v_scale"))
+
+
+def kv_cache_byte_stats(cache, cfg, max_len: int | None = None) -> dict:
+    """Padded (as allocated) and LOGICAL KV bytes of an engine cache, the
+    JAX package's accounting. The port stores the true head_dim (no lane
+    padding), so the two differ only where a slot arena's rows were rounded
+    up (kv_store_geometry) and `max_len` is given: `logical` counts the
+    first max_len rows. Paged pools pass None. int8 pools count one byte a
+    value, and their (L, N, Hkv) f32 scales in full on both sides."""
+    padded = kv_cache_bytes(cache)
+    logical = padded
+    if max_len is not None:
+        for name in ("k", "v"):
+            leaf = cache["layers"][name]
+            rows_c = leaf.shape[-2]
+            logical -= (leaf.numel() // rows_c * max(rows_c - max_len, 0)
+                        * leaf.element_size())
+    return dict(cache_bytes_logical=logical, cache_bytes_padded=padded)
 
 
 def validate_prompt(prompt, max_len: int):

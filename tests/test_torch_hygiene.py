@@ -85,9 +85,8 @@ UNPORTED = [
     "launch/mesh.py", "launch/roofline.py", "launch/train.py", "models/moe.py",
     "models/ssm.py", "optim/__init__.py", "optim/adamw.py",
     "optim/compression.py", "parallel/__init__.py", "parallel/sharding.py",
-    "quant/__init__.py", "quant/int8.py", "serve/admission.py",
-    "serve/chaos.py", "serve/telemetry.py", "train/__init__.py",
-    "train/loop.py", "train/steps.py"]
+    "serve/admission.py", "serve/chaos.py", "serve/telemetry.py",
+    "train/__init__.py", "train/loop.py", "train/steps.py"]
 
 
 def test_unported_modules_are_the_recorded_list():
@@ -129,24 +128,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("engine,kw,cfg_kw", [
-    ("paged", dict(prefix_sharing=True), {}),
-    ("paged", dict(decode_sharing=True), {}),
     ("paged", dict(speculative=True), {}),
     ("paged", dict(async_loop=True), {}),
     ("paged", dict(telemetry=object()), {}),
     ("paged", dict(admission=object()), {}),
-    ("paged", {}, dict(kv_quant="int8")),
-    ("paged", {}, dict(decode_kernel="none")),
-    ("paged", {}, dict(hccs_mode="i8_div")),
-    ("paged", {}, dict(attention_prob="softmax")),
-    ("lockstep", dict(prefix_sharing=True), {}),
     ("continuous", dict(telemetry=object()), {}),
     ("continuous", dict(admission=object()), {}),
     ("wave", dict(telemetry=object()), {}),
-], ids=["prefix", "decode-sharing", "speculative", "async", "telemetry",
-        "admission", "int8-kv", "kernel-off", "i8-mode", "softmax",
-        "lockstep-prefix", "continuous-telemetry", "continuous-admission",
-        "wave-telemetry"])
+], ids=["speculative", "async", "telemetry", "admission",
+        "continuous-telemetry", "continuous-admission", "wave-telemetry"])
 def test_unported_paths_raise(engine, kw, cfg_kw):
     cfg = _cfg(**cfg_kw)
     params = M.init_params(_cfg(), device="cpu")
@@ -176,7 +166,7 @@ def test_unported_request_and_launcher_options_raise():
                            temperature=0.7))
     with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
         port_serve.main(["--arch", "granite-3-2b", "--reduced", "--device",
-                         "cpu", "--decode-kernel", "none"])
+                         "cpu", "--speculative"])
     with pytest.raises(SystemExit):
         port_serve.main(["--arch", "granite-3-2b", "--reduced", "--device",
                          "cpu", "--scheduler", "wave", "--step-layout",
@@ -186,16 +176,52 @@ def test_unported_request_and_launcher_options_raise():
                       device="cpu")
 
 
-@pytest.mark.parametrize("scheduler", ["wave", "continuous", "lockstep"])
+@pytest.mark.parametrize("key", ["stage_rows", "draft_rows"])
+def test_speculative_cache_extras_raise(key):
+    """The speculative verify step's per-step keys stay refused by the
+    model (ROADMAP.md A6), the other paged extras are consumed."""
+    cfg = _cfg().replace(cache_layout="paged")
+    params = M.init_params(cfg, device="cpu")
+    cache = init_paged_cache(cfg, 4, 32, 2, device="cpu")
+    cache[key] = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item A6"):
+        M.forward(params["weights"], params["hccs"],
+                  {"tokens": torch.zeros((1, 2), dtype=torch.int32),
+                   "positions": torch.zeros((1, 2), dtype=torch.int32)},
+                  cfg, cache)
+    assert {"q_pos_grid", "grid_pos", "kv_len_slot",
+            "fresh_blocks"} <= set(M.PAGED_EXTRAS)
+
+
+def test_cancel_is_the_non_robust_path_and_robust_cancel_is_refused():
+    """cancel() drops a queued request (failed, "cancelled") without the
+    robustness layer; the layer itself, with its robust cancel, journal and
+    preemption, stays refused (ROADMAP.md A5/A6)."""
+    cfg = _cfg()
+    params = M.init_params(cfg, device="cpu")
+    eng = PagedEngine(params, cfg, device="cpu", max_len=64)
+    req = Request(uid=7, prompt=np.arange(4, dtype=np.int32))
+    eng.submit(req)
+    assert eng.cancel(7) and req.failed and req.fail_reason == "cancelled"
+    assert not eng.busy and not eng.cancel(7)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item A5/A6"):
+        PagedEngine(params, cfg.replace(cache_layout="paged",
+                                        preemption=True), device="cpu")
+
+
+@pytest.mark.parametrize("scheduler", ["wave", "continuous", "lockstep",
+                                       "packed"])
 def test_launcher_serves_every_scheduler_on_cpu(scheduler, capsys):
-    """The STE paths make --decode-kernel none work for every layout but
-    packed."""
+    """The STE paths make --decode-kernel none work for every layout (the
+    packed one through its per-slot STE grid)."""
     args = ["--arch", "granite-3-2b", "--reduced", "--device", "cpu",
             "--requests", "3", "--prompt-len", "9", "--new-tokens", "3",
             "--decode-kernel", "none"]
     if scheduler == "lockstep":
         args += ["--scheduler", "paged", "--step-layout", "lockstep",
                  "--block-size", "8"]
+    elif scheduler == "packed":
+        args += ["--scheduler", "paged", "--block-size", "8"]
     else:
         args += ["--scheduler", scheduler]
     done = port_serve.main(args)

@@ -38,7 +38,8 @@ from repro_torch.serve import (ContinuousEngine, PagedEngine, Request,
 def served(tiny_cfg):
     """The JAX config and params, and the port's twins."""
     def make(**kw):
-        cfg = tiny_cfg(attention_prob="hccs", hccs_mode="i16_div", **kw)
+        cfg = tiny_cfg(**{"attention_prob": "hccs", "hccs_mode": "i16_div",
+                          **kw})
         params = JM.init_params(jax.random.PRNGKey(0), cfg)
         pcfg = ModelConfig(**dataclasses.asdict(cfg))
         pparams = M.params_from_jax(jax.tree.map(np.asarray, params), pcfg,
@@ -268,3 +269,381 @@ def test_blocked_kernel_warns_and_serves_ste(served, engine):
         eng = pcls(pparams, pcfg.replace(hccs_mode="i8_div"), max_batch=4,
                    max_len=64, device="cpu", **ekw)
     assert sorted(_serve(eng, _requests(9, n=2))) == [0, 1]
+
+
+# ---------------------------------- (c) sharing, sessions, the packed grid --
+# Twins of tests/test_serve_engine.py:306-485, :631, :665-733: prefix and
+# decode sharing with copy-on-write and eviction, multi-turn sessions, and
+# the packed step's per-slot STE grid, each against the JAX engine on the
+# same weights and requests (greedy tokens, and where the JAX test reads
+# them, prefix_stats and block tables) and as on/off identities within the
+# port. Every gate is token identity.
+
+def _prefix_stats_equal(peng, jeng):
+    ps = peng.prefix_stats()
+    js = {k: v for k, v in jeng.prefix_stats().items() if k in ps}
+    assert ps == js
+
+
+def test_prefix_sharing_cow_and_shared_kv_immutable(served):
+    """Requests sharing a 2-block prefix, then diverging, one a full-prompt
+    hit that must copy-on-write: tokens equal to sharing off and to the JAX
+    engine, the shared blocks' KV bit-unchanged, the pool drained after
+    clear_prefix_cache."""
+    cfg, params, pcfg, pparams = served()
+    rng = np.random.default_rng(20)
+    shared = rng.integers(0, 256, 32).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(0, 256, n).astype(
+        np.int32)]) for n in (7, 11)] + [shared.copy()]
+
+    def serve(sharing, jax_engine=False):
+        kw = dict(max_batch=1, max_len=64, block_size=16,
+                  prefix_sharing=sharing)
+        eng = (JPaged(params, cfg, **kw) if jax_engine
+               else PagedEngine(pparams, pcfg, device="cpu", **kw))
+        rcls = JRequest if jax_engine else Request
+        outs, snap, blocks, stats = {}, None, None, None
+        for i, p in enumerate(prompts):
+            eng.submit(rcls(uid=i, prompt=p.copy(), max_new_tokens=5))
+            (done,) = eng.run()
+            outs[i] = list(done.out_tokens)
+            if sharing and not jax_engine and i == 0:
+                blocks = [blk for _, blk in eng._match_prefix(shared)]
+                assert len(blocks) == 2
+                snap = (eng._cache["layers"]["k"][:, blocks].clone(),
+                        eng._cache["layers"]["v"][:, blocks].clone())
+        if sharing:
+            stats = eng.prefix_stats()
+        if sharing and not jax_engine:
+            s = stats
+            assert s["hits"] == 2 and s["lookups"] == 3
+            assert s["cow_copies"] == 1 and s["prefill_tokens_skipped"] == 63
+            assert torch.equal(eng._cache["layers"]["k"][:, blocks], snap[0])
+            assert torch.equal(eng._cache["layers"]["v"][:, blocks], snap[1])
+            eng.clear_prefix_cache()
+            assert eng.alloc.num_free == eng.num_blocks - 1
+        return outs, stats
+
+    (on, pstats), (off, _) = serve(True), serve(False)
+    jon, jstats = serve(True, jax_engine=True)
+    assert on == off == jon
+    assert pstats == {k: v for k, v in jstats.items() if k in pstats}
+
+
+def test_prefix_sharing_skip_rate_and_parity(served):
+    """A shared 48-token system prompt: >= 30% of prefill tokens skipped,
+    tokens equal to sharing off and to the JAX engine, equal stats."""
+    cfg, params, pcfg, pparams = served()
+    rng = np.random.default_rng(21)
+    system = rng.integers(0, 256, 48).astype(np.int32)
+    reqs = [(i, np.concatenate([system, rng.integers(
+        0, 256, int(rng.integers(3, 12))).astype(np.int32)]), 4)
+        for i in range(8)]
+    kw = dict(max_batch=2, max_len=96, block_size=16)
+    off = _serve(PagedEngine(pparams, pcfg, device="cpu", **kw), reqs)
+    peng = PagedEngine(pparams, pcfg, device="cpu", prefix_sharing=True,
+                       **kw)
+    jeng = JPaged(params, cfg, prefix_sharing=True, **kw)
+    assert _serve(peng, reqs) == off == _serve(jeng, reqs, JRequest)
+    s = peng.prefix_stats()
+    assert s["skip_rate"] >= 0.30 and s["hits"] >= 6
+    assert s["prefill_tokens_skipped"] >= 6 * 48
+    _prefix_stats_equal(peng, jeng)
+
+
+def test_prefix_sharing_eviction_under_pool_pressure(served):
+    """Distinct prompts churning a tiny pool force LRU eviction: the run
+    completes, the trie never points at a freed block, and tokens, tables
+    and counters equal the JAX engine's step by step."""
+    cfg, params, pcfg, pparams = served()
+    rng = np.random.default_rng(22)
+    reqs = [(i, rng.integers(0, 256, 35).astype(np.int32), 4)
+            for i in range(6)]
+    kw = dict(max_batch=2, max_len=64, block_size=16, num_blocks=6,
+              prefix_sharing=True)
+    peng = PagedEngine(pparams, pcfg, device="cpu", **kw)
+    jeng = JPaged(params, cfg, **kw)
+    for uid, p, m in reqs:
+        peng.submit(Request(uid=uid, prompt=p.copy(), max_new_tokens=m))
+        jeng.submit(JRequest(uid=uid, prompt=p.copy(), max_new_tokens=m))
+    done, jdone = [], []
+    while peng.busy or jeng.busy:
+        done.extend(peng.step())
+        jdone.extend(jeng.step())
+        np.testing.assert_array_equal(peng._tables, jeng._tables)
+    assert ({r.uid: r.out_tokens for r in done}
+            == {r.uid: r.out_tokens for r in jdone})
+    assert len(done) == 6 and peng.prefix_stats()["evictions"] > 0
+    _prefix_stats_equal(peng, jeng)
+    for blk in peng.trie.blocks():
+        assert peng.alloc.ref(blk) >= 1
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("sharing", [False, True])
+def test_multi_turn_session_parity(served, sharing, packed, kv_quant):
+    """Session-continued tokens equal re-feeding the concatenated history
+    from scratch, sharing on and off, packed and lockstep, f32 and int8
+    pools; the stored history equals the manual concatenation; with sharing
+    the JAX session engine gives the same tokens and counters."""
+    cfg, params, pcfg, pparams = served(kv_quant=kv_quant)
+    rng = np.random.default_rng(23)
+    n_sessions, turns = 2, 3
+    # turn 1 crosses a block boundary during decode (25 + 7 = 32), so a
+    # generated block is cached and later turns get decode-block hits
+    msgs = [[rng.integers(0, 256, n).astype(np.int32) for n in (25, 7, 22)]
+            for _ in range(n_sessions)]
+    kw = dict(max_batch=2, max_len=128, block_size=16, packed=packed)
+    share = dict(prefix_sharing=sharing, decode_sharing=sharing)
+    sess = PagedEngine(pparams, pcfg, device="cpu", **share, **kw)
+    ref = PagedEngine(pparams, pcfg, device="cpu", **kw)
+    jsess = JPaged(params, cfg, **share, **kw) if sharing else None
+    hist = [np.zeros(0, np.int32)] * n_sessions
+    for turn in range(turns):
+        srun, rrun, jrun = [], [], []
+        for s in range(n_sessions):
+            srun.append(Request(uid=s, prompt=msgs[s][turn].copy(),
+                                max_new_tokens=8))
+            sess.submit(srun[-1], session=f"chat{s}")
+            rrun.append(Request(uid=s, prompt=np.concatenate(
+                [hist[s], msgs[s][turn]]), max_new_tokens=8))
+            ref.submit(rrun[-1])
+            if jsess is not None:
+                jrun.append(JRequest(uid=s, prompt=msgs[s][turn].copy(),
+                                     max_new_tokens=8))
+                jsess.submit(jrun[-1], session=f"chat{s}")
+        sess.run()
+        ref.run()
+        if jsess is not None:
+            jsess.run()
+        for s in range(n_sessions):
+            assert srun[s].out_tokens == rrun[s].out_tokens, (turn, s)
+            if jsess is not None:
+                assert srun[s].out_tokens == jrun[s].out_tokens, (turn, s)
+            hist[s] = np.concatenate([hist[s], msgs[s][turn], np.asarray(
+                rrun[s].out_tokens, np.int32)])
+            np.testing.assert_array_equal(sess.session_history(f"chat{s}"),
+                                          hist[s])
+    if sharing:
+        s = sess.prefix_stats()
+        assert s["decode_hits"] > 0 and s["cached_decode_blocks"] > 0
+        assert s["followup_tokens_skipped"] > 0
+        assert (s["prompt_tokens_skipped"] + s["decode_tokens_skipped"]
+                == s["prefill_tokens_skipped"])
+        _prefix_stats_equal(sess, jsess)
+    for s in range(n_sessions):
+        sess.end_session(f"chat{s}")
+    sess.clear_prefix_cache()
+    assert sess.alloc.num_free == sess.num_blocks - 1
+
+
+def test_session_bookkeeping_guards(served):
+    _, _, pcfg, pparams = served()
+    rng = np.random.default_rng(24)
+    eng = PagedEngine(pparams, pcfg, max_batch=2, max_len=64, block_size=16,
+                      decode_sharing=True, device="cpu")
+    assert eng.prefix_sharing            # decode sharing implies the trie
+    r0 = Request(uid=0, prompt=rng.integers(0, 256, 9).astype(np.int32),
+                 max_new_tokens=4)
+    eng.submit(r0, session="a")
+    with pytest.raises(ValueError):      # turn 2 before turn 1 finished
+        eng.submit(Request(uid=1, prompt=r0.prompt.copy()), session="a")
+    eng.run()
+    assert len(eng.session_history("a")) == len(r0.prompt) + 4
+    assert eng.session_history("missing") is None
+    eng.end_session("a")
+    assert eng.session_history("a") is None
+    r1 = Request(uid=2, prompt=rng.integers(0, 256, 9).astype(np.int32),
+                 max_new_tokens=4)
+    eng.submit(r1, session="a")
+    eng.run()
+    assert len(eng.session_history("a")) == len(r1.prompt) + 4
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_decode_block_churn_refcounts_and_drain(served, kv_quant):
+    """Multi-turn sessions on a tiny pool: eviction and decode-frontier
+    registration churn together. After every step the allocator is
+    conserved, the trie never points at a freed block, every live table
+    block is referenced; afterwards the pool drains completely."""
+    _, _, pcfg, pparams = served(kv_quant=kv_quant)
+    rng = np.random.default_rng(25)
+    eng = PagedEngine(pparams, pcfg, max_batch=2, max_len=64, block_size=8,
+                      num_blocks=12, prefix_sharing=True, decode_sharing=True,
+                      device="cpu")
+    for i in range(4):
+        for turn in range(2):
+            eng.submit(Request(uid=10 * i + turn, prompt=rng.integers(
+                0, 256, 21).astype(np.int32), max_new_tokens=8),
+                session=f"s{i}")
+            while eng._queue or eng._live.any():
+                eng._admit()
+                eng._step_packed_sync()
+                assert (eng.alloc.num_free + eng.alloc.num_live
+                        == eng.num_blocks - 1)
+                for blk in eng.trie.blocks():
+                    assert eng.alloc.ref(blk) >= 1
+                for slot in np.flatnonzero(eng._live):
+                    row = eng._tables[slot]
+                    assert all(eng.alloc.ref(int(b)) >= 1
+                               for b in row[row >= 0])
+    s = eng.prefix_stats()
+    assert s["evictions"] > 0
+    assert s["cached_decode_blocks"] > 0 or s["decode_hits"] > 0
+    eng.clear_prefix_cache()
+    assert eng.alloc.num_free == eng.num_blocks - 1
+    assert eng.alloc.num_live == 0 and (eng._tables == -1).all()
+
+
+def test_end_session_cancels_in_flight_turn(served):
+    """end_session on a mid-decode turn cancels it (failed, "cancelled",
+    no history), the session is reusable at once, and its next turn equals
+    a first turn on a fresh engine."""
+    _, _, pcfg, pparams = served()
+    rng = np.random.default_rng(26)
+    kw = dict(max_batch=2, max_len=64, block_size=8, prefix_sharing=True,
+              device="cpu")
+    eng = PagedEngine(pparams, pcfg, num_blocks=12, **kw)
+    p1 = rng.integers(0, 256, 11).astype(np.int32)
+    p2 = rng.integers(0, 256, 9).astype(np.int32)
+    r1 = Request(uid=1, prompt=p1, max_new_tokens=16)
+    eng.submit(r1, session="s")
+    eng.step()
+    assert eng.busy and not r1.done
+    eng.end_session("s")
+    assert r1.failed and r1.fail_reason == "cancelled" and not r1.done
+    assert not eng.busy
+    assert not eng.cancel(12345)         # unknown uid
+    r2 = Request(uid=2, prompt=p2.copy(), max_new_tokens=6)
+    eng.submit(r2, session="s")
+    assert [r.uid for r in eng.run()] == [2] and r2.done
+    fresh = PagedEngine(pparams, pcfg, **kw)
+    rf = Request(uid=3, prompt=p2.copy(), max_new_tokens=6)
+    fresh.submit(rf, session="x")
+    fresh.run()
+    assert r2.out_tokens == rf.out_tokens
+    eng.clear_prefix_cache()
+    assert eng.alloc.num_free == eng.num_blocks - 1
+
+
+def test_watermark_parent_survives_eviction_and_cache_clear(served):
+    """Under first-writer-wins a live slot's watermark parent may be another
+    chain's block it holds no reference to: eviction must refuse it, and
+    clear_prefix_cache mid-flight resets the watermark."""
+    _, _, pcfg, pparams = served()
+    rng = np.random.default_rng(27)
+    prompt = rng.integers(0, 256, 9).astype(np.int32)
+    eng = PagedEngine(pparams, pcfg, max_batch=2, max_len=64, block_size=8,
+                      decode_sharing=True, device="cpu")
+    eng.submit(Request(uid=0, prompt=prompt.copy(), max_new_tokens=8))
+    eng.submit(Request(uid=1, prompt=prompt.copy(), max_new_tokens=20))
+    saw_foreign_parent = cleared = False
+    while eng._queue or eng._live.any():
+        eng._admit()
+        eng._step_packed_sync()
+        live = np.flatnonzero(eng._live)
+        if len(live) == 1:
+            slot = int(live[0])
+            parent = int(eng._reg_parent[slot])
+            row = eng._tables[slot]
+            if parent >= 0 and parent not in set(map(int, row[row >= 0])):
+                saw_foreign_parent = True
+                while eng._evict_one():
+                    pass
+                assert parent in set(map(int, eng.trie.blocks()))
+                if not cleared:
+                    eng.clear_prefix_cache()
+                    cleared = True
+                    assert int(eng._reg_parent[slot]) == -1
+                    assert int(eng._reg_level[slot]) == 0
+        for (par, _), blk in eng.trie._index.items():
+            assert par == -1 or par in eng.trie._block_key
+    assert saw_foreign_parent and cleared
+    eng.clear_prefix_cache()
+    assert eng.alloc.num_free == eng.num_blocks - 1
+
+
+def test_multi_turn_followup_skip_acceptance(served):
+    """A chat workload with decode sharing skips >= 30% of follow-up-turn
+    prefill tokens, with decode-block hits (the JAX package's slow-job
+    acceptance; the port's CPU engine runs it in seconds)."""
+    _, _, pcfg, pparams = served()
+    rng = np.random.default_rng(28)
+    eng = PagedEngine(pparams, pcfg, max_batch=4, max_len=256,
+                      block_size=16, decode_sharing=True, device="cpu")
+    for i in range(3):
+        for turn in range(4):
+            eng.submit(Request(uid=10 * i + turn, prompt=rng.integers(
+                0, 256, 25).astype(np.int32), max_new_tokens=8),
+                session=f"s{i}")
+            eng.run()
+    s = eng.prefix_stats()
+    assert s["followup_skip_rate"] >= 0.30 and s["decode_hits"] > 0, s
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+@pytest.mark.parametrize("sharing", [False, True])
+def test_packed_step_parity_with_lockstep_and_sharing(served, sharing,
+                                                      kv_quant):
+    """Packed == lockstep with prefix sharing off and on (a full-prompt hit
+    exercises COW), equal prefix telemetry, fewer padded lanes packed."""
+    _, _, pcfg, pparams = served(kv_quant=kv_quant)
+    rng = np.random.default_rng(29)
+    shared = rng.integers(0, 256, 32).astype(np.int32)
+    prompts = ([rng.integers(0, 256, n).astype(np.int32) for n in (5, 13, 21)]
+               + [np.concatenate([shared, rng.integers(0, 256, n).astype(
+                   np.int32)]) for n in (7, 3)] + [shared.copy()])
+    reqs = [(i, p, 1 if i == 1 else 5) for i, p in enumerate(prompts)]
+    outs, engines = {}, {}
+    for packed in (False, True):
+        eng = PagedEngine(pparams, pcfg, max_batch=4, max_len=64,
+                          block_size=16, packed=packed,
+                          prefix_sharing=sharing, device="cpu")
+        outs[packed] = _serve(eng, reqs)
+        engines[packed] = eng
+    assert outs[False] == outs[True]
+    assert (engines[False].prefix_stats()["prefill_tokens_skipped"]
+            == engines[True].prefix_stats()["prefill_tokens_skipped"])
+    pf, pt = engines[False].padding_stats(), engines[True].padding_stats()
+    assert pt["efficiency"] > pf["efficiency"]
+    if sharing:
+        assert engines[True].prefix_stats()["cow_copies"] >= 1
+
+
+@pytest.mark.parametrize("cfg_kw", [dict(decode_kernel="none"),
+                                    dict(hccs_mode="i8_div"),
+                                    dict(hccs_mode="i8_clb"),
+                                    dict(attention_prob="softmax")],
+                         ids=["kernel-off", "i8_div", "i8_clb", "softmax"])
+def test_packed_grid_engine_matches_jax(served, cfg_kw):
+    """The packed engine without the kernel runs the per-slot STE grid:
+    tokens, step counts and tables equal the JAX packed engine's, with a
+    prompt longer than one chunk cap (grid rung 64) and a decode-only tail
+    (grid rung 1)."""
+    cfg, params, pcfg, pparams = served(**cfg_kw)
+    pparams.setdefault("hccs", {})      # softmax: the bridge drops {} leaves
+    reqs = _requests(30, n=6, lens=(5, 21, 70), max_new=6)
+    kw = dict(max_batch=4, max_len=96, block_size=16)
+    jeng = JPaged(params, cfg, **kw)
+    peng = PagedEngine(pparams, pcfg, device="cpu", **kw)
+    assert peng._use_grid
+    assert _serve(peng, reqs) == _serve(jeng, reqs, JRequest)
+    assert peng.occupancy_steps == jeng.occupancy_steps
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+@pytest.mark.parametrize("mode", ["i16_div", "wide"])
+def test_packed_kernel_on_equals_grid_within_port(served, mode, kv_quant):
+    """The packed step through hccs_packed_prefill == the per-slot STE
+    grid, token for token."""
+    _, _, pcfg, pparams = served(hccs_mode=mode, kv_quant=kv_quant)
+    reqs = _requests(31, n=4, lens=(5, 9, 19), max_new=4)
+    outs = []
+    for kernel in ("none", "fused"):
+        eng = PagedEngine(pparams, pcfg.replace(decode_kernel=kernel),
+                          max_batch=4, max_len=64, block_size=16,
+                          device="cpu")
+        assert eng._use_grid == (kernel == "none")
+        outs.append(_serve(eng, reqs))
+    assert outs[0] == outs[1]
