@@ -70,7 +70,27 @@ Phases, in order:
  17 grid        the packed PagedEngine without the kernel (the per-slot STE
                 grid) on phase 5's requests, profiled once, held to phase 5
                 by the near-tie rule
- 18 report      one JSON line per the kernel table
+ 18 spec        speculative decoding on the packed PagedEngine (int8 KV,
+                decode sharing, draft_len 4): phase 16's sessions over 3
+                turns of 64 new tokens; drafting on twice, once profiled,
+                off once, on with an f32 pool once. Gates: drafted =
+                accepted + rejected, >= 1 verify step and rollback, 40
+                packed and 80 in-step fold launches a step, 80 replay fold
+                launches a verify step, drafting on against off (and f32
+                against int8) by the near-tie rule, every request done, and
+                one captured verify step's restore and replay byte-identical
+                to the same restore and replay through the plain fold
+ 19 overload    the robust packed PagedEngine (preemption, graceful
+                exhaustion, 3 priority classes, a bounded shedding queue,
+                deadlines on a fake clock, int8, sharing, speculative) on a
+                pool small enough that higher classes preempt lower ones;
+                the invariants after every step, a drained pool, and every
+                preempted request held to a never-preempted run by the
+                near-tie rule
+ 20 chaos       ChaosMonkey(seed=0) over the same engine at full width, 16
+                requests: invariants after every step, the pool drained,
+                every request done or failed with a reason
+ 21 report      one JSON line per the kernel table
 
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero before it. `--phases` runs a subset (for bring-up).
@@ -115,7 +135,10 @@ from repro_torch.kernels.softmax_bf16 import (softmax_bf16,  # noqa: E402
                                               softmax_bf16_ref)
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.attention import _blockwise_attention  # noqa: E402
-from repro_torch.serve import (ContinuousEngine, ServeEngine)  # noqa: E402
+from repro_torch.serve import (AdmissionConfig,  # noqa: E402
+                               ChaosMonkey, ContinuousEngine, ServeEngine,
+                               assert_drained, check_invariants)
+from repro_torch.serve import paged as serve_paged  # noqa: E402
 from repro_torch.serve.engine import kv_cache_byte_stats  # noqa: E402
 from repro_torch.serve.paged import (PagedEngine, Request,  # noqa: E402
                                      pack_slot_ids, packed_write_positions,
@@ -137,6 +160,9 @@ RANDOM_MAX_ERR_NO_FLIP = 5e-6    # |out| difference on rows with no flip
 RANDOM_FLIP_FRACTION = 1e-6      # flipped int8 bins / live logits
 FWD_MAX_LOGIT_ERR = 1e-2         # phase 4, |logit| difference
 FWD_TOP1_AGREE = 0.99            # phase 4, top-1 agreement over live lanes
+
+
+CARD = "not read"                # nvidia-smi's name and power limit (phase 1)
 
 
 def log(*a):
@@ -289,6 +315,8 @@ def phase_device():
         f"nvidia-smi failed: {smi.stderr.strip()}"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    global CARD
+    CARD = card
     log(card)
     log(f"[device] {torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.device_count()} card(s), torch {torch.__version__}, "
@@ -936,6 +964,69 @@ KERNEL_SYMBOLS = {"hccs_packed_prefill": "PackedRows",
 # 4x the largest gap seen. A forced wrong token gave 1.78.
 NEAR_TIE_GAP = 0.25
 
+# Phases 18-19 also hold each first divergence to the two paths' OWN logits
+# (LogitTap): at position k both paths saw the same context, so each one's
+# margin between its token and the other's, in the numerics that chose
+# it, must be a near tie (at most OWN_TIE_GAP). The f32-KV forward above
+# measures that gap in a third model (f32 KV against the paths' int8 KV).
+# Set from this rule's first run on an H100 80GB HBM3 at 700 W (PERF.md
+# section 6): 19 first divergences between runs of one model (int8 KV,
+# drafting on against off, preempted against not) had own margins of 0 to
+# 0.0625, while the reference's own top-1/top-2 margin where the paths
+# agreed had medians of 0.20-0.34; the gate is twice the largest margin
+# seen, and a runner-up pick must fail it at most positions.
+OWN_TIE_GAP = 0.125
+TAP_K = 16                      # logits kept per sampled position
+
+
+class LogitTap:
+    """A PagedEngine's own logits at every token it samples: wraps its
+    three device seams to keep the top TAP_K logits of each returned row
+    (with the live slots' requests and token counts), and its step() to
+    file each request's new tokens: own[(uid, k)] = (values, token ids) of
+    the logits that chose token k (row (slot, i) of a verify step chose
+    the slot's i-th new token)."""
+
+    def __init__(self, eng):
+        self.own, self._last = {}, None
+        for name in ("_step_fn", "_packed_fn", "_packed_spec_fn"):
+            setattr(eng, name, self._seam(eng, getattr(eng, name)))
+        step = eng.step
+
+        def stepped():
+            self._last = None
+            out = step()
+            if self._last is not None:
+                v, i, live = self._last
+                v, i = v.cpu().numpy(), i.cpu().numpy()
+                for s, req, n0 in live:
+                    for r in range(len(req.out_tokens) - n0):
+                        self.own[(req.uid, n0 + r)] = (v[s, r], i[s, r])
+            return out
+        eng.step = stepped
+
+    def _seam(self, eng, fn):
+        def wrapped(*args):
+            logits, cache = fn(*args)
+            rows = logits if logits.dim() == 3 else logits[:, None]
+            v, i = torch.topk(rows.float(), TAP_K, dim=-1)
+            self._last = (v, i, [
+                (int(s), eng._slots[s], len(eng._slots[s].out_tokens))
+                for s in np.flatnonzero(eng._live)])
+            return logits, cache
+        return wrapped
+
+
+def own_margin(own, uid, k, mine, other) -> float:
+    """In one path's own logits at (uid, k): the logit of its token `mine`
+    (which must be its own argmax) minus that of the other path's token
+    (inf if that one lies outside its top TAP_K)."""
+    v, ids = own[(uid, k)]
+    check(np.any((ids == mine) & (v == v[0])), f"request {uid} token {k}: "
+          f"the path's token {mine} is not its own argmax")
+    hit = v[ids == other]
+    return float(v[0] - hit[0]) if hit.size else float("inf")
+
 
 def first_divergence(a, b):
     """The first position where two token lists differ, None if neither
@@ -943,7 +1034,8 @@ def first_divergence(a, b):
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
 
 
-def divergence(label, toks, ref, prompts, ref_prompts, params, cfg):
+def divergence(label, toks, ref, prompts, ref_prompts, params, cfg,
+               own=None):
     """ROADMAP C1's rule: for each request whose tokens differ between two
     paths (`toks` against `ref`, {uid: tokens}), the first divergent
     position k, and one model forward of the common prefix (the prompt and
@@ -952,18 +1044,32 @@ def divergence(label, toks, ref, prompts, ref_prompts, params, cfg):
     the paths agreed. Every first divergence must be a near tie (gap <=
     NEAR_TIE_GAP). A request whose prompt differs between the paths (a
     session turn after a diverged turn) continues an earlier divergence and
-    is counted apart. Returns the number of requests that diverge and the
-    largest gap."""
+    is counted apart. With `own` (the two paths' LogitTap records) each
+    first divergence must also be a near tie in both paths' own logits
+    (own_margin <= OWN_TIE_GAP), no request may be carried, and the
+    reference's own top-1/top-2 margins where the paths agree give the
+    share of positions at which a path that picked the runner-up would pass
+    that rule, which must be under half. Returns the number of requests
+    that diverge and the largest gap."""
     arena = cfg.replace(cache_layout="slot", kv_quant="none")
     w, hc = params["weights"], params["hccs"]
-    gaps, agreed, carried = [], [], 0
+    gaps, agreed, carried, margins, owns = [], [], 0, [], []
     for uid in sorted(ref):
         if not np.array_equal(prompts[uid], ref_prompts[uid]):
             carried += 1
             continue
         k = first_divergence(toks[uid], ref[uid])
+        if own is not None:
+            for j in range(len(ref[uid]) if k is None else k):
+                v = own[1][(uid, j)][0]
+                margins.append(float(v[0] - v[1]))
         if k is None:
             continue
+        if own is not None:
+            owns.append((uid, own_margin(own[0], uid, k, toks[uid][k],
+                                         ref[uid][k]),
+                         own_margin(own[1], uid, k, ref[uid][k],
+                                    toks[uid][k])))
         plen = len(prompts[uid])
         seq = np.concatenate([np.asarray(prompts[uid], np.int32),
                               np.asarray(ref[uid][:k], np.int32)])
@@ -991,6 +1097,25 @@ def divergence(label, toks, ref, prompts, ref_prompts, params, cfg):
             f"forward's top-1/top-2 gap {top2:.4f}")
     check(worst <= NEAR_TIE_GAP, f"{label}: a first divergence with logit "
           f"gap {worst:.4f} > {NEAR_TIE_GAP} is no near tie")
+    if own is not None:
+        check(not carried, f"{label}: {carried} requests not compared")
+        worst_own = max((max(a, b) for _, a, b in owns), default=0.0)
+        passes = np.mean(np.asarray(margins) <= OWN_TIE_GAP)
+        log(f"[{label}] own logits: largest margin at a first divergence "
+            f"{worst_own:.4f} (threshold {OWN_TIE_GAP}); the reference's "
+            f"own top-1/top-2 margin where the paths agree: median "
+            f"{np.median(margins):.4f}, 10th percentile "
+            f"{np.percentile(margins, 10):.4f}, 90th "
+            f"{np.percentile(margins, 90):.4f} over {len(margins)} tokens; "
+            f"a runner-up pick would pass at {passes:.3f} of them")
+        for uid, a, b in owns:
+            log(f"[{label}]   request {uid}: own margins {a:.4f} (tested "
+                f"path), {b:.4f} (reference)")
+        check(worst_own <= OWN_TIE_GAP, f"{label}: a first divergence with "
+              f"an own-logit margin {worst_own:.4f} > {OWN_TIE_GAP} is no "
+              f"near tie")
+        check(passes < 0.5, f"{label}: a runner-up pick would pass the "
+              f"own-logit rule at {passes:.3f} of the positions")
     return len(gaps), worst
 
 
@@ -1732,30 +1857,36 @@ TURN2_LEN = 64                  # each session's second message
 
 def session_traffic(cfg):
     """Phase 16's traffic, seeded: one system prefix, 8 user parts of
-    32-480 tokens, 8 second-turn messages."""
+    32-480 tokens, 8 second-turn messages (the one later turn)."""
     rng = np.random.default_rng(2)
     system = rng.integers(0, cfg.vocab_size, SYSTEM_LEN).astype(np.int32)
     users = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
              for n in rng.integers(32, 481, MAX_BATCH)]
     turn2 = [rng.integers(0, cfg.vocab_size, TURN2_LEN).astype(np.int32)
              for _ in range(MAX_BATCH)]
-    return system, users, turn2
+    return system, users, [turn2]
 
 
-def serve_sessions(params, cfg, traffic, profiled=False, **kw):
-    """Two turns of 8 sessions through the packed PagedEngine. Turn 1:
+def serve_sessions(params, cfg, traffic, profiled=False, new_tokens=32,
+                   on_engine=None, **kw):
+    """The sessions of `traffic` through the packed PagedEngine. Turn 1:
     session 0 alone until its prefill is done, then sessions 1-7 and one
     request whose prompt is exactly the system prefix (a block-aligned full
-    hit: its re-fed last token forces a COW). Turn 2: every session sends
-    TURN2_LEN more tokens. 32 new tokens a request. The kernels' counts are
-    set to 0 just before and read just after. Returns the run's record."""
-    system, users, turn2 = traffic
+    hit: its re-fed last token forces a COW). Each later turn: every
+    session sends its next message (uids 100 t + session). `new_tokens` a
+    request. `on_engine(eng)` runs before the first request. The kernels'
+    counts are set to 0 just before and read just after. Returns the run's
+    record."""
+    system, users, later = traffic
     eng = PagedEngine(params, cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
                       block_size=BS, device="cuda", **kw)
+    if on_engine is not None:
+        on_engine(eng)
     reqs = {}
 
     def submit(uid, prompt, session=None):
-        reqs[uid] = Request(uid=uid, prompt=prompt.copy(), max_new_tokens=32)
+        reqs[uid] = Request(uid=uid, prompt=prompt.copy(),
+                            max_new_tokens=new_tokens)
         eng.submit(reqs[uid], session=session)
     torch.cuda.synchronize()
     for k in KERNELS + (paged_quant_scatter,):
@@ -1774,13 +1905,15 @@ def serve_sessions(params, cfg, traffic, profiled=False, **kw):
         submit(MAX_BATCH, system)
         eng.run()
         turn1 = eng.prefix_stats()
-        for s in range(MAX_BATCH):
-            submit(100 + s, turn2[s], f"s{s}")
-        eng.run()
+        for t, msgs in enumerate(later):
+            for s in range(MAX_BATCH):
+                submit(100 * (t + 1) + s, msgs[s], f"s{s}")
+            eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     for r in reqs.values():
-        check(r.done and len(r.out_tokens) == 32, f"request {r.uid} not done")
+        check(r.done and len(r.out_tokens) == new_tokens,
+              f"request {r.uid} not done")
         check(all(0 <= t < cfg.vocab_size for t in r.out_tokens),
               "token off vocab")
     return dict(eng=eng, wall=wall, prof=prof, turn1=turn1,
@@ -1923,6 +2056,510 @@ def phase_grid(packed_tokens):
         divergence("grid", toks, packed_tokens, by_uid, by_uid, params, cfg)
 
 
+# ------------------------------------------------------------ phase 18 --
+
+SPEC_NEW = 64                   # new tokens a request in phases 18-19
+DRAFT_LEN = 4
+POOL_KEYS = ("k", "v", "k_scale", "v_scale")
+
+
+def spec_traffic(cfg):
+    """Phase 18's traffic: phase 16's sessions and a third turn of
+    TURN2_LEN tokens a session (seeded)."""
+    system, users, later = session_traffic(cfg)
+    rng = np.random.default_rng(3)
+    turn3 = [rng.integers(0, cfg.vocab_size, TURN2_LEN).astype(np.int32)
+             for _ in range(MAX_BATCH)]
+    return system, users, later + [turn3]
+
+
+def record_widths(eng):
+    """Wrap the engine's two packed device seams to count the width of
+    every packed step, verify steps apart. Returns the two Counters."""
+    widths = {"_packed_fn": collections.Counter(),
+              "_packed_spec_fn": collections.Counter()}
+    for name, hist in widths.items():
+        fn = getattr(eng, name)
+
+        def wrapped(tokens, *args, _fn=fn, _hist=hist):
+            _hist[int(tokens.shape[1])] += 1
+            return _fn(tokens, *args)
+        setattr(eng, name, wrapped)
+    return widths["_packed_fn"], widths["_packed_spec_fn"]
+
+
+class ReplayProbe:
+    """Stands in for serve/paged.py's _restore_and_replay during one run:
+    counts its calls and the fold launches they make (the replay's, apart
+    from the in-step folds), and captures one call for the direct check
+    (the first, replaced by the first of a pure-decode verify step whose
+    fresh-block mask is set): the pools before and after, and its
+    arguments."""
+
+    def __init__(self, capture: bool):
+        self.calls = 0
+        self.replay_idx = []        # the run's fold launches that replayed
+        self.capture = capture
+        self.captured = None
+        self.orig = serve_paged._restore_and_replay
+
+    @property
+    def launches(self) -> int:
+        return len(self.replay_idx)
+
+    def __enter__(self):
+        serve_paged._restore_and_replay = self
+        return self
+
+    def __exit__(self, *exc):
+        serve_paged._restore_and_replay = self.orig
+
+    def __call__(self, layers, snap, blocks, fresh_mask, staged_k, staged_v,
+                 replay_pos):
+        ideal = (replay_pos.numel() <= 2 * MAX_BATCH
+                 and bool(fresh_mask.any()))
+        take = self.capture and (self.captured is None or (
+            ideal and not self.captured["ideal"]))
+        pre = {n: layers[n].clone() for n in POOL_KEYS} if take else None
+        before = paged_quant_scatter.launches
+        out = self.orig(layers, snap, blocks, fresh_mask, staged_k, staged_v,
+                        replay_pos)
+        self.replay_idx.extend(range(before, paged_quant_scatter.launches))
+        self.calls += 1
+        if take:
+            self.captured = dict(
+                pre=pre, post={n: layers[n].clone() for n in POOL_KEYS},
+                args=(snap, blocks, fresh_mask, staged_k, staged_v,
+                      replay_pos), fresh=bool(fresh_mask.any()),
+                ideal=ideal, rows=int(replay_pos.numel()), call=self.calls)
+        return out
+
+
+def replay_matches_plain(probe) -> str:
+    """The captured verify step's restore and replay done again from the
+    same pre-call pools, snapshot and staged rows with the plain fold
+    (paged_quant_scatter_ref): every pool byte and scale must equal the
+    card's. Returns a description of the step."""
+    cap = probe.captured
+    check(cap is not None, "spec: no verify step was captured")
+    layers = {n: t.clone() for n, t in cap["pre"].items()}
+    serve_paged.paged_quant_scatter = paged_quant_scatter_ref
+    try:
+        with torch.inference_mode():
+            probe.orig(layers, *cap["args"])
+    finally:
+        serve_paged.paged_quant_scatter = paged_quant_scatter
+    torch.cuda.synchronize()
+    for n in POOL_KEYS:
+        check(torch.equal(layers[n], cap["post"][n]),
+              f"spec: restore and replay on the card differs from the plain "
+              f"fold in {n}")
+    return (f"verify step {cap['call']} ({cap['rows']} lanes, fresh blocks "
+            f"{'re-zeroed' if cap['fresh'] else 'none'})")
+
+
+def replay_fold_ms(prof, probe, launches: int) -> tuple[float, float]:
+    """Device ms of a profiled run's fold kernels, (in-step, replay): one
+    kernel a wrapper call on one stream, so the i-th fold kernel on the
+    card's timeline is the run's i-th launch, and the probe's launch
+    indices pick out the replay's."""
+    ev = sorted((e for e in device_events(prof)
+                 if "paged_quant_scatter" in e.name), key=lambda e: e.start)
+    check(len(ev) == launches, f"spec: {len(ev)} fold kernels profiled, "
+          f"{launches} launched")
+    dur = np.asarray([e.end - e.start for e in ev]) / 1e3
+    replay = np.zeros(len(ev), bool)
+    replay[probe.replay_idx] = True
+    return float(dur[~replay].sum()), float(dur[replay].sum())
+
+
+def serve_prompts(params, cfg, prompts: dict, new_tokens: int, **kw):
+    """Each of `prompts` ({key: prompt}) as one plain request through a
+    fresh, tapped PagedEngine; returns ({key: tokens}, {(key, k): own
+    logits})."""
+    if not prompts:
+        return {}, {}
+    eng = PagedEngine(params, cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                      block_size=BS, device="cuda", **kw)
+    tap = LogitTap(eng)
+    keys = list(prompts)
+    reqs = [Request(uid=i, prompt=np.asarray(prompts[key]).copy(),
+                    max_new_tokens=new_tokens) for i, key in enumerate(keys)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    check(all(r.done and len(r.out_tokens) == new_tokens for r in reqs),
+          "a re-served request is not done")
+    return ({key: list(r.out_tokens) for key, r in zip(keys, reqs)},
+            {(keys[u], k): v for (u, k), v in tap.own.items()})
+
+
+def against(run, ref, again):
+    """The reference `ref` for the tested `run`, each request whose prompt
+    differs between the two (a later turn after a diverged one) replaced
+    by `again`'s serving of the tested run's own prompt (keyed by uid):
+    (tokens, prompts, own logits)."""
+    toks, prompts = dict(ref["toks"]), dict(ref["prompts"])
+    own = dict(ref["tap"].own)
+    for uid, again_toks in again[0].items():
+        toks[uid], prompts[uid] = again_toks, run["prompts"][uid]
+        for k in range(len(again_toks)):
+            own[(uid, k)] = again[1][(uid, k)]
+    return toks, prompts, own
+
+
+def phase_spec():
+    """Speculative decoding on the packed PagedEngine with int8 KV and
+    decode sharing, draft_len 4, over phase 16's sessions with a third turn
+    and 64 new tokens a request: drafting on twice unprofiled and once
+    profiled (the replay's fold time apart), off once, with an f32 pool on
+    once and off once. The first drafting run and the f32 pool's are held
+    to the never-drafted run of their pool by the near-tie rule in the
+    f32-KV forward and in both runs' own logits; a later turn whose
+    history diverged is held to a never-drafted serving of its own prompt
+    instead. Returns the launches of the first drafting run {name: n} with
+    the fold split in-step / replay."""
+    cfg, params = engine_model()
+    q8 = cfg.replace(kv_quant="int8")
+    traffic = spec_traffic(cfg)
+    share = dict(prefix_sharing=True, decode_sharing=True,
+                 draft_len=DRAFT_LEN)
+    log(f"[spec] card: {CARD}")
+
+    def drafted(run_cfg, profiled=False, capture=False, tap=False):
+        hists = {}
+
+        def hook(eng):
+            hists["plain"], hists["verify"] = record_widths(eng)
+            if tap:
+                hists["tap"] = LogitTap(eng)
+        with ReplayProbe(capture) as probe:
+            run = serve_sessions(params, run_cfg, traffic, profiled=profiled,
+                                 new_tokens=SPEC_NEW, on_engine=hook,
+                                 speculative=True, **share)
+        run.update(probe=probe, **hists)
+        return run
+
+    runs = [drafted(q8, capture=True, tap=True), drafted(q8),
+            drafted(q8, profiled=True)]
+    main = runs[0]
+    for rep, run in enumerate(runs):
+        steps, la, st = run["steps"], run["launches"], run["stats"]
+        probe, verify = run["probe"], run["verify"]
+        n_verify = sum(verify.values())
+        fold = la["paged_quant_scatter"]
+        n_new = sum(len(t) for t in run["toks"].values())
+        log(f"[spec] run {rep}{' (profiled)' if rep == 2 else ''}: {steps} "
+            f"packed steps ({n_verify} verify steps), wall "
+            f"{run['wall']:.3f}s = {n_new / run['wall']:.1f} new tok/s; "
+            f"acceptance {st['acceptance_rate']:.4f}: "
+            f"{st['tokens_drafted']} drafted, {st['tokens_accepted']} "
+            f"accepted, {st['tokens_rejected']} rejected over "
+            f"{st['spec_steps']} slot verifies, {st['spec_rollbacks']} "
+            f"rollback steps; hccs_packed_prefill launches "
+            f"{la['hccs_packed_prefill']}, fold launches {fold} "
+            f"({fold - probe.launches} in-step, {probe.launches} replay over "
+            f"{probe.calls} replays); card {CARD}")
+        check(st["tokens_drafted"] == st["tokens_accepted"]
+              + st["tokens_rejected"], "spec: drafted != accepted + rejected")
+        check(n_verify >= 1 and st["spec_rollbacks"] >= 1,
+              "spec: no verify step or no rollback")
+        check(la["hccs_packed_prefill"] == M_LAYERS * steps,
+              f"spec: packed launches {la['hccs_packed_prefill']} != "
+              f"{M_LAYERS} x {steps} steps")
+        check(fold - probe.launches == 2 * M_LAYERS * steps,
+              f"spec: in-step fold launches {fold - probe.launches} != 2 x "
+              f"{M_LAYERS} x {steps} steps")
+        check(probe.calls == n_verify
+              and probe.launches == 2 * M_LAYERS * n_verify,
+              f"spec: {probe.launches} replay launches over {probe.calls} "
+              f"replays, {n_verify} verify steps")
+        check(not la["hccs_paged_decode"] and not la["hccs_decode"],
+              "spec: other kernels ran")
+        check(run["toks"] == main["toks"], "spec: the drafting runs disagree")
+    log(f"[spec] verify-step widths {dict(sorted(main['verify'].items()))}, "
+        f"other packed steps {dict(sorted(main['plain'].items()))}")
+    log(f"[spec] direct check: {replay_matches_plain(main['probe'])} "
+        f"restored and replayed on the card byte-identical to the plain fold")
+    prof = runs[2]["prof"]
+    profile_summary(prof, runs[2]["wall"], "PackedRows", "spec profile")
+    fold_ms, n_fold = kernel_total(prof, "paged_quant_scatter")
+    in_step_ms, replay_ms = replay_fold_ms(
+        prof, runs[2]["probe"], runs[2]["launches"]["paged_quant_scatter"])
+    n_replay = runs[2]["probe"].launches
+    busy = prof_busy_ms(prof)
+    log(f"[spec] fold kernels {fold_ms:.1f} ms over {n_fold} launches: "
+        f"in-step {in_step_ms:.1f} ms over {n_fold - n_replay}, replay "
+        f"{replay_ms:.1f} ms over {n_replay} ({replay_ms / fold_ms:.3f} of "
+        f"the fold time); device busy {busy:.1f} ms, idle share of the "
+        f"unprofiled walls {1 - busy / 1e3 / runs[0]['wall']:.3f}, "
+        f"{1 - busy / 1e3 / runs[1]['wall']:.3f}; card {CARD}")
+
+    def never_drafted(run_cfg):
+        taps = []
+        run = serve_sessions(params, run_cfg, traffic, new_tokens=SPEC_NEW,
+                             speculative=False,
+                             on_engine=lambda e: taps.append(LogitTap(e)),
+                             **share)
+        check(run["stats"]["tokens_drafted"] == 0,
+              "spec: drafting off drafted")
+        return dict(run, tap=taps[0])
+    off = never_drafted(q8)
+    f32, f32_off = drafted(cfg, tap=True), never_drafted(cfg)
+    n_new = sum(len(t) for t in off["toks"].values())
+    log(f"[spec] drafting off: {off['steps']} steps in {off['wall']:.3f}s = "
+        f"{n_new / off['wall']:.1f} new tok/s; f32 pool: drafting on "
+        f"{f32['steps']} steps in {f32['wall']:.3f}s, acceptance "
+        f"{f32['stats']['acceptance_rate']:.4f}, off {f32_off['steps']} "
+        f"steps in {f32_off['wall']:.3f}s; card {CARD}")
+    check(f32["launches"]["paged_quant_scatter"] == 0
+          and f32_off["launches"]["paged_quant_scatter"] == 0,
+          "spec: the f32 pool launched the fold")
+    for tag, run, ref, run_cfg in (("int8", main, off, q8),
+                                   ("f32", f32, f32_off, cfg)):
+        # a later turn whose history diverged is held to a never-drafted
+        # serving of its own prompt, history included
+        later = {uid: prompt for uid, prompt in run["prompts"].items()
+                 if not np.array_equal(prompt, ref["prompts"][uid])}
+        again = serve_prompts(params, run_cfg, later, SPEC_NEW,
+                              speculative=False, **share)
+        log(f"[spec {tag} pool] {len(later)} later turns after a diverged "
+            f"history re-served never drafted")
+        ref_toks, ref_prompts, ref_own = against(run, ref, again)
+        divergence(f"spec {tag} pool on vs off", run["toks"], ref_toks,
+                   run["prompts"], ref_prompts, params, cfg,
+                   own=(run["tap"].own, ref_own))
+    fold = main["launches"]["paged_quant_scatter"]
+    return dict(packed=main["launches"]["hccs_packed_prefill"],
+                fold_in_step=fold - main["probe"].launches,
+                fold_replay=main["probe"].launches)
+
+
+# ------------------------------------------------------------ phase 19 --
+
+# 30 requests: six class-0 requests fill the pool, then four bursts of six
+# mixed classes: the first at step 6, each later one once every class-2
+# request of the bursts before it has ended, so that it finds class-0
+# requests live again and its three class-2 requests preempt several
+OVERLOAD_PRIO = (0, 0, 0, 0, 0, 0, 2, 1, 2, 1, 0, 2) + (2, 2, 2, 0, 0, 0) * 3
+OVERLOAD_BURSTS = tuple(range(u, u + 6) for u in range(6, 30, 6))
+OVERLOAD_PREEMPTED = 4          # preempted requests that finish, at least
+OVERLOAD_FIRST = 6              # the first burst's step
+OVERLOAD_NEW = 48               # new tokens a request
+OVERLOAD_BLOCKS = 40            # pool: the shared prefix and 3-4 requests
+OVERLOAD_QUEUE = 9              # queued requests before the lowest is shed
+OVERLOAD_DEADLINE = 20.0        # class 1's E2E deadline, fake-clock seconds
+OVERLOAD_REASONS = {"shed", "cancelled", "deadline_ttft", "deadline_e2e"}
+
+
+def overload_requests(cfg):
+    """Phase 19's traffic, seeded: 30 requests of the sessions' 512-token
+    system prefix plus a 64-256-token user part, OVERLOAD_NEW new tokens,
+    classes OVERLOAD_PRIO; class 1 carries an E2E deadline."""
+    system = session_traffic(cfg)[0]
+    rng = np.random.default_rng(4)
+    return [dict(uid=i, prompt=np.concatenate(
+        [system, rng.integers(0, cfg.vocab_size, int(rng.integers(
+            64, 257))).astype(np.int32)]), max_new_tokens=OVERLOAD_NEW,
+        priority=p, deadline_e2e=OVERLOAD_DEADLINE if p == 1 else None)
+        for i, p in enumerate(OVERLOAD_PRIO)]
+
+
+def slice_engine(params, cfg, num_blocks=None, admission=None):
+    """The slice's engine: int8 KV, decode sharing, speculative decoding."""
+    return PagedEngine(
+        params, cfg.replace(kv_quant="int8"), max_batch=MAX_BATCH,
+        max_len=MAX_LEN, block_size=BS, num_blocks=num_blocks,
+        prefix_sharing=True, decode_sharing=True, speculative=True,
+        draft_len=DRAFT_LEN, device="cuda", admission=admission)
+
+
+def robust_engine(params, cfg, max_queue, clock=None, num_blocks=None):
+    """The slice's engine with the robustness layer: preemption, graceful
+    exhaustion, a bounded queue that sheds the lowest class."""
+    return slice_engine(params, cfg, num_blocks, AdmissionConfig(
+        max_queue=max_queue, backpressure="shed-lowest-priority",
+        preemption=True, graceful_exhaustion=True, clock=clock))
+
+
+def phase_overload():
+    """A pool of OVERLOAD_BLOCKS blocks under the robust engine: request 0
+    alone until its prefill registers the prefix, then 1-5 at once and the
+    four bursts of OVERLOAD_BURSTS, the fake clock one second a step, the
+    newest live request cancelled at step 4. The invariants after every
+    step; then a drained pool, no device retry, no failure but a shed, a
+    cancel or a deadline, and every preempted request that finished held
+    to a never-preempted run (same engine, no admission layer, the default
+    pool) by the near-tie rule, in the f32-KV forward and in both runs' own
+    logits."""
+    cfg, params = engine_model()
+    specs = overload_requests(cfg)
+    fake = [0.0]
+    eng = robust_engine(params, cfg, OVERLOAD_QUEUE, clock=lambda: fake[0],
+                        num_blocks=OVERLOAD_BLOCKS)
+    tap = LogitTap(eng)
+    reqs = [Request(**{**r, "prompt": r["prompt"].copy()}) for r in specs]
+    torch.cuda.synchronize()
+    for k in KERNELS + (paged_quant_scatter,):
+        k.launches = 0
+    t0 = time.perf_counter()
+    eng.submit(reqs[0])
+    while not reqs[0].out_tokens:
+        eng.step()
+        fake[0] += 1.0
+    for r in reqs[1:OVERLOAD_BURSTS[0][0]]:
+        eng.submit(r)
+    steps, bursts, arrived = 0, list(OVERLOAD_BURSTS), []
+    while bursts or eng.busy:
+        if bursts and steps >= OVERLOAD_FIRST and all(
+                reqs[u].done or reqs[u].failed for u in arrived
+                if reqs[u].priority == 2):
+            for uid in bursts.pop(0):
+                eng.submit(reqs[uid])
+                arrived.append(uid)
+            log(f"[overload] a burst arrives at step {steps}")
+        if steps == 4:
+            live = [eng._slots[s].uid for s in np.flatnonzero(eng._live)]
+            if live:
+                eng.cancel(max(live))
+        eng.step()
+        fake[0] += 1.0
+        steps += 1
+        check_invariants(eng)
+        check(steps < 5000, "overload: the run did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches
+                for k in KERNELS + (paged_quant_scatter,)}
+    rb = eng.robust_counters.snapshot()
+    assert_drained(eng)
+    reasons = collections.Counter(r.fail_reason for r in reqs if r.failed)
+    check(all(r.done or (r.failed and r.fail_reason) for r in reqs),
+          "overload: a request neither finished nor failed with a reason")
+    log(f"[overload] {eng.occupancy_steps} steps in {wall:.3f}s, "
+        f"{len([r for r in reqs if r.done])} of {len(reqs)} requests done, "
+        f"failed {dict(reasons)}; {rb['preemptions']} preemptions "
+        f"({rb['exhaustion_events']} exhaustion events), {rb['shed']} "
+        f"shed, {rb['cancelled']} cancelled, deadline misses "
+        f"{rb['deadline_misses']}; device retries {rb['device_retries']}; "
+        f"re-prefill {rb['reprefill']['skipped']}/"
+        f"{rb['reprefill']['tokens']} tokens skipped = "
+        f"{rb['reprefill']['skip_rate']:.4f}; launches {launches}; "
+        f"card {CARD}")
+    for p, c in sorted(rb["per_class"].items(), key=lambda kv: -int(kv[0])):
+        log(f"[overload]   class {p}: {c}")
+    # nothing is injected here: a retry or a device_error / nan_logits
+    # failure would be a fault of the path itself
+    check(rb["device_retries"] == 0, "overload: a device step was retried")
+    check(set(reasons) <= OVERLOAD_REASONS,
+          f"overload: failures {dict(reasons)} beyond {OVERLOAD_REASONS}")
+    check(rb["preemptions"] >= 1, "overload: nothing was preempted")
+    # a step that hit BlockPoolExhausted unwound before its device half
+    ran = eng.occupancy_steps - rb["exhaustion_events"]
+    check(launches["hccs_packed_prefill"] == M_LAYERS * ran,
+          f"overload: packed launches {launches['hccs_packed_prefill']} != "
+          f"{M_LAYERS} x {ran} steps that ran")
+    ref = slice_engine(params, cfg)          # the plain FIFO, never preempts
+    ref_tap = LogitTap(ref)
+    for r in specs:
+        ref.submit(Request(uid=r["uid"], prompt=r["prompt"].copy(),
+                           max_new_tokens=r["max_new_tokens"]))
+    alone = {r.uid: list(r.out_tokens) for r in ref.run()}
+    check(not ref.robust_counters.preemptions, "overload: the reference "
+          "preempted")
+    preempted = [r for r in reqs if r.preemptions and r.done]
+    check(len(preempted) >= OVERLOAD_PREEMPTED, f"overload: "
+          f"{len(preempted)} preempted requests finished, fewer than "
+          f"{OVERLOAD_PREEMPTED}")
+    toks = {r.uid: list(r.out_tokens) for r in preempted}
+    prompts = {r.uid: np.asarray(r.prompt) for r in preempted}
+    divergence("overload", toks, {u: alone[u] for u in toks}, prompts,
+               prompts, params, cfg, own=(tap.own, ref_tap.own))
+    return dict(launches=launches, preempted=len(preempted),
+                skip=rb["reprefill"]["skip_rate"])
+
+
+# ------------------------------------------------------------ phase 20 --
+
+CHAOS_BLOCKS = 96
+
+
+def phase_chaos():
+    """ChaosMonkey(seed=0) over the robust engine at full width: 16
+    requests of a system-prefix slice (0-512 tokens) plus a 16-256-token
+    user part, 4-32 new tokens, classes 0-2. The monkey asserts the
+    invariants after every step and a drained pool at the end. The
+    engine's own seams are wrapped inside the monkey's, to count what they
+    raise, and outside, to count the failed device calls: none may fail
+    inside a seam (only the monkey's faults, raised before the seam runs,
+    are retried), the failed calls must equal the engine's device retries,
+    and a device_error or nan_logits failure needs its injected fault."""
+    cfg, params = engine_model()
+    system = session_traffic(cfg)[0]
+    eng = robust_engine(params, cfg, 8, num_blocks=CHAOS_BLOCKS)
+    rng = np.random.default_rng(5)
+
+    def make(i):
+        head = system[:int(rng.integers(0, SYSTEM_LEN // BS + 1)) * BS]
+        user = rng.integers(0, cfg.vocab_size,
+                            int(rng.integers(16, 257))).astype(np.int32)
+        return Request(uid=i, prompt=np.concatenate([head, user]),
+                       max_new_tokens=int(rng.integers(4, 33)),
+                       priority=int(rng.integers(0, 3)))
+    raised = collections.Counter()
+
+    def counted(fn, where):
+        def wrapped(*args):
+            try:
+                return fn(*args)
+            except Exception:
+                raised[where] += 1
+                raise
+        return wrapped
+    seams = ("_step_fn", "_packed_fn", "_packed_spec_fn")
+    for name in seams:
+        setattr(eng, name, counted(getattr(eng, name), "inside"))
+    monkey = ChaosMonkey(eng, seed=0, make_request=make, n_requests=16)
+    for name in seams:
+        setattr(eng, name, counted(getattr(eng, name), "failed calls"))
+    torch.cuda.synchronize()
+    for k in KERNELS + (paged_quant_scatter,):
+        k.launches = 0
+    t0 = time.perf_counter()
+    report = monkey.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches
+                for k in KERNELS + (paged_quant_scatter,)}
+    rb = report["robustness"]
+    every = report["finished"] + report["failed"]
+    check(len(every) == report["submitted"] and all(
+        r.done or (r.failed and r.fail_reason) for r in every),
+        "chaos: a request neither finished nor failed with a reason")
+    reasons = collections.Counter(r.fail_reason for r in report["failed"])
+    log(f"[chaos] {report['steps']} steps in {wall:.3f}s, "
+        f"{report['submitted']} submitted, {len(report['finished'])} "
+        f"finished, failed {dict(reasons)}; faults {report['faults']}; "
+        f"device retries {rb['device_retries']} ({raised['failed calls']} "
+        f"failed device calls, {raised['inside']} raised inside a seam), "
+        f"{rb['preemptions']} "
+        f"preemptions ({rb['exhaustion_events']} exhaustion events), "
+        f"{eng.spec_steps} slot verifies; launches {launches}; invariants "
+        f"held after every step, pool drained; card {CARD}")
+    check(launches["hccs_packed_prefill"] > 0
+          and launches["paged_quant_scatter"] > 0, "chaos: kernels idle")
+    check(not raised["inside"], "chaos: a device seam raised by itself")
+    check(raised["failed calls"] == rb["device_retries"],
+          f"chaos: {raised['failed calls']} failed device calls, "
+          f"{rb['device_retries']} retries counted")
+    fault_of = {"device_error": "device_error", "nan_logits": "nan"}
+    check(set(reasons) <= OVERLOAD_REASONS | set(fault_of) and all(
+        report["faults"].get(fault_of[r]) for r in reasons if r in fault_of),
+        f"chaos: failures {dict(reasons)} beyond the faults injected, "
+        f"{report['faults']}")
+    return dict(launches=launches)
+
+
 def kernel_entry(name, source, replaces, launches, tm, shape,
                  library_ms=None, headers=(), kernels_per_call=None):
     """One kernel of phase 18's line. `launches` counts wrapper calls on
@@ -1945,7 +2582,7 @@ def kernel_entry(name, source, replaces, launches, tm, shape,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default=",".join(str(p) for p in range(1, 19)),
+                    default=",".join(str(p) for p in range(1, 22)),
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -2003,20 +2640,41 @@ def main(argv=None):
     if 17 in phases:
         phase_grid(packed_tokens)
         mark(17)
+    spec = overload = chaos = None
     if 18 in phases:
+        spec = phase_spec()
+        mark(18)
+    if 19 in phases:
+        overload = phase_overload()
+        mark(19)
+    if 20 in phases:
+        chaos = phase_chaos()
+        mark(20)
+    if 21 in phases:
         check(launches and timings and len(decode_timings) == 2
               and len(path_launches) == 2 and {11, 12, 13, 17} <= phases
-              and table3_launches and fold_t and fold_launches,
-              "phase 18 needs phases 3 and 5 to 17")
+              and table3_launches and fold_t and fold_launches and spec
+              and overload and chaos, "phase 21 needs phases 3 and 5 to 20")
+        slice_launches = {
+            "hccs_packed_prefill": dict(
+                spec=spec["packed"],
+                overload=overload["launches"]["hccs_packed_prefill"],
+                chaos=chaos["launches"]["hccs_packed_prefill"]),
+            "paged_quant_scatter": dict(
+                spec_in_step=spec["fold_in_step"],
+                spec_replay=spec["fold_replay"],
+                overload=overload["launches"]["paged_quant_scatter"],
+                chaos=chaos["launches"]["paged_quant_scatter"])}
         tm = dict(timings[max(timings)], max_abs_err=worst)
         geo = f"granite H={H} Hkv={HKV} d={D}"
         split_headers = ("hccs_split.cuh", "hccs_common.cuh")
         log(json.dumps({"kernels": [
-            kernel_entry("hccs_packed_prefill", "hccs_packed.cu",
-                         "src/repro/kernels/decode.py:400", launches, tm,
-                         f"width {max(timings)}, {geo} bs={BS}, f32 pool, "
-                         f"mode wide", headers=split_headers,
-                         kernels_per_call=packed_per_call),
+            dict(kernel_entry("hccs_packed_prefill", "hccs_packed.cu",
+                              "src/repro/kernels/decode.py:400", launches,
+                              tm, f"width {max(timings)}, {geo} bs={BS}, "
+                              f"f32 pool, mode wide", headers=split_headers,
+                              kernels_per_call=packed_per_call),
+                 slice_launches=slice_launches["hccs_packed_prefill"]),
             kernel_entry("hccs_paged_decode", "hccs_paged.cu",
                          "src/repro/kernels/decode.py:316",
                          path_launches["hccs_paged_decode"],
@@ -2049,13 +2707,15 @@ def main(argv=None):
                          kernel_t["hccs_mha_fused"],
                          f"B=1, {geo} T={MAX_LEN}, f32, causal",
                          headers=("hccs_common.cuh",)),
-            kernel_entry("paged_quant_scatter", "kv_quant.cu",
-                         "src/repro/models/attention.py:178",
-                         fold_launches, fold_t,
-                         f"{FOLD_ROWS[-1]} bf16 rows, Hkv={HKV} bs={BS} "
-                         f"d={D}, int8 pool (XLA in the JAX package, no "
-                         f"Pallas kernel)", headers=("hccs_common.cuh",),
-                         kernels_per_call=fold_per_call)]}))
+            dict(kernel_entry("paged_quant_scatter", "kv_quant.cu",
+                              "src/repro/models/attention.py:178",
+                              fold_launches, fold_t,
+                              f"{FOLD_ROWS[-1]} bf16 rows, Hkv={HKV} bs={BS} "
+                              f"d={D}, int8 pool (XLA in the JAX package, "
+                              f"no Pallas kernel)",
+                              headers=("hccs_common.cuh",),
+                              kernels_per_call=fold_per_call),
+                 slice_launches=slice_launches["paged_quant_scatter"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

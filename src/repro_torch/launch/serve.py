@@ -14,8 +14,17 @@ int8 paged KV:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
         --decode-sharing --turns 4 --kv-quant int8
 
+Speculative decoding, and the robustness layer under a seeded chaos run:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
+        --reduced --device cpu --decode-sharing --turns 3 --speculative
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
+        --reduced --device cpu --chaos 0 --priority-classes 3
+
 `--scheduler`, `--step-layout`, `--prefix-sharing`, `--decode-sharing`,
-`--turns` and `--kv-quant` are the JAX launcher's flags: `paged` (the
+`--turns`, `--kv-quant`, `--speculative`, `--draft-len`,
+`--priority-classes`, `--deadline-ms`, `--queue-limit`, `--backpressure`
+and `--chaos` are the JAX launcher's flags, with its guards: `paged` (the
 port's default) is the paged engine, in its packed step layout unless
 `--step-layout lockstep`; `continuous` and `wave` are the slot-arena
 engines. `--decode-kernel fused|static_max` runs attention through the
@@ -67,8 +76,38 @@ def main(argv=None):
                     help="store paged KV blocks as int8 with per-block "
                          "per-kv-head scales (paged scheduler only)")
     ap.add_argument("--speculative", action="store_true",
-                    help="trie-driven speculative decoding (not ported yet: "
-                         "the paged engine refuses it, ROADMAP.md item A6)")
+                    help="trie-driven speculative decoding: draft up to "
+                         "--draft-len tokens per decode step from the prefix "
+                         "trie (n-gram prompt-lookup fallback) and verify "
+                         "them all in ONE packed step; greedy outputs are "
+                         "token-identical (paged scheduler, packed layout)")
+    ap.add_argument("--draft-len", type=int, default=4,
+                    help="max draft tokens per decode step (--speculative)")
+    ap.add_argument("--priority-classes", type=int, default=1, metavar="N",
+                    help="assign requests round-robin to N priority classes "
+                         "(0 = lowest); admission serves the highest class "
+                         "first and the paged engine may PREEMPT a lower "
+                         "class's blocks (continuous/paged scheduler)")
+    ap.add_argument("--deadline-ms", type=float, default=0.0, metavar="T",
+                    help="per-request end-to-end deadline in milliseconds; "
+                         "requests past it fail at the next step boundary "
+                         "with their blocks freed (continuous/paged)")
+    ap.add_argument("--queue-limit", type=int, default=0, metavar="N",
+                    help="bound the admission queue (not running slots) to "
+                         "N requests; overflow is resolved by "
+                         "--backpressure (0 = unbounded; continuous/paged)")
+    ap.add_argument("--backpressure", default="reject",
+                    choices=["reject", "shed-lowest-priority"],
+                    help="bounded-queue overflow policy: 'reject' refuses "
+                         "the incoming request (QueueFull); "
+                         "'shed-lowest-priority' drops the lowest-class "
+                         "newest QUEUED request instead")
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="replace the demo with a seeded fault-injection "
+                         "run (serve/chaos.py): bursts, allocator "
+                         "exhaustion, cancels, preemption storms, device "
+                         "failures, engine invariants asserted after every "
+                         "step, the pool drained at the end (paged only)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the model runs (cpu: plain PyTorch kernels)")
     args = ap.parse_args(argv)
@@ -86,6 +125,30 @@ def main(argv=None):
                          "--scheduler paged")
     if args.turns < 1:
         raise SystemExit(f"--turns must be >= 1, got {args.turns}")
+    if args.speculative and args.step_layout == "lockstep":
+        raise SystemExit("--speculative verifies all drafts in one packed "
+                         "step; drop --step-layout lockstep")
+    if args.priority_classes < 1:
+        raise SystemExit(f"--priority-classes must be >= 1, got "
+                         f"{args.priority_classes}")
+    if args.deadline_ms < 0:
+        raise SystemExit(f"--deadline-ms must be >= 0, got "
+                         f"{args.deadline_ms}")
+    if args.queue_limit < 0:
+        raise SystemExit(f"--queue-limit must be >= 0, got "
+                         f"{args.queue_limit}")
+    robust_on = bool(args.priority_classes > 1 or args.deadline_ms
+                     or args.queue_limit or args.chaos is not None)
+    if robust_on and args.scheduler == "wave":
+        raise SystemExit("--priority-classes/--deadline-ms/--queue-limit/"
+                         "--chaos drive the step-at-a-time admission layer; "
+                         "use --scheduler continuous or paged")
+    if args.chaos is not None and args.scheduler != "paged":
+        raise SystemExit("--chaos injects faults into the paged block pool; "
+                         "use --scheduler paged")
+    if args.chaos is not None and args.turns > 1:
+        raise SystemExit("--chaos drives its own submission schedule; drop "
+                         "--turns")
     packed = args.scheduler == "paged" and args.step_layout != "lockstep"
 
     import numpy as np
@@ -93,8 +156,9 @@ def main(argv=None):
 
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.models import model as M
-    from repro_torch.serve import (ContinuousEngine, PagedEngine, Request,
-                                   ServeEngine)
+    from repro_torch.serve import (AdmissionConfig, ChaosMonkey,
+                                   ContinuousEngine, PagedEngine, QueueFull,
+                                   Request, ServeEngine)
     from repro_torch.serve.engine import kv_cache_byte_stats
 
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
@@ -102,6 +166,12 @@ def main(argv=None):
     params = M.init_params(cfg, seed=0, device=args.device)
     # a session's history grows every turn: the cache must hold all of them
     max_len = args.turns * (args.prompt_len + args.new_tokens) + 1
+    # the robustness layer is opt-in (preemption needs the block pool)
+    admission = None
+    if robust_on:
+        admission = AdmissionConfig(max_queue=args.queue_limit or None,
+                                    backpressure=args.backpressure,
+                                    preemption=(args.scheduler == "paged"))
     if args.scheduler == "paged":
         cfg = cfg.replace(cache_layout="paged",
                           prefix_sharing=args.prefix_sharing,
@@ -112,12 +182,14 @@ def main(argv=None):
                           block_size=args.block_size or None,
                           num_blocks=args.num_blocks or None,
                           speculative=args.speculative,
+                          draft_len=args.draft_len, admission=admission,
                           device=args.device)
     else:
         engine_cls = (ContinuousEngine if args.scheduler == "continuous"
                       else ServeEngine)
+        kw = {} if args.scheduler == "wave" else dict(admission=admission)
         eng = engine_cls(params, cfg, max_batch=args.max_batch,
-                         max_len=max_len, device=args.device)
+                         max_len=max_len, device=args.device, **kw)
     rng = np.random.default_rng(0)
     # single-turn traffic under --prefix-sharing shares a system-prompt-like
     # prefix of ~3/4 of the prompt, rounded down to whole blocks (sharing is
@@ -127,20 +199,58 @@ def main(argv=None):
         bs = args.block_size or cfg.block_size
         shared_len = 3 * args.prompt_len // 4 // bs * bs
     shared = rng.integers(0, cfg.vocab_size, shared_len).astype(np.int32)
+
+    def robust_kw(i):
+        """Request i's robustness fields (none when the layer is off)."""
+        kw = {}
+        if args.priority_classes > 1:
+            kw["priority"] = int(i % args.priority_classes)
+        if args.deadline_ms:
+            kw["deadline_e2e"] = args.deadline_ms / 1000.0
+        return kw
+
     t0 = time.perf_counter()
-    done = []
-    for turn in range(args.turns):
-        for i in range(args.requests):
-            msg = rng.integers(0, cfg.vocab_size,
-                               args.prompt_len - shared_len).astype(np.int32)
-            req = Request(uid=args.requests * turn + i,
-                          prompt=np.concatenate([shared, msg]),
-                          max_new_tokens=args.new_tokens)
-            if args.turns > 1:
-                eng.submit(req, session=f"session-{i}")
-            else:
-                eng.submit(req)
-        done.extend(eng.run())
+    if args.chaos is not None:
+        crng = np.random.default_rng(args.chaos)
+
+        def mk(i):
+            plen = int(crng.integers(4, args.prompt_len + 1))
+            return Request(
+                uid=i, prompt=crng.integers(0, cfg.vocab_size,
+                                            plen).astype(np.int32),
+                max_new_tokens=int(crng.integers(2, args.new_tokens + 1)),
+                **robust_kw(i))
+
+        report = ChaosMonkey(eng, seed=args.chaos, make_request=mk,
+                             n_requests=args.requests).run()
+        done = report["finished"] + report["failed"]
+        faults = ", ".join(f"{k} x{v}"
+                           for k, v in sorted(report["faults"].items()))
+        print(f"chaos(seed={args.chaos}): survived {report['steps']} steps "
+              f"- {report['submitted']} submitted, "
+              f"{len(report['finished'])} finished, "
+              f"{len(report['failed'])} failed; "
+              f"faults: {faults or 'none injected'}")
+        print("invariants held after every step; pool fully reclaimed")
+    else:
+        done = []
+        for turn in range(args.turns):
+            for i in range(args.requests):
+                msg = rng.integers(
+                    0, cfg.vocab_size,
+                    args.prompt_len - shared_len).astype(np.int32)
+                req = Request(uid=args.requests * turn + i,
+                              prompt=np.concatenate([shared, msg]),
+                              max_new_tokens=args.new_tokens,
+                              **robust_kw(i))
+                try:
+                    if args.turns > 1:
+                        eng.submit(req, session=f"session-{i}")
+                    else:
+                        eng.submit(req)
+                except QueueFull:
+                    pass     # counted in robust_counters.rejected below
+            done.extend(eng.run())
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
     dt = time.perf_counter() - t0
@@ -161,6 +271,31 @@ def main(argv=None):
         print(f"step padding: {pad['lanes_valid']}/{pad['lanes_total']} "
               f"token-lanes valid ({100 * pad['efficiency']:.0f}%), "
               f"{pad['pad_lanes_skipped']} lanes skipped by packing")
+    if robust_on:
+        rb = eng.robust_counters.snapshot()
+        dm, rp = rb["deadline_misses"], rb["reprefill"]
+        print(f"robustness: {rb['preemptions']} preemptions "
+              f"({rb['exhaustion_events']} pool-exhaustion reclaims), "
+              f"{rb['shed']} shed, {rb['rejected']} rejected, "
+              f"{rb['cancelled']} cancelled, {dm['total']} deadline misses "
+              f"(ttft {dm['ttft']}, e2e {dm['e2e']}), re-prefill "
+              f"{rp['skipped']}/{rp['tokens']} tokens skipped")
+        if args.priority_classes > 1:
+            for p, c in sorted(rb["per_class"].items(),
+                               key=lambda kv: -int(kv[0])):
+                print(f"  class {p}: {c['submitted']} submitted, "
+                      f"{c['finished']} finished, {c['preempted']} "
+                      f"preempted, {c['deadline_misses']} deadline misses, "
+                      f"{c['shed'] + c['rejected']} shed/rejected")
+    if args.speculative:
+        s = eng.prefix_stats()
+        rate = s["acceptance_rate"]
+        print(f"speculative: {s['tokens_drafted']} drafted, "
+              f"{s['tokens_accepted']} accepted, "
+              f"{s['tokens_rejected']} rejected "
+              f"({'n/a' if rate is None else f'{100 * rate:.0f}%'} "
+              f"acceptance) over {s['spec_steps']} verify steps, "
+              f"{s['spec_rollbacks']} rollbacks")
     if args.prefix_sharing or args.decode_sharing:
         s = eng.prefix_stats()
         print(f"prefix sharing: {s['hits']}/{s['lookups']} hits "

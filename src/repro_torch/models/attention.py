@@ -374,7 +374,10 @@ def apply_attention(p, x, cfg, hccs=None, positions=None, cache=None):
     (T,), x is then a (1, T) ragged token batch and `kv_len` per token (and,
     without the kernel, the grid steering of _packed_attention). int8 pools
     come with `k_scale`/`v_scale` (N, Hkv) and `fresh_blocks`, the blocks
-    whose scales reset to 0 before the fold. New K/V are written into the
+    whose scales reset to 0 before the fold; a speculative verify step adds
+    `draft_rows` (1, T) bool (rows folded with a clamped scale) and
+    `stage_rows` (new_cache then carries the raw rows as f32 `staged_k` /
+    `staged_v` (B, Hkv, T, hd)). New K/V are written into the
     cache IN PLACE before attention reads them; new_cache holds the written
     k/v (and scales). The engine guarantees `write_pos` never targets a
     block with refcount > 1 (copy-on-write runs on the host before the
@@ -409,16 +412,23 @@ def apply_attention(p, x, cfg, hccs=None, positions=None, cache=None):
             if fresh is not None:
                 ks[fresh.long()] = 0.0
                 vs[fresh.long()] = 0.0
+            # a speculative verify step's draft lanes fold with the block's
+            # scale clamped (provisional rows, rewritten after verification)
+            dr = cache.get("draft_rows")
             kc, ks = paged_quant_scatter(cache["k"], ks, k,
-                                         cache["write_pos"])
+                                         cache["write_pos"], draft_rows=dr)
             vc, vs = paged_quant_scatter(cache["v"], vs, v,
-                                         cache["write_pos"])
+                                         cache["write_pos"], draft_rows=dr)
         else:
             kc = _paged_scatter(cache["k"], k, cache["write_pos"])
             vc = _paged_scatter(cache["v"], v, cache["write_pos"])
         new_cache = {"k": kc, "v": vc}
         if ks is not None:
             new_cache.update(k_scale=ks, v_scale=vs)
+        if "stage_rows" in cache:
+            # speculative verify over an int8 pool: hand back this layer's
+            # raw new rows, for the engine's post-verification replay
+            new_cache.update(staged_k=k.float(), staged_v=v.float())
         if "slot_ids" in cache:
             out = _packed_attention(q, kc, vc, cache, cfg, hccs, ks, vs)
             return _project_out(out, p, b, t), new_cache

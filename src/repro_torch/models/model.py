@@ -24,12 +24,11 @@ from repro_torch.models.layers import (DTYPES, apply_norm, embed_tokens,
 
 # per-step keys the paged engine attaches to the cache; forward hands them
 # to every layer (one table, per-layer pools): the packed step's slot ids,
-# its per-slot STE grid steering, and the int8 pool's fresh blocks
+# its per-slot STE grid steering, the int8 pool's fresh blocks, and a
+# speculative verify step's draft rows and row staging
 PAGED_EXTRAS = ("block_table", "write_pos", "kv_len", "slot_ids",
-                "q_pos_grid", "grid_pos", "kv_len_slot", "fresh_blocks")
-# the JAX package's other per-step keys steer speculative verify, not
-# ported yet
-_UNPORTED_EXTRAS = ("stage_rows", "draft_rows")
+                "q_pos_grid", "grid_pos", "kv_len_slot", "fresh_blocks",
+                "stage_rows", "draft_rows")
 
 
 def _check_supported(cfg):
@@ -150,13 +149,11 @@ def forward(weights, hccs, batch, cfg, cache):
     positions and no length). Default positions are length + arange(T).
     Layer i's K/V (and scales) are written into its slices in place.
     Returns (hidden, cache, aux) like the JAX forward (aux is 0: no MoE);
-    the returned cache's length is advanced by T."""
+    the returned cache's length is advanced by T. With `stage_rows` in the
+    cache, the returned layers also hold every layer's raw new rows as f32
+    `staged_k` / `staged_v` (L, B, Hkv, T, hd), in a new dict beside the
+    pools."""
     _check_supported(cfg)
-    unported = [k for k in _UNPORTED_EXTRAS if k in cache]
-    if unported:
-        raise NotImplementedError(
-            f"cache keys {unported} steer speculative verify, not ported "
-            f"yet: ROADMAP.md item A6")
     x = embed_tokens(weights["embed"], batch["tokens"], cfg)
     b, t = x.shape[:2]
     length = cache.get("length")
@@ -167,14 +164,21 @@ def forward(weights, hccs, batch, cfg, cache):
                      + torch.arange(t, device=x.device)[None, :]
                      ).expand(b, t)
     extras = {k: cache[k] for k in PAGED_EXTRAS if k in cache}
+    staged = {"staged_k": [], "staged_v": []}
     for i in range(cfg.num_layers):
         lc = {name: leaf[i] for name, leaf in cache["layers"].items()}
         lc.update(extras)
-        x, _ = blocks.apply_block(_layer(weights["layers"], i), x, cfg,
-                                  {k: v[i] for k, v in hccs.items()} or None,
-                                  lc, length, positions)
+        x, lnew = blocks.apply_block(_layer(weights["layers"], i), x, cfg,
+                                     {k: v[i] for k, v in hccs.items()}
+                                     or None, lc, length, positions)
+        if "stage_rows" in cache:
+            for name, rows in staged.items():
+                rows.append(lnew[name])
     x = apply_norm(weights["final_norm"], x, cfg)
     new_cache = {"layers": cache["layers"]}
+    if "stage_rows" in cache:
+        new_cache["layers"] = dict(cache["layers"], **{
+            name: torch.stack(rows) for name, rows in staged.items()})
     if length is not None:
         new_cache["length"] = length + t
     return x, new_cache, torch.zeros((), device=x.device)

@@ -14,9 +14,13 @@ are discarded on the host and their frontier is frozen, so their writes
 land on the same masked cell. With cfg.decode_kernel on, the decode step's
 attention runs the fused `hccs_decode` kernel over the arena.
 
+With `admission=AdmissionConfig(...)` (serve/admission.py) the queue is
+the bounded priority queue with backpressure, and deadlines are checked at
+step boundaries; the slot arena has no block pool, so there is no
+preemption or graceful exhaustion here.
+
 The device half writes the arena in place (the JAX engine donates it to
-XLA). Not ported yet, and refused: robust admission (deadlines, priority
-queue, backpressure; ROADMAP.md item A5) and serving telemetry (A5).
+XLA). Not ported yet, and refused: serving telemetry (ROADMAP.md item A5).
 """
 from __future__ import annotations
 
@@ -25,6 +29,9 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+from repro_torch.serve.admission import (SERVING_CLOCK, AdmissionQueue,
+                                         QueueFull, RobustnessCounters,
+                                         as_admission)
 from repro_torch.serve.engine import (Request, check_greedy,
                                       check_params_device, refuse,
                                       sample_tokens, validate_prompt,
@@ -51,9 +58,6 @@ class ContinuousEngine:
                 "the slot arena is fp-only (use cache_layout='paged')")
         if telemetry is not None:
             refuse("serving telemetry", "A5")
-        if admission is not None:
-            refuse("robust admission (deadlines, priority queue, "
-                   "backpressure)", "A5")
         check_params_device(params, self.device)
         self.w = params["weights"]
         self.hccs = params["hccs"]
@@ -63,7 +67,20 @@ class ContinuousEngine:
         self.eos_id = eos_id
         self.cache_dtype = cache_dtype
         self.min_bucket = min_bucket
-        self._queue: list[Request] = []
+        # the opt-in robustness layer: bounded priority queue, backpressure
+        # and deadlines; admission=None keeps the plain FIFO list
+        self._adm = as_admission(admission, cfg)
+        self._robust = self._adm is not None
+        if self._robust:
+            self._queue = AdmissionQueue(self._adm)
+        else:
+            self._queue: list[Request] = []
+        self.robust_counters = RobustnessCounters()
+        self._submitted_ts = np.zeros(max_batch, float)
+        # deadlines read the serving clock unless AdmissionConfig pins one
+        self._clock = (self._adm.clock
+                       if self._robust and self._adm.clock is not None
+                       else SERVING_CLOCK)
         self.occupancy_sum = 0.0
         self.occupancy_steps = 0
         warn_decode_kernel_fallback(cfg)
@@ -77,9 +94,58 @@ class ContinuousEngine:
     # ------------------------------------------------------------- queue --
 
     def submit(self, req: Request):
+        """Queue a request (greedy only). With the robustness layer the
+        bounded queue's backpressure policy runs here: "reject" raises
+        QueueFull before any state is touched; "shed-lowest-priority" drops
+        the lowest-class newest queued request (possibly this one, returned
+        marked failed/"shed")."""
         check_greedy(req)
         validate_prompt(req.prompt, self.max_len)
-        self._queue.append(req)
+        if not self._robust:
+            self._queue.append(req)
+            return
+        rc = self.robust_counters
+        rc.klass(req.priority)["submitted"] += 1
+        try:
+            shed = self._queue.push(req, now=self._clock())
+        except QueueFull:
+            rc.rejected += 1
+            rc.klass(req.priority)["rejected"] += 1
+            raise
+        for victim in shed:
+            rc.shed += 1
+            rc.klass(victim.priority)["shed"] += 1
+            victim.failed = True
+            victim.fail_reason = "shed"
+
+    def _expire_deadlines(self, now: float) -> list[Request]:
+        """Deadlines at the step boundary: queued requests past TTFT or E2E
+        expire in place; running slots past E2E are failed and freed (TTFT
+        cannot expire on a slot: the admission prefill samples the first
+        token in the same call)."""
+        rc = self.robust_counters
+        failed = []
+        for req, reason in self._queue.expire(now):
+            if reason == "deadline_ttft":
+                rc.deadline_miss_ttft += 1
+            else:
+                rc.deadline_miss_e2e += 1
+            rc.klass(req.priority)["deadline_misses"] += 1
+            req.failed = True
+            req.fail_reason = reason
+            failed.append(req)
+        for slot in np.flatnonzero(self._live):
+            req = self._slots[slot]
+            age = now - float(self._submitted_ts[slot])
+            if req.deadline_e2e is not None and age > req.deadline_e2e:
+                rc.deadline_miss_e2e += 1
+                rc.klass(req.priority)["deadline_misses"] += 1
+                req.failed = True
+                req.fail_reason = "deadline_e2e"
+                self._slots[slot] = None
+                self._live[slot] = False
+                failed.append(req)
+        return failed
 
     def _bucket(self, plen: int) -> int:
         b = self.min_bucket
@@ -92,6 +158,8 @@ class ContinuousEngine:
     def _finish(self, slot: int) -> Request:
         req = self._slots[slot]
         req.done = True
+        if self._robust:
+            self.robust_counters.klass(req.priority)["finished"] += 1
         self._slots[slot] = None
         self._live[slot] = False
         return req
@@ -121,7 +189,13 @@ class ContinuousEngine:
         finished = []
         while self._queue and not self._live.all():
             slot = int(np.argmin(self._live))          # first free slot
-            req = self._queue.pop(0)
+            if self._robust:
+                entry = self._queue.pop_head()
+                req = entry.req
+                self._submitted_ts[slot] = entry.submit_ts
+                self.robust_counters.klass(req.priority)["admitted"] += 1
+            else:
+                req = self._queue.pop(0)
             plen = len(req.prompt)
             toks = np.zeros((1, self._bucket(plen)), np.int32)
             toks[0, :plen] = req.prompt
@@ -176,8 +250,12 @@ class ContinuousEngine:
 
     def step(self) -> list[Request]:
         """Admit from the queue and run ONE batched decode step; returns
-        newly finished requests (a no-op when the engine is idle)."""
-        finished = self._admit()
+        newly finished requests, in robust mode also those that missed a
+        deadline (a no-op when the engine is idle)."""
+        finished = []
+        if self._robust:
+            finished.extend(self._expire_deadlines(self._clock()))
+        finished.extend(self._admit())
         if self._live.any():
             finished.extend(self._step())
         return finished

@@ -30,16 +30,25 @@ from repro_torch.models.attention import decode_kernel_blockers
 
 @dataclasses.dataclass
 class Request:
-    """One serving request: `done` is set when it completes; `failed` is
-    the other terminal state (a cancelled turn, reason in `fail_reason`)."""
+    """One serving request. `done` means completed; `failed` is the other
+    terminal state (shed, deadline miss, cancel, device error or NaN
+    logits; reason in `fail_reason`). The robustness fields
+    (serve/admission.py) only act under an engine's `admission=`: a
+    priority class (higher admits, and evicts, first), deadlines in seconds
+    from submit, and the count of times the request was preempted (it then
+    re-queues with `out_tokens` as resume state)."""
     uid: int
     prompt: np.ndarray            # (t,) int32
     max_new_tokens: int = 32
     temperature: float = 0.0
     out_tokens: list = dataclasses.field(default_factory=list)
     done: bool = False
+    priority: int = 0
+    deadline_ttft: float | None = None   # seconds, submit -> first token
+    deadline_e2e: float | None = None    # seconds, submit -> finish
     failed: bool = False
     fail_reason: str | None = None
+    preemptions: int = 0
 
 
 def kv_cache_bytes(cache) -> int:

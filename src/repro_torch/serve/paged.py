@@ -48,15 +48,39 @@ as they fill at the decode frontier too, and SESSIONS (submit(req,
 session=)) prepend a session's stored history to each turn's prompt, so a
 follow-up turn prefix-matches the whole prior conversation.
 
-The host half (allocator, trie, scheduler, lane packing, write targets) is
-the JAX package's numpy code, copied; the device half replaces the jitted
-step with donated pools by in-place writes into the preallocated pool
-tensors.
+SPECULATIVE DECODING (speculative=True, packed steps only): every decoding
+slot drafts up to draft_len tokens, continuing its sequence along the
+prefix trie (PrefixTrie.extend_path) and topping up from an n-gram prompt
+lookup over its own tokens (ngram_propose). The drafts ride the packed step
+as extra lanes of the slot (1 + drafts verify lanes); each verify lane's
+greedy token is exactly what a never-drafted engine samples at that
+position, so the longest matching draft prefix plus the model's own token
+at the first mismatch are emitted. Rollback leaves no trace: draft-only
+block allocations are freed in reverse allocation order (the free list is
+restored exactly); fp pools need nothing (rejected rows lie past the
+frontier); int8 pools restore a pre-step snapshot of the drafting slots'
+blocks and re-fold only the committed rows (_restore_and_replay), because
+draft rows fold with a clamped scale.
+
+OVERLOAD ROBUSTNESS (admission=AdmissionConfig(...), serve/admission.py):
+a bounded priority queue with backpressure, deadlines checked at step
+boundaries, preemption by block reclaim (a lower-class victim's blocks are
+freed and it re-queues with its generated tokens as resume state, its
+re-prefill mostly skipped through the trie), and graceful exhaustion: a
+step's allocations are journaled, so a BlockPoolExhausted mid-phase is
+unwound exactly and a victim preempted instead. The device half of every
+step goes through _call_device, which retries in robust mode; its three
+seams (_step_fn, _packed_fn, _packed_spec_fn) are what the chaos harness
+(serve/chaos.py) wraps.
+
+The host half (allocator, trie, scheduler, lane packing, write targets,
+admission) is the JAX package's numpy code, copied; the device half
+replaces the jitted step with donated pools by in-place writes into the
+preallocated pool tensors.
 
 Not ported yet, and refused when switched on (NotImplementedError naming
-the ROADMAP.md item): speculative decoding (A6), the async loop (A6),
-telemetry and robust admission/preemption with its journal (A5, A6), and
-temperature sampling (A5).
+the ROADMAP.md item): the async loop (A6), telemetry (A5) and temperature
+sampling (A5).
 """
 from __future__ import annotations
 
@@ -64,8 +88,12 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.kv_quant import paged_quant_scatter
 from repro_torch.models import model as M
 from repro_torch.models.attention import kernel_on
+from repro_torch.serve.admission import (SERVING_CLOCK, AdmissionQueue,
+                                         QueueFull, RobustnessCounters,
+                                         as_admission, choose_victim)
 from repro_torch.serve.engine import (Request, check_greedy,
                                       check_params_device, refuse,
                                       sample_tokens, validate_prompt,
@@ -77,6 +105,11 @@ TRASH_BLOCK = 0
 class BlockPoolExhausted(RuntimeError):
     """Raised by BlockAllocator.alloc when the free list is empty — before
     any table entry or pool block is touched, so engine state stays valid."""
+
+
+class DeviceStepFailed(RuntimeError):
+    """A step's device half failed past max_device_retries, every attempt
+    before its seam began (so the pools are untouched)."""
 
 
 class BlockAllocator:
@@ -364,8 +397,9 @@ def schedule_step_tokens(live, remaining, budget: int,
     budget >= live.sum().
 
     drafts ((B,) int, speculative decoding): proposed draft-token counts per
-    DECODE slot; leftover budget is dealt to decode slots' draft lanes FIRST,
-    in slot order, still at most chunk_cap lanes per slot."""
+    DECODE slot; leftover budget is dealt to decode slots' draft lanes FIRST
+    (a verified draft advances a whole token, a prefill lane only a prompt
+    position), in slot order, still at most chunk_cap lanes per slot."""
     live = np.asarray(live, bool)
     remaining = np.asarray(remaining, np.int64)
     cap = int(chunk_cap) if chunk_cap else int(budget)
@@ -390,6 +424,70 @@ def schedule_step_tokens(live, remaining, budget: int,
         if not left:
             break
     return t_valid
+
+
+def ngram_propose(seq, k: int, max_n: int = 3) -> list[int]:
+    """Prompt-lookup drafting fallback: find the longest n-gram suffix of
+    `seq` (n = max_n down to 1) that occurred EARLIER in seq, and propose
+    the k tokens that followed its most recent earlier occurrence.
+    Vectorized numpy (it runs per decoding slot per step). Returns [] when
+    no suffix repeats: drafting is best-effort, verification catches
+    everything."""
+    seq = np.asarray(seq, np.int32)
+    n_tot = len(seq)
+    for n in range(min(max_n, n_tot - 1), 0, -1):
+        suffix = seq[n_tot - n:]
+        # all length-n windows at once; candidate starts exclude the suffix
+        # itself (the window at n_tot - n), the most recent earlier one wins
+        win = np.lib.stride_tricks.sliding_window_view(seq, n)
+        hits = np.flatnonzero((win[:-1] == suffix).all(axis=1))
+        if len(hits):
+            s = int(hits[-1])
+            # s + n <= n_tot - 1, so the follow run is never empty
+            return [int(x) for x in seq[s + n:s + n + k]]
+    return []
+
+
+def _gather_block_state(layers, blocks):
+    """A COPY of `blocks` (S,) across all layers, int8 payload and scales,
+    taken before a speculative verify step's forward writes the pools in
+    place (and before its fresh-block reset and draft folds), so the
+    post-verification rewrite can restore them (_restore_and_replay)."""
+    return {name: layers[name][:, blocks].clone()
+            for name in ("k", "v", "k_scale", "v_scale")}
+
+
+def _restore_and_replay(layers, snap, blocks, fresh_mask, staged_k,
+                        staged_v, replay_pos):
+    """Post-verification int8 rewrite, run after EVERY speculative verify
+    step, in place: restore the snapshot of every block the drafting slots'
+    rows touched (the in-step folds were scratch: draft lanes clamped the
+    scale, and a committed lane's growth cannot be undone in place),
+    re-zero the scales of snapshot blocks allocated this step that stay
+    live (the replay must see the zeroed scale a real step sees; freed
+    draft blocks keep their restored stale state, as a never-drafted run
+    leaves a never-allocated block), then re-fold ONLY the committed rows
+    from the staged raw KV with the fold kernel, one call per layer and
+    pool, rejected lanes steered into the trash block. Block bytes are a
+    pure function of (rows, order), so the pool ends bit-identical to a
+    step that never drafted.
+
+    layers: the per-layer pool dict; snap: _gather_block_state's copy;
+    blocks: (S,) int64, padded with TRASH_BLOCK duplicates; fresh_mask: (S,)
+    bool; staged_k/staged_v: (L, 1, Hkv, W, hd) f32; replay_pos: (1, W)
+    int32."""
+    for name, staged in (("k", staged_k), ("v", staged_v)):
+        pool, sc = layers[name], layers[name + "_scale"]
+        # the padding duplicates are all the trash block, gathered from one
+        # state with fresh_mask False, so their values are identical and the
+        # order of a duplicate-index write does not matter
+        pool[:, blocks] = snap[name]
+        sc[:, blocks] = torch.where(fresh_mask[None, :, None], 0.0,
+                                    snap[name + "_scale"])
+        for layer in range(pool.shape[0]):
+            paged_quant_scatter(pool[layer], sc[layer], staged[layer],
+                                replay_pos)
+    return layers
 
 
 def pack_slot_ids(t_valid, width: int):
@@ -473,10 +571,11 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, max_batch: int,
 
 
 class PagedEngine:
-    """Greedy, synchronous paged engine, packed or lockstep steps. The
-    constructor takes the JAX engine's arguments; those selecting paths not
-    ported yet raise NotImplementedError (see the module docstring).
-    `decode_steps` counts the lockstep layout's (B, 1) decode steps."""
+    """Greedy, synchronous paged engine, packed or lockstep steps, with
+    speculative decoding and the robustness layer. The constructor takes
+    the JAX engine's arguments; those selecting paths not ported yet raise
+    NotImplementedError (see the module docstring). `decode_steps` counts
+    the lockstep layout's (B, 1) decode steps."""
 
     def __init__(self, params, cfg, *, max_batch: int = 8,
                  max_len: int = 512, eos_id: int | None = None,
@@ -499,15 +598,10 @@ class PagedEngine:
             raise ValueError(
                 f"paged KV needs attention-only blocks; {cfg.family} carries "
                 "per-slot SSM state that a block pool cannot page")
-        if speculative if speculative is not None else cfg.speculative:
-            refuse("speculative decoding", "A6")
         if async_loop if async_loop is not None else cfg.async_loop:
             refuse("the pipelined async loop", "A6")
         if telemetry is not None:
             refuse("serving telemetry", "A5")
-        if (admission is not None or cfg.queue_limit or cfg.preemption
-                or cfg.backpressure != "reject"):
-            refuse("robust admission and preemption", "A5/A6")
         self.packed = True if packed is None else bool(packed)
         check_params_device(params, self.device)
         warn_decode_kernel_fallback(cfg)
@@ -539,7 +633,21 @@ class PagedEngine:
                              self._nblk_per_seq + 2)
         self.num_blocks = int(num_blocks)
         self.alloc = BlockAllocator(self.num_blocks)
-        self._queue: list[Request] = []
+        # the opt-in robustness layer (serve/admission.py): admission=None
+        # with an all-default cfg keeps the unbounded FIFO list and the
+        # fail-fast exhaustion path
+        self._adm = as_admission(admission, cfg)
+        self._robust = self._adm is not None
+        if self._robust:
+            self._queue = AdmissionQueue(self._adm)
+        else:
+            self._queue: list[Request] = []
+        self.robust_counters = RobustnessCounters()
+        self._admit_counter = 0              # monotone admission order
+        # deadlines read the serving clock unless AdmissionConfig pins one
+        self._clock = (self._adm.clock
+                       if self._robust and self._adm.clock is not None
+                       else SERVING_CLOCK)
         self.occupancy_sum = 0.0
         self.occupancy_steps = 0
         # the default budget is one lockstep chunk step's lane count
@@ -563,12 +671,46 @@ class PagedEngine:
                                max(budget // 2, max_batch), budget})
         # per-slot chunks are capped at 4 blocks (the JAX engine's cap)
         self._chunk_cap = min(4 * bs, budget)
+        # speculative decoding: decode slots draft up to draft_len tokens a
+        # step, verified in one packed step
+        self.speculative = bool(cfg.speculative if speculative is None
+                                else speculative)
+        self.draft_len = int(cfg.draft_len if draft_len is None
+                             else draft_len)
+        if self.draft_len < 1:
+            raise ValueError(
+                f"draft_len must be >= 1, got {self.draft_len}")
+        if self.speculative and not self.packed:
+            raise ValueError(
+                "speculative decoding verifies all drafts in one packed "
+                "step; it requires packed=True (the lockstep layout has no "
+                "multi-token decode lanes)")
+        if self.speculative:
+            # verify lanes ride on a pure-decode step's max_batch lanes: a
+            # 2 * max_batch rung keeps a lightly drafting step from jumping
+            # to budget // 4 lanes
+            self._widths = sorted(set(self._widths)
+                                  | {min(2 * max_batch, budget)})
+        # acceptance counters (prefix_stats): drafted = accepted + rejected
+        self.spec_steps = 0
+        self.spec_rollbacks = 0
+        self.drafted_tokens = 0
+        self.accepted_tokens = 0
+        self.rejected_tokens = 0
+        # int8 rollback snapshot cap: each drafting slot's verify rows span
+        # at most ceil((1 + draft_len) / bs) + 1 boundary-straddling blocks
+        self._snap_cap = max_batch * ((self.draft_len + 1) // bs + 2)
         # attention-grid width ladder of the packed step without the kernel:
-        # 1 for pure decode, block_size multiples up to the chunk cap
+        # 1 for pure decode, block_size multiples up to the chunk cap, and
+        # with speculative decoding a 1 + draft_len rung for verify rows
         self._grid_widths = [1] + [k * bs for k in
                                    range(1, self._chunk_cap // bs + 1)]
         if self._grid_widths[-1] < self._chunk_cap:
             self._grid_widths.append(self._chunk_cap)
+        if self.speculative:
+            self._grid_widths = sorted(set(self._grid_widths)
+                                       | {min(1 + self.draft_len,
+                                              self._chunk_cap)})
         # the grid steering rides the step only when the kernel is off
         self._use_grid = not kernel_on(cfg, params["hccs"] or None)
         # token-lane telemetry (padding_stats)
@@ -617,13 +759,28 @@ class PagedEngine:
         self._tables = np.full((max_batch, self._nblk_per_seq), -1, np.int32)
         self._resv = np.zeros(max_batch, np.int64)   # admission reservations
         self._slots: list[Request | None] = [None] * max_batch
+        # the FEED is what prefill must cover: req.prompt on a first
+        # admission, prompt + out_tokens for a request resuming after
+        # preemption; every per-step check runs against the feed
         self._feeds: list[np.ndarray | None] = [None] * max_batch
         self._live = np.zeros(max_batch, bool)
         self._lengths = np.zeros(max_batch, np.int32)
         self._prompt_pos = np.zeros(max_batch, np.int32)  # feed tokens fed
         self._last = np.zeros(max_batch, np.int32)        # next token to feed
+        # robustness per-slot metadata: victim policy keys + deadline clocks
+        self._prio = np.zeros(max_batch, np.int64)
+        self._admit_seq = np.zeros(max_batch, np.int64)
+        self._qseq = np.zeros(max_batch, np.int64)   # queue seq (for requeue)
+        self._submitted_ts = np.zeros(max_batch, float)
         self._cache = init_paged_cache(cfg, self.num_blocks, bs, max_batch,
                                        cache_dtype, self.device)
+        # the device half of each step, one seam per step kind: each takes
+        # the step's device inputs, writes the pools in place and returns
+        # (logits, cache). The chaos harness wraps these attributes.
+        self._step_fn = self._lockstep_forward
+        self._packed_fn = self._packed_forward
+        self._packed_spec_fn = self._packed_spec_forward
+        self._device_entered = False     # set by a seam as it starts
 
     # ------------------------------------------------------------- queue --
 
@@ -637,7 +794,13 @@ class PagedEngine:
         req.prompt, so admission prefix-matches the whole prior
         conversation; with sharing off that degenerates to re-feeding the
         history (same outputs, full cost). A session admits one turn at a
-        time."""
+        time.
+
+        With the robustness layer, submission runs the bounded queue's
+        backpressure policy: "reject" raises QueueFull before ANY engine or
+        session state is touched; "shed-lowest-priority" drops the
+        lowest-class newest queued request, possibly this one, which then
+        returns marked failed/"shed" instead of queued."""
         check_greedy(req)
         prompt = req.prompt
         followup = False
@@ -658,12 +821,28 @@ class PagedEngine:
                 f"{self.num_blocks - 1} usable")
         # every check passed: commit the concatenation and the bookkeeping
         req.prompt = prompt
+        if self._robust:
+            rc = self.robust_counters
+            rc.klass(req.priority)["submitted"] += 1
+            try:
+                shed = self._queue.push(req, now=self._clock())
+            except QueueFull:
+                rc.rejected += 1
+                rc.klass(req.priority)["rejected"] += 1
+                raise
+            for victim in shed:
+                rc.shed += 1
+                rc.klass(victim.priority)["shed"] += 1
+                self._drop_request(victim, "shed")
+            if req.failed:
+                return                   # shed on arrival: nothing enqueued
         if session is not None:
             self._session_busy.add(session)
             self._req_session[id(req)] = session
             if followup:
                 self._followups.add(id(req))
-        self._queue.append(req)
+        if not self._robust:
+            self._queue.append(req)
 
     def session_history(self, session):
         """Full token history (prompt + generated, every finished turn) of a
@@ -687,14 +866,18 @@ class PagedEngine:
         self._sessions.pop(session, None)
 
     def cancel(self, uid) -> bool:
-        """Cancel a queued or running request by uid: it is marked failed
-        with reason "cancelled", its blocks are freed refcount-aware, and its
-        session turn, if any, is aborted with no history written. Returns
-        False when no queued or running request has this uid."""
-        req = next((r for r in self._queue if r.uid == uid), None)
-        if req is not None:
-            self._queue.remove(req)
+        """Cancel a queued or running request by uid, with or without the
+        robustness layer: it is marked failed with reason "cancelled", its
+        blocks are freed refcount-aware, and its session turn, if any, is
+        aborted with no history written. Returns False when no queued or
+        running request has this uid."""
+        if self._robust:
+            req = self._queue.remove(uid)
         else:
+            req = next((r for r in self._queue if r.uid == uid), None)
+            if req is not None:
+                self._queue.remove(req)
+        if req is None:
             for slot in np.flatnonzero(self._live):
                 if self._slots[slot].uid == uid:
                     req = self._slots[slot]
@@ -703,6 +886,9 @@ class PagedEngine:
         if req is None:
             return False
         self._drop_request(req, "cancelled")
+        self.robust_counters.cancelled += 1
+        if self._robust:
+            self.robust_counters.klass(req.priority)["cancelled"] += 1
         return True
 
     def _admit(self):
@@ -710,16 +896,32 @@ class PagedEngine:
         covering the request's worst case (deadlock-free: admitted requests
         can always grow to their budget).
 
-        With prefix sharing, the longest run of full-block prompt chunks
-        already in the trie is forked into the new slot's table and prefill
-        starts at the first unmatched token; the reservation shrinks by the
-        matched blocks and grows by one when the WHOLE prompt matched (the
-        re-fed last token writes inside a shared block, whose COW copy needs
-        a block). Index-only cached blocks are evicted on demand when the
-        gate would otherwise stall."""
+        With prefix sharing, the longest run of full-block chunks of the
+        feed already in the trie is forked into the new slot's table and
+        prefill starts at the first unmatched token; the reservation shrinks
+        by the matched blocks and grows by one when the WHOLE feed matched
+        (the re-fed last token writes inside a shared block, whose COW copy
+        needs a block). Index-only cached blocks are evicted on demand when
+        the gate would otherwise stall.
+
+        With the robustness layer the queue head is the highest class, and
+        a stalled gate can PREEMPT: a live victim of a strictly lower class
+        (the lowest class, most recently admitted) is released and
+        re-queued with its generated tokens as resume state, then the gate
+        re-evaluates with the reclaimed blocks."""
         while self._queue and not self._live.all():
-            req = self._queue[0]
-            feed = np.asarray(req.prompt, np.int32)
+            entry = None
+            if self._robust:
+                entry = self._queue.head_entry()
+                req = entry.req
+            else:
+                req = self._queue[0]
+            # a preempted request resumes by re-feeding every token it
+            # generated (the trie skips what stayed cached); need is the
+            # same: len(prompt) + max_new = len(feed) + the remaining budget
+            feed = (np.concatenate([np.asarray(req.prompt, np.int32),
+                                    np.asarray(req.out_tokens, np.int32)])
+                    if req.out_tokens else np.asarray(req.prompt, np.int32))
             matched = (self._match_prefix(feed)
                        if self.prefix_sharing else [])
             start = min(len(matched) * self.block_size, len(feed) - 1)
@@ -733,8 +935,18 @@ class PagedEngine:
                    and self._evict_one(protect)):
                 pass
             if self.alloc.num_free - resv_other < need:
+                if self._robust and self._adm.preemption:
+                    victim = choose_victim(
+                        np.flatnonzero(self._live), self._prio,
+                        self._admit_seq, below=int(req.priority))
+                    if victim is not None:
+                        self._preempt_slot(int(victim))
+                        continue             # gate re-evaluates, pool grew
                 break                        # wait for EOS to free blocks
-            self._queue.pop(0)
+            if self._robust:
+                self._queue.pop_head()
+            else:
+                self._queue.pop(0)
             slot = int(np.argmin(self._live))
             origins = [self.trie.origin(key) for key, _ in matched]
             for j, (key, blk) in enumerate(matched):
@@ -749,7 +961,7 @@ class PagedEngine:
             self.prefill_tokens_total += len(feed)
             self.prefill_tokens_skipped += start
             # the skip split by matched-block origin (the last matched block
-            # gives < block_size when the whole prompt matched)
+            # gives < block_size when the whole feed matched)
             bs = self.block_size
             for j, o in enumerate(origins):
                 skipped = max(min(bs, start - j * bs), 0)
@@ -760,6 +972,17 @@ class PagedEngine:
             if id(req) in self._followups:
                 self.followup_prefill_tokens += len(feed)
                 self.followup_tokens_skipped += start
+            if self._robust:
+                rc = self.robust_counters
+                rc.klass(req.priority)["admitted"] += 1
+                if req.out_tokens:           # resumed after preemption
+                    rc.reprefill_tokens += len(feed)
+                    rc.reprefill_skipped += start
+                self._prio[slot] = int(req.priority)
+                self._qseq[slot] = entry.seq
+                self._submitted_ts[slot] = entry.submit_ts
+                self._admit_seq[slot] = self._admit_counter
+                self._admit_counter += 1
             self._slots[slot] = req
             self._feeds[slot] = feed
             self._live[slot] = True
@@ -821,12 +1044,14 @@ class PagedEngine:
             self._evict_one()
         return self.alloc.alloc()
 
-    def _cow_shared(self, t_valid: np.ndarray):
+    def _cow_shared(self, t_valid: np.ndarray, journal: list | None = None):
         """Copy-on-write: a slot only writes into blocks of refcount 1. A
         shared block in this step's write range [length, length + t_valid)
         is copied to a new block first (across all layers, scales too), the
         table entry is swapped and the writer's reference on the original
-        dropped."""
+        dropped. With `journal`, each copy records ("cow", slot, j, old,
+        new, resv_dec) after the swap, so _unwind_allocs can re-fork the
+        source and return the copy on a mid-phase BlockPoolExhausted."""
         bs = self.block_size
         for slot in np.flatnonzero(t_valid > 0):
             lo = int(self._lengths[slot])
@@ -836,11 +1061,15 @@ class PagedEngine:
                 if self.alloc.ref(blk) <= 1:
                     continue
                 new = self._alloc_block()
+                resv_dec = self._resv[slot] > 0
                 self._resv[slot] = max(self._resv[slot] - 1, 0)
                 _copy_block_kv(self._cache["layers"], blk, new)
                 self.alloc.free([blk])       # drop this slot's reference
                 self._tables[slot, j] = new
                 self.cow_copies += 1
+                if journal is not None:
+                    journal.append(("cow", slot, j, blk, new,
+                                    bool(resv_dec)))
 
     def clear_prefix_cache(self):
         """Drop every index reference; blocks with no live holder return to
@@ -852,13 +1081,22 @@ class PagedEngine:
         self._reg_parent[:] = -1
 
     def prefix_stats(self) -> dict:
-        """Cumulative prefix-sharing telemetry, the JAX engine's keys less
-        the speculative ones. prefill_tokens counts every admitted prompt
-        token (the skip-rate denominator); the hit and skip counters are
-        split by matched-block origin (prompt / decode); followup_* restrict
-        the token counters to session follow-up turns."""
+        """Cumulative prefix-sharing and speculative telemetry, the JAX
+        engine's keys. prefill_tokens counts every admitted prompt token
+        (the skip-rate denominator); the hit and skip counters are split by
+        matched-block origin (prompt / decode); followup_* restrict the
+        token counters to session follow-up turns. The spec_* and *_tokens
+        draft counters cover speculative decoding (drafted = accepted +
+        rejected; acceptance_rate is None until something was drafted)."""
         cached = self.trie.origin_counts()
         return dict(
+            spec_steps=self.spec_steps,
+            spec_rollbacks=self.spec_rollbacks,
+            tokens_drafted=self.drafted_tokens,
+            tokens_accepted=self.accepted_tokens,
+            tokens_rejected=self.rejected_tokens,
+            acceptance_rate=(self.accepted_tokens / self.drafted_tokens
+                             if self.drafted_tokens else None),
             lookups=self.prefix_lookups, hits=self.prefix_hits,
             hit_rate=self.prefix_hits / max(self.prefix_lookups, 1),
             prompt_hits=self.prompt_hits, decode_hits=self.decode_hits,
@@ -890,7 +1128,8 @@ class PagedEngine:
     # ------------------------------------------------------------- slots --
 
     def _release_slot(self, slot: int):
-        """Free a slot's block references and reset its host state. Blocks
+        """Free a slot's block references and reset its host state, the
+        common core of finish, preemption, cancellation and failure. Blocks
         also referenced by the trie or other slots stay cached."""
         row = self._tables[slot]
         self.alloc.free(row[row >= 0])
@@ -915,12 +1154,32 @@ class PagedEngine:
                  np.asarray(req.out_tokens, np.int32)])
             self._session_busy.discard(session)
         self._followups.discard(id(req))
+        if self._robust:
+            self.robust_counters.klass(req.priority)["finished"] += 1
         self._release_slot(slot)
         return req
 
+    def _preempt_slot(self, slot: int) -> Request:
+        """Preemption by block reclaim: free the slot's block references and
+        re-queue the request with its generated tokens as resume state,
+        keeping its ORIGINAL queue seq and deadline clock. Re-admission
+        re-prefills prompt + out_tokens (mostly skipped through the trie
+        when sharing is on), so the output equals a never-preempted run's."""
+        req = self._slots[slot]
+        seq = int(self._qseq[slot])
+        ts = float(self._submitted_ts[slot])
+        self._release_slot(slot)
+        req.preemptions += 1
+        rc = self.robust_counters
+        rc.preemptions += 1
+        rc.klass(req.priority)["preempted"] += 1
+        self._queue.requeue(req, seq=seq, submit_ts=ts)
+        return req
+
     def _drop_request(self, req: Request, reason: str) -> Request:
-        """A request ends without completing: its session turn is aborted
-        with no history written, and the session is reusable at once."""
+        """A request ends without completing (shed, deadline, cancel, device
+        error, NaN logits): its session turn is aborted with no history
+        written, and the session is reusable at once."""
         req.failed = True
         req.fail_reason = reason
         session = self._req_session.pop(id(req), None)
@@ -929,10 +1188,53 @@ class PagedEngine:
         self._followups.discard(id(req))
         return req
 
-    def _grow_tables(self, t_valid: np.ndarray):
+    def _fail_slot(self, slot: int, reason: str) -> Request:
+        req = self._slots[slot]
+        self._release_slot(slot)
+        return self._drop_request(req, reason)
+
+    def _count_deadline(self, req: Request, reason: str):
+        rc = self.robust_counters
+        if reason == "deadline_ttft":
+            rc.deadline_miss_ttft += 1
+        else:
+            rc.deadline_miss_e2e += 1
+        rc.klass(req.priority)["deadline_misses"] += 1
+
+    def _expire_deadlines(self, now: float) -> list[Request]:
+        """Deadlines at the step boundary: queued requests past TTFT/E2E
+        expire in place (AdmissionQueue.expire); running ones are failed and
+        their blocks freed. Misses count per class."""
+        failed = []
+        for req, reason in self._queue.expire(now):
+            self._count_deadline(req, reason)
+            failed.append(self._drop_request(req, reason))
+        for slot in np.flatnonzero(self._live):
+            req = self._slots[slot]
+            age = now - float(self._submitted_ts[slot])
+            if (req.deadline_ttft is not None and not req.out_tokens
+                    and age > req.deadline_ttft):
+                self._count_deadline(req, "deadline_ttft")
+                failed.append(self._fail_slot(int(slot), "deadline_ttft"))
+            elif req.deadline_e2e is not None and age > req.deadline_e2e:
+                self._count_deadline(req, "deadline_e2e")
+                failed.append(self._fail_slot(int(slot), "deadline_e2e"))
+        return failed
+
+    def _grow_tables(self, t_valid: np.ndarray, journal: list | None = None):
         """Alloc-on-frontier-crossing: extend each slot's table to cover
         lengths + t_valid before the step writes there. On int8 pools each
-        new block is listed FRESH (_take_fresh)."""
+        new block is listed FRESH (_take_fresh).
+
+        Returns the allocations [(slot, table index, block, reservation
+        decremented), ...] in allocation order: a speculative step grows in
+        two phases (committed coverage, then draft lanes) and frees the
+        second phase's list in REVERSE on rejection, which restores the free
+        list and the reservations exactly. With `journal`, each allocation
+        is also appended there as ("alloc", slot, j, block, resv_dec), so a
+        mid-phase BlockPoolExhausted unwinds exactly (_unwind_allocs): the
+        allocator raises before mutating."""
+        allocs = []
         for slot in np.flatnonzero(t_valid > 0):
             needed = -(-int(self._lengths[slot] + t_valid[slot])
                        // self.block_size)
@@ -942,7 +1244,39 @@ class PagedEngine:
                 row[j] = self._alloc_block()
                 if self.quantized:
                     self._fresh.append(int(row[j]))
+                resv_dec = self._resv[slot] > 0
                 self._resv[slot] = max(self._resv[slot] - 1, 0)
+                allocs.append((slot, j, int(row[j]), bool(resv_dec)))
+                if journal is not None:
+                    journal.append(("alloc", slot, j, int(row[j]),
+                                    bool(resv_dec)))
+        return allocs
+
+    def _unwind_allocs(self, journal: list):
+        """Roll a failed alloc/COW phase back in REVERSE journal order:
+        allocator, tables, reservations and the fresh-block list return to
+        their pre-phase state (the free list byte-identically: frees append
+        in the reverse of the pops). A COW whose source block was evicted
+        later in the same phase cannot re-fork it; the slot keeps its
+        private copy, valid though no longer shared."""
+        for op in reversed(journal):
+            if op[0] == "alloc":
+                _, slot, j, blk, resv_dec = op
+                if self.quantized and self._fresh and self._fresh[-1] == blk:
+                    self._fresh.pop()
+                self.alloc.free([blk])
+                self._tables[slot, j] = -1
+                if resv_dec:
+                    self._resv[slot] += 1
+            else:                            # ("cow", slot, j, old, new, dec)
+                _, slot, j, old, new, resv_dec = op
+                if self.alloc.ref(old):
+                    self.alloc.fork(old)
+                    self.alloc.free([new])
+                    self._tables[slot, j] = old
+                    self.cow_copies -= 1
+                if resv_dec:
+                    self._resv[slot] += 1
 
     def _take_fresh(self) -> np.ndarray:
         """Drain the fresh-block list into the step's array, padded to its
@@ -956,17 +1290,69 @@ class PagedEngine:
         self._fresh.clear()
         return out
 
-    def _alloc_and_cow(self, t_valid: np.ndarray):
-        self._grow_tables(t_valid)
-        if self.prefix_sharing:
-            self._cow_shared(t_valid)
+    def _propose_drafts(self, live, remaining) -> dict[int, list[int]]:
+        """Draft tokens for every DECODING slot (remaining == 0): continue
+        the slot's sequence (prompt + output) along the prefix trie
+        (extend_path), topping up from the n-gram prompt lookup over its own
+        tokens when the trie path runs dry. At most draft_len tokens, never
+        past the request budget's LAST token (its KV is never written),
+        never past cache-full, within the chunk cap; drafts after a draft
+        EOS are dropped (the EOS itself stays). Returns {slot: drafts} with
+        only non-empty entries."""
+        drafts: dict[int, list[int]] = {}
+        for slot in np.flatnonzero(np.asarray(live)
+                                   & (np.asarray(remaining) == 0)):
+            req = self._slots[slot]
+            k = min(self.draft_len,
+                    req.max_new_tokens - len(req.out_tokens) - 1,
+                    self.max_len - 2 - int(self._lengths[slot]),
+                    self._chunk_cap - 1)
+            if k <= 0:
+                continue
+            seq = np.concatenate([np.asarray(req.prompt, np.int32),
+                                  np.asarray(req.out_tokens, np.int32)])
+            d = list(self.trie.extend_path(seq, k)
+                     if self.prefix_sharing else [])
+            while len(d) < k:
+                # the n-gram top-up iterates on the extended sequence: one
+                # call stops at the output's loop period
+                more = ngram_propose(
+                    np.concatenate([seq, np.asarray(d, np.int32)]),
+                    k - len(d))
+                if not more:
+                    break
+                d += more
+            d = [int(x) for x in d[:k]]
+            if self.eos_id is not None and self.eos_id in d:
+                d = d[:d.index(self.eos_id) + 1]
+            if d:
+                drafts[slot] = d
+        return drafts
 
-    def _step_cache(self, dev, **extras) -> dict:
-        """The model cache of one step: the pools, the step's extras, and on
-        int8 pools the fresh blocks."""
-        if self.quantized:
-            extras["fresh_blocks"] = dev(self._take_fresh())
-        return dict(self._cache, **extras)
+    def _alloc_and_cow(self, t_valid: np.ndarray, remaining=None) -> list:
+        """Grow the tables and copy shared blocks for one step, journaled:
+        a BlockPoolExhausted mid-phase is unwound before it propagates.
+
+        A verify step (`remaining` given) grows in two phases: the blocks a
+        never-drafted step allocates are popped first (with COW on that
+        committed coverage: the one held block a decode slot writes into is
+        the one holding position `length`), the draft-only blocks after, so
+        rejection's reverse-order frees restore the free list exactly.
+        Returns the draft phase's allocations."""
+        journal: list[tuple] = []
+        try:
+            t_commit = t_valid if remaining is None else np.where(
+                remaining > 0, t_valid, np.minimum(t_valid, 1)).astype(
+                np.int32)
+            self._grow_tables(t_commit, journal)
+            if self.prefix_sharing:
+                self._cow_shared(t_commit, journal)
+            if remaining is None:
+                return []
+            return self._grow_tables(t_valid, journal)
+        except BlockPoolExhausted:
+            self._unwind_allocs(journal)
+            raise
 
     def _write_positions(self, t_valid: np.ndarray, width: int) -> np.ndarray:
         """Flat pool scatter targets (B, width): token i of slot b lands at
@@ -981,6 +1367,87 @@ class PagedEngine:
             wp[slot, :tv] = _slot_write_targets(
                 self._tables[slot], int(self._lengths[slot]), tv, bs)
         return wp.astype(np.int32)
+
+    def _dev(self, a) -> torch.Tensor:
+        return torch.tensor(a, device=self.device)
+
+    def _step_cache(self, **extras):
+        """The model cache of one step: the pools and the step's extras, and
+        on int8 pools the fresh blocks. Returns (cache, the fresh-block
+        array or None)."""
+        fresh = None
+        if self.quantized:
+            fresh = self._take_fresh()
+            extras["fresh_blocks"] = self._dev(fresh)
+        return dict(self._cache, **extras), fresh
+
+    # ------------------------------------------------------ device seams --
+
+    def _lockstep_forward(self, tokens, cache, last_lane):
+        """Device half of a lockstep step: (B, width) tokens, each slot's
+        logits at its last valid lane. Returns ((B, V) logits, cache)."""
+        self._device_entered = True
+        with torch.inference_mode():
+            x, cache, _ = M.forward(self.w, self.hccs, {"tokens": tokens},
+                                    self.cfg, cache)
+            h_last = x[torch.arange(x.shape[0], device=x.device),
+                       last_lane][:, None]                     # (B, 1, D)
+            logits = M.logits_from_hidden(self.w, h_last, self.cfg)[:, 0]
+        return logits, cache
+
+    def _packed_forward(self, tokens, positions, cache, lane_idx):
+        """Device half of a packed step: a (1, width) ragged token batch,
+        each slot's logits at its last packed lane. Returns ((B, V) logits,
+        cache)."""
+        self._device_entered = True
+        with torch.inference_mode():
+            x, cache, _ = M.forward(self.w, self.hccs,
+                                    {"tokens": tokens,
+                                     "positions": positions},
+                                    self.cfg, cache)
+            h_last = x[0, lane_idx][:, None]                   # (B, 1, D)
+            logits = M.logits_from_hidden(self.w, h_last, self.cfg)[:, 0]
+        return logits, cache
+
+    def _packed_spec_forward(self, tokens, positions, cache, lane_grid):
+        """Device half of a speculative verify step: the packed forward, each
+        slot reading a ROW of verify lanes (lane_grid (B, 1 + draft_len)).
+        Returns ((B, 1 + draft_len, V) logits, cache); on int8 pools the
+        cache's layers carry the staged raw rows."""
+        self._device_entered = True
+        with torch.inference_mode():
+            x, cache, _ = M.forward(self.w, self.hccs,
+                                    {"tokens": tokens,
+                                     "positions": positions},
+                                    self.cfg, cache)
+            logits = M.logits_from_hidden(self.w, x[0][lane_grid], self.cfg)
+        return logits, cache
+
+    def _call_device(self, fn, *args):
+        """Run one step's device half. In robust mode a failure raised
+        before the seam began (the seam sets _device_entered first) is
+        retried up to max_device_retries times: the in-place pools are
+        untouched, so the call repeats exactly; past the budget it raises
+        DeviceStepFailed, on which step() fails every live slot with reason
+        "device_error". A failure raised inside the seam may have written
+        the pools part way, so it is neither retried nor absorbed: it
+        propagates out of step()."""
+        if not self._robust:
+            return fn(*args)
+        retries = self._adm.max_device_retries
+        for attempt in range(retries + 1):
+            self._device_entered = False
+            try:
+                return fn(*args)
+            except Exception as exc:
+                if self._device_entered:
+                    raise
+                self.robust_counters.device_retries += 1
+                if attempt == retries:
+                    raise DeviceStepFailed(
+                        f"device step failed {retries + 1} times") from exc
+
+    # ------------------------------------------------------------- steps --
 
     def _step(self, width: int) -> list[Request]:
         """One lockstep batched step: chunk (width == block_size, some slot
@@ -1003,32 +1470,27 @@ class PagedEngine:
         self.lanes_valid += int(t_valid.sum())
         self.lanes_total += self.max_batch * width
         self._alloc_and_cow(t_valid)
-        dev = (lambda a: torch.tensor(a, device=self.device))
-        cache = self._step_cache(
-            dev, length=dev(self._lengths),
-            block_table=dev(self._tables),
+        dev = self._dev
+        cache, _ = self._step_cache(
+            length=dev(self._lengths), block_table=dev(self._tables),
             write_pos=dev(self._write_positions(t_valid, width)),
             kv_len=dev(self._lengths + t_valid))
-        with torch.inference_mode():
-            x, _, _ = M.forward(self.w, self.hccs, {"tokens": dev(toks)},
-                                self.cfg, cache)
-            # each slot samples from its LAST VALID lane (t_valid - 1):
-            # riding decode slots have t_valid == 1, mid-prompt slots
-            # discard their logits
-            idx = dev(np.maximum(t_valid - 1, 0).astype(np.int64))
-            h_last = x[torch.arange(self.max_batch, device=self.device),
-                       idx][:, None]                           # (B, 1, D)
-            logits = M.logits_from_hidden(self.w, h_last, self.cfg)[:, 0]
+        # each slot samples from its LAST VALID lane (t_valid - 1): riding
+        # decode slots have t_valid == 1, mid-prompt slots discard theirs
+        logits, _ = self._call_device(
+            self._step_fn, dev(toks), cache,
+            dev(np.maximum(t_valid - 1, 0).astype(np.int64)))
         if width == 1:
             self.decode_steps += 1
         return self._sample_and_finish(live, t_valid, logits)
 
-    def _grid_extras(self, t_valid, sid, off, width: int, dev) -> dict:
+    def _grid_extras(self, t_valid, sid, off, width: int) -> dict:
         """The per-slot STE grid's steering (the packed step without the
         kernel): cell (slot, i) of the (B, Wb) grid is the slot's i-th token
         this step, Wb the smallest grid rung covering the largest per-slot
         chunk; grid_pos maps packed lanes to flat cells, pad lanes to the
         spill row B * Wb."""
+        dev = self._dev
         max_tv = max(int(t_valid.max()), 1)
         wb = next(w for w in self._grid_widths if w >= max_tv)
         q_pos_grid = (self._lengths[:, None]
@@ -1047,7 +1509,9 @@ class PagedEngine:
         """One PACKED token step: the step's work flattened into a ragged
         (1, width) token batch with per-token slot ids, positions and causal
         frontiers; width is the smallest ladder rung covering the pending
-        work. Returns newly finished requests."""
+        work. With speculative decoding, decode slots add their draft lanes
+        and the step verifies them (_verify_and_finish). Returns newly
+        finished requests."""
         live = self._live.copy()
         self.occupancy_sum += float(live.mean())
         self.occupancy_steps += 1
@@ -1055,13 +1519,42 @@ class PagedEngine:
         for slot in np.flatnonzero(live):
             remaining[slot] = (len(self._feeds[slot])
                                - int(self._prompt_pos[slot]))
+        drafts = (self._propose_drafts(live, remaining)
+                  if self.speculative else {})
+        n_drafts = np.zeros(self.max_batch, np.int64)
+        for slot, d in drafts.items():
+            n_drafts[slot] = len(d)
         needed = int(np.where(
-            live, np.minimum(np.maximum(remaining, 1), self._chunk_cap),
-            0).sum())
+            live, np.minimum(np.maximum(remaining, 1) + n_drafts,
+                             self._chunk_cap), 0).sum())
         needed = min(needed, self.token_budget)
         width = next(w for w in self._widths if w >= needed)
+        if drafts:
+            # draft-worthwhileness gate: verify lanes only earn a WIDER
+            # rung when they fill at least half the extra lanes it pads in;
+            # drafts inside the plain rung are free. Dropping a step's
+            # drafts is just not drafting: outputs are unchanged.
+            plain = min(int(np.where(
+                live, np.minimum(np.maximum(remaining, 1),
+                                 self._chunk_cap), 0).sum()),
+                self.token_budget)
+            w_plain = next(w for w in self._widths if w >= plain)
+            if 2 * int(n_drafts.sum()) < width - w_plain:
+                drafts = {}
+                n_drafts[:] = 0
+                width = w_plain
         t_valid = schedule_step_tokens(live, remaining, width,
-                                       self._chunk_cap)
+                                       self._chunk_cap,
+                                       drafts=n_drafts if drafts else None)
+        if drafts:
+            # the scheduler may truncate drafts to fit the budget
+            for slot in list(drafts):
+                d = drafts[slot][:max(int(t_valid[slot]) - 1, 0)]
+                n_drafts[slot] = len(d)
+                if d:
+                    drafts[slot] = d
+                else:
+                    del drafts[slot]
         sid, off = pack_slot_ids(t_valid, width)
         toks = np.zeros(width, np.int32)
         positions = np.zeros(width, np.int32)
@@ -1071,8 +1564,10 @@ class PagedEngine:
             if remaining[slot] > 0:          # prefill chunk (budget-sized)
                 pos = int(self._prompt_pos[slot])
                 toks[o:o + tv] = self._feeds[slot][pos:pos + tv]
-            else:                            # decode: one lane
+            else:                            # decode: one lane (+ drafts)
                 toks[o] = self._last[slot]
+                if tv > 1:
+                    toks[o + 1:o + tv] = drafts[slot]
             positions[o:o + tv] = int(self._lengths[slot]) + np.arange(tv)
         self.lanes_valid += int(t_valid.sum())
         self.lanes_total += width
@@ -1084,25 +1579,66 @@ class PagedEngine:
             lockstep = n_lockstep * self.max_batch * self.block_size
             self.pad_lanes_skipped += max(
                 lockstep - width - (n_lockstep - 1) * riders, 0)
-        self._alloc_and_cow(t_valid)
+        draft_allocs = self._alloc_and_cow(
+            t_valid, remaining if drafts else None)
         wp = packed_write_positions(t_valid, off, self._tables,
                                     self._lengths, self.block_size, width)
         kv_len = np.where(sid >= 0, positions + 1, 0).astype(np.int32)
         lane_idx = np.maximum(off + t_valid - 1, 0)
-        dev = (lambda a: torch.tensor(a, device=self.device))
+        dev = self._dev
         extras = dict(block_table=dev(self._tables), write_pos=dev(wp[None]),
                       kv_len=dev(kv_len), slot_ids=dev(sid))
+        snap_blocks = None
+        if drafts and self.quantized:
+            # the blocks the drafting slots' verify rows can touch: draft
+            # lanes fold with a clamped scale (draft_rows), and after
+            # verification the snapshot is restored and exactly the
+            # committed rows re-folded from the rows stage_rows hands back
+            bs = self.block_size
+            blks = []
+            for slot in sorted(drafts):
+                lo = int(self._lengths[slot])
+                hi = lo + int(t_valid[slot])
+                blks.extend(int(self._tables[slot, j])
+                            for j in range(lo // bs, -(-hi // bs)))
+            snap_blocks = np.full(self._snap_cap, TRASH_BLOCK, np.int64)
+            snap_blocks[:len(blks)] = blks
+            draft_rows = np.zeros(width, bool)
+            for slot in drafts:
+                draft_rows[off[slot] + 1:off[slot] + int(t_valid[slot])] = \
+                    True
+            extras.update(stage_rows=dev(np.zeros((), np.int32)),
+                          draft_rows=dev(draft_rows[None]))
         if self._use_grid:
-            extras.update(self._grid_extras(t_valid, sid, off, width, dev))
-        cache = self._step_cache(dev, **extras)
-        with torch.inference_mode():
-            x, _, _ = M.forward(self.w, self.hccs,
-                                {"tokens": dev(toks[None]),
-                                 "positions": dev(positions[None])},
-                                self.cfg, cache)
-            h_last = x[0, dev(lane_idx.astype(np.int64))][:, None]  # (B,1,D)
-            logits = M.logits_from_hidden(self.w, h_last, self.cfg)[:, 0]
-        return self._sample_and_finish(live, t_valid, logits)
+            extras.update(self._grid_extras(t_valid, sid, off, width))
+        cache, fresh_np = self._step_cache(**extras)
+        tokens, pos_dev = dev(toks[None]), dev(positions[None])
+        if not drafts:
+            logits, _ = self._call_device(
+                self._packed_fn, tokens, pos_dev, cache,
+                dev(lane_idx.astype(np.int64)))
+            return self._sample_and_finish(live, t_valid, logits)
+        snap = staged = None
+        if snap_blocks is not None:
+            # a copy, before the forward writes the pools in place (its
+            # fresh-block reset and folds included)
+            with torch.inference_mode():
+                snap = _gather_block_state(self._cache["layers"],
+                                           dev(snap_blocks))
+        # verify lanes: row i of a drafting slot is its i-th packed lane
+        # (clamped to its last); other slots repeat their sampling lane
+        lane_grid = np.tile(lane_idx[:, None], (1, self.draft_len + 1))
+        for slot in drafts:
+            lane_grid[slot] = off[slot] + np.minimum(
+                np.arange(self.draft_len + 1), int(t_valid[slot]) - 1)
+        logits, out = self._call_device(
+            self._packed_spec_fn, tokens, pos_dev, cache,
+            dev(lane_grid.astype(np.int64)))
+        if snap is not None:
+            staged = (out["layers"]["staged_k"], out["layers"]["staged_v"])
+        return self._verify_and_finish(live, t_valid, drafts, off, wp,
+                                       logits, draft_allocs, snap_blocks,
+                                       snap, staged, fresh_np)
 
     def _sample_and_finish(self, live, t_valid, logits) -> list[Request]:
         """Sample each slot that produced a next token, advance frontiers,
@@ -1110,8 +1646,16 @@ class PagedEngine:
         feed_len = np.asarray([len(f) if f is not None else 1 << 30
                                for f in self._feeds])
         samples = live & (self._prompt_pos + t_valid >= feed_len)
-        nxt = sample_tokens(logits)
         finished: list[Request] = []
+        if self._robust and self._adm.nan_check:
+            # only rows about to be sampled matter (the KV write is not
+            # affected): a non-finite one fails its request with a reason
+            bad = (~torch.isfinite(logits).all(-1)).cpu().numpy()
+            for slot in np.flatnonzero(samples & bad):
+                finished.append(self._fail_slot(int(slot), "nan_logits"))
+                live[slot] = False
+                samples[slot] = False
+        nxt = sample_tokens(logits)
         for slot in np.flatnonzero(live):
             req = self._slots[slot]
             tv = int(t_valid[slot])
@@ -1136,6 +1680,129 @@ class PagedEngine:
                 finished.append(self._finish(slot))
         return finished
 
+    def _verify_and_finish(self, live, t_valid, drafts, off, wp, logits,
+                           draft_allocs, snap_blocks, snap, staged,
+                           fresh_np) -> list[Request]:
+        """Speculative step tail: take every verify lane's greedy token (the
+        token a never-drafted engine samples at that position), accept the
+        longest draft prefix that matches, emit the accepted run plus the
+        model's own token at the first mismatch, then roll the rejected
+        lanes back so the step leaves no trace of them:
+          * host: draft-only allocations freed in REVERSE allocation order
+            (restores the free list exactly), table entries back to -1,
+            decremented reservations returned;
+          * fp pools: nothing (rejected rows lie past the new frontier,
+            masked by kv_len and overwritten before any read);
+          * int8 pools: snapshot restore and committed-row replay
+            (_restore_and_replay) after EVERY verify step, accepted or not.
+        Finishes are deferred until after the rollback, so their frees
+        append to a free list the rollback already restored."""
+        bs = self.block_size
+        width = wp.shape[0]
+        kk1 = logits.shape[1]
+        feed_len = np.asarray([len(f) if f is not None else 1 << 30
+                               for f in self._feeds])
+        samples = live & (self._prompt_pos + t_valid >= feed_len)
+        toks = sample_tokens(logits.reshape(-1, logits.shape[-1])).reshape(
+            self.max_batch, kk1)
+        finished_slots: list[int] = []
+        replay = np.zeros(width, bool)       # committed verify lanes
+        keep_blocks: dict[int, int] = {}     # slot -> committed block count
+        any_reject = False
+        for slot in np.flatnonzero(live):
+            req = self._slots[slot]
+            tv = int(t_valid[slot])
+            was_prefill = self._prompt_pos[slot] < feed_len[slot]
+            if slot not in drafts:
+                # the never-drafted tail (_sample_and_finish), finishes
+                # deferred
+                self._lengths[slot] += tv
+                self._prompt_pos[slot] = min(self._prompt_pos[slot] + tv,
+                                             feed_len[slot])
+                if self.prefix_sharing and (was_prefill
+                                            or self.decode_sharing):
+                    self._register_blocks(slot, req)
+                if not samples[slot]:
+                    continue                 # still mid-prompt
+                tok = int(toks[slot, 0])
+                req.out_tokens.append(tok)
+                self._last[slot] = tok
+                if (len(req.out_tokens) >= req.max_new_tokens or
+                        (self.eos_id is not None and tok == self.eos_id) or
+                        (not was_prefill and
+                         self._lengths[slot] >= self.max_len - 1)):
+                    finished_slots.append(slot)
+                continue
+            # drafting decode slot: the longest matching prefix wins
+            d = drafts[slot]
+            k = len(d)
+            t_row = [int(toks[slot, i]) for i in range(1 + k)]
+            j = 0
+            while j < k and d[j] == t_row[j]:
+                j += 1
+            # emit t_row[0..j] under never-drafted finish semantics: stop at
+            # the first token that would have ended the request
+            L0 = int(self._lengths[slot])
+            emitted: list[int] = []
+            fin = False
+            for i in range(j + 1):
+                tok = t_row[i]
+                emitted.append(tok)
+                if (len(req.out_tokens) + len(emitted)
+                        >= req.max_new_tokens or
+                        (self.eos_id is not None and
+                         tok == self.eos_id) or
+                        L0 + 1 + i >= self.max_len - 1):
+                    fin = True
+                    break
+            m = len(emitted)
+            self.spec_steps += 1
+            self.drafted_tokens += k
+            self.accepted_tokens += m - 1
+            self.rejected_tokens += k - (m - 1)
+            if m < tv:
+                any_reject = True
+            # exactly the rows a never-drafted engine writes: lanes 0..m-1
+            # (the last emitted token's KV lands on its next step, or never)
+            replay[off[slot]:off[slot] + m] = True
+            keep_blocks[slot] = -(-(L0 + m) // bs)
+            self._lengths[slot] += m
+            req.out_tokens.extend(emitted)
+            if self.decode_sharing:
+                self._register_blocks(slot, req)
+            self._last[slot] = emitted[-1]
+            if fin:
+                finished_slots.append(slot)
+        for slot, jdx, blk, resv_dec in reversed(draft_allocs):
+            if jdx < keep_blocks[slot]:
+                continue                     # covered by committed rows
+            self.alloc.free([blk])
+            self._tables[slot, jdx] = -1
+            if resv_dec:
+                self._resv[slot] += 1
+        if any_reject:
+            self.spec_rollbacks += 1
+        if snap is not None:
+            # snapshot blocks allocated this step AND still held get zeroed
+            # scales; freed draft blocks keep their restored stale state
+            held = set()
+            for slot in drafts:
+                row = self._tables[slot]
+                held.update(int(b) for b in row[row >= 0])
+            fresh_live = ((set(int(b) for b in fresh_np) & held)
+                          - {TRASH_BLOCK})
+            fresh_mask = np.asarray(
+                [int(b) in fresh_live for b in snap_blocks], bool)
+            replay_pos = np.where(
+                replay, wp.astype(np.int64),
+                TRASH_BLOCK * bs + np.arange(width, dtype=np.int64) % bs)
+            with torch.inference_mode():
+                _restore_and_replay(
+                    self._cache["layers"], snap, self._dev(snap_blocks),
+                    self._dev(fresh_mask), staged[0], staged[1],
+                    self._dev(replay_pos.astype(np.int32)[None]))
+        return [self._finish(slot) for slot in finished_slots]
+
     # --------------------------------------------------------------- run --
 
     @property
@@ -1146,16 +1813,48 @@ class PagedEngine:
     def step(self) -> list[Request]:
         """Admit from the queue and run ONE step (packed, or a lockstep
         chunk step while any slot is prefilling, else a lockstep decode
-        step); returns newly finished requests (a no-op when idle)."""
+        step); returns newly finished requests, in robust mode also those
+        ending in failure (deadline, NaN logits, device error: check
+        Request.failed / fail_reason). A no-op when idle.
+
+        With graceful_exhaustion, BlockPoolExhausted never escapes: the
+        failing phase unwound its allocations, so state is exactly pre-step;
+        a victim is preempted (the lowest class, most recently admitted,
+        possibly the slot that needed to grow) and the next step retries."""
+        finished: list[Request] = []
+        if self._robust:
+            finished.extend(self._expire_deadlines(self._clock()))
         self._admit()
         if not self._live.any():
-            assert not self._queue, "admission stalled with free pool"
-            return []
-        if self.packed:
-            return self._step_packed_sync()
-        prefilling = any(self._prompt_pos[s] < len(self._feeds[s])
-                         for s in np.flatnonzero(self._live))
-        return self._step(self.block_size if prefilling else 1)
+            # a robust queue may stall head-of-line (no preemptible lower
+            # class); without the layer a stalled queue beside a free pool
+            # is a scheduling bug
+            assert self._robust or not self._queue, \
+                "admission stalled with free pool"
+            return finished
+        try:
+            if self.packed:
+                finished.extend(self._step_packed_sync())
+            else:
+                prefilling = any(self._prompt_pos[s] < len(self._feeds[s])
+                                 for s in np.flatnonzero(self._live))
+                finished.extend(
+                    self._step(self.block_size if prefilling else 1))
+        except BlockPoolExhausted:
+            if not (self._robust and self._adm.graceful_exhaustion):
+                raise
+            self.robust_counters.exhaustion_events += 1
+            victim = choose_victim(np.flatnonzero(self._live),
+                                   self._prio, self._admit_seq)
+            if victim is not None:
+                self._preempt_slot(int(victim))
+        except DeviceStepFailed:
+            # a device failure past max_device_retries (robust mode only):
+            # fail every live slot with a reason instead of wedging the
+            # engine
+            for slot in np.flatnonzero(self._live):
+                finished.append(self._fail_slot(int(slot), "device_error"))
+        return finished
 
     def run(self) -> list[Request]:
         """Serve the whole queue; returns finished requests (uid order

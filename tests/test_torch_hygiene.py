@@ -24,7 +24,7 @@ from repro_torch.kernels.decode import (hccs_decode, hccs_packed_prefill,
                                         hccs_paged_decode)
 from repro_torch.launch import serve as port_serve
 from repro_torch.models import model as M
-from repro_torch.serve import ContinuousEngine, ServeEngine
+from repro_torch.serve import AdmissionConfig, ContinuousEngine, ServeEngine
 from repro_torch.serve.engine import Request
 from repro_torch.serve.paged import PagedEngine, init_paged_cache
 
@@ -85,8 +85,8 @@ UNPORTED = [
     "launch/mesh.py", "launch/roofline.py", "launch/train.py", "models/moe.py",
     "models/ssm.py", "optim/__init__.py", "optim/adamw.py",
     "optim/compression.py", "parallel/__init__.py", "parallel/sharding.py",
-    "serve/admission.py", "serve/chaos.py", "serve/telemetry.py",
-    "train/__init__.py", "train/loop.py", "train/steps.py"]
+    "serve/telemetry.py", "train/__init__.py", "train/loop.py",
+    "train/steps.py"]
 
 
 def test_unported_modules_are_the_recorded_list():
@@ -128,15 +128,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("engine,kw,cfg_kw", [
-    ("paged", dict(speculative=True), {}),
     ("paged", dict(async_loop=True), {}),
     ("paged", dict(telemetry=object()), {}),
-    ("paged", dict(admission=object()), {}),
     ("continuous", dict(telemetry=object()), {}),
-    ("continuous", dict(admission=object()), {}),
     ("wave", dict(telemetry=object()), {}),
-], ids=["speculative", "async", "telemetry", "admission",
-        "continuous-telemetry", "continuous-admission", "wave-telemetry"])
+], ids=["async", "telemetry", "continuous-telemetry", "wave-telemetry"])
 def test_unported_paths_raise(engine, kw, cfg_kw):
     cfg = _cfg(**cfg_kw)
     params = M.init_params(_cfg(), device="cpu")
@@ -146,6 +142,33 @@ def test_unported_paths_raise(engine, kw, cfg_kw):
         kw = dict(kw, packed=False)
     with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
         cls(params, cfg, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("engine,kw", [
+    ("paged", dict(speculative=True)),
+    ("paged", dict(admission=AdmissionConfig(max_queue=4))),
+    ("continuous", dict(admission=AdmissionConfig(
+        max_queue=4, backpressure="shed-lowest-priority"))),
+], ids=["speculative", "admission", "continuous-admission"])
+def test_ported_paths_serve(engine, kw):
+    """The options that earlier slices refused now serve: speculative
+    decoding and the robustness layer on the paged engine, robust admission
+    on the continuous one (greedy requests run to completion)."""
+    cfg = _cfg()
+    params = M.init_params(cfg, device="cpu")
+    cls = {"paged": PagedEngine, "continuous": ContinuousEngine}[engine]
+    eng = cls(params, cfg, device="cpu", max_batch=2, max_len=64, **kw)
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(0, 50, 9).astype(np.int32),
+                    max_new_tokens=4) for i in range(3)]
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run()
+    assert sorted(r.uid for r in done) == [0, 1, 2]
+    assert all(r.done and len(r.out_tokens) == 4 for r in reqs)
+    if "admission" in kw:
+        assert eng.robust_counters.snapshot()["per_class"]["0"][
+            "finished"] == 3
 
 
 @pytest.mark.parametrize("engine", [ServeEngine, ContinuousEngine])
@@ -164,9 +187,19 @@ def test_unported_request_and_launcher_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
         eng.submit(Request(uid=0, prompt=np.arange(4, dtype=np.int32),
                            temperature=0.7))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
+    done = port_serve.main(["--arch", "granite-3-2b", "--reduced",
+                            "--device", "cpu", "--speculative",
+                            "--decode-sharing", "--turns", "2", "--requests",
+                            "2", "--prompt-len", "9", "--new-tokens", "6",
+                            "--block-size", "8", "--decode-kernel", "none"])
+    assert len(done) == 4 and all(len(r.out_tokens) == 6 for r in done)
+    with pytest.raises(SystemExit):
         port_serve.main(["--arch", "granite-3-2b", "--reduced", "--device",
-                         "cpu", "--speculative"])
+                         "cpu", "--speculative", "--scheduler", "paged",
+                         "--step-layout", "lockstep"])
+    with pytest.raises(SystemExit):
+        port_serve.main(["--arch", "granite-3-2b", "--reduced", "--device",
+                         "cpu", "--chaos", "0", "--scheduler", "wave"])
     with pytest.raises(SystemExit):
         port_serve.main(["--arch", "granite-3-2b", "--reduced", "--device",
                          "cpu", "--scheduler", "wave", "--step-layout",
@@ -177,36 +210,58 @@ def test_unported_request_and_launcher_options_raise():
 
 
 @pytest.mark.parametrize("key", ["stage_rows", "draft_rows"])
-def test_speculative_cache_extras_raise(key):
-    """The speculative verify step's per-step keys stay refused by the
-    model (ROADMAP.md A6), the other paged extras are consumed."""
-    cfg = _cfg().replace(cache_layout="paged")
+def test_speculative_cache_extras_are_consumed(key):
+    """The speculative verify step's per-step keys are paged extras the
+    model hands every layer: on an int8 pool, draft_rows folds the marked
+    rows with a clamped scale, and stage_rows returns every layer's raw
+    rows as f32 (L, 1, Hkv, T, hd) beside the pools."""
+    cfg = _cfg().replace(cache_layout="paged", kv_quant="int8")
     params = M.init_params(cfg, device="cpu")
     cache = init_paged_cache(cfg, 4, 32, 2, device="cpu")
-    cache[key] = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A6"):
-        M.forward(params["weights"], params["hccs"],
-                  {"tokens": torch.zeros((1, 2), dtype=torch.int32),
-                   "positions": torch.zeros((1, 2), dtype=torch.int32)},
-                  cfg, cache)
-    assert {"q_pos_grid", "grid_pos", "kv_len_slot",
-            "fresh_blocks"} <= set(M.PAGED_EXTRAS)
+    pools = cache["layers"]
+    cache.update(block_table=torch.tensor([[1, -1]], dtype=torch.int32),
+                 write_pos=torch.tensor([[32, 33]], dtype=torch.int32),
+                 kv_len=torch.tensor([1, 2], dtype=torch.int32),
+                 slot_ids=torch.tensor([0, 0], dtype=torch.int32))
+    extra = (torch.zeros((), dtype=torch.int32) if key == "stage_rows"
+             else torch.tensor([[False, True]]))
+    cache[key] = extra
+    _, out, _ = M.forward(
+        params["weights"], params["hccs"],
+        {"tokens": torch.tensor([[3, 4]], dtype=torch.int32),
+         "positions": torch.tensor([[0, 1]], dtype=torch.int32)}, cfg, cache)
+    assert key in M.PAGED_EXTRAS
+    if key == "stage_rows":
+        shape = (cfg.num_layers, 1, cfg.num_kv_heads, 2, cfg.head_dim)
+        for name in ("staged_k", "staged_v"):
+            assert out["layers"][name].shape == shape
+            assert out["layers"][name].dtype == torch.float32
+        assert "staged_k" not in pools         # the engine's dict untouched
+    else:
+        assert "staged_k" not in out["layers"]
+        assert (pools["k_scale"][:, 1] > 0).all()
 
 
-def test_cancel_is_the_non_robust_path_and_robust_cancel_is_refused():
+def test_cancel_without_and_with_the_robustness_layer():
     """cancel() drops a queued request (failed, "cancelled") without the
-    robustness layer; the layer itself, with its robust cancel, journal and
-    preemption, stays refused (ROADMAP.md A5/A6)."""
+    robustness layer; with it (here from the config's preemption field, as
+    the JAX engine reads it) the queue is the priority queue and the cancel
+    is counted per class."""
     cfg = _cfg()
     params = M.init_params(cfg, device="cpu")
-    eng = PagedEngine(params, cfg, device="cpu", max_len=64)
-    req = Request(uid=7, prompt=np.arange(4, dtype=np.int32))
-    eng.submit(req)
-    assert eng.cancel(7) and req.failed and req.fail_reason == "cancelled"
-    assert not eng.busy and not eng.cancel(7)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A5/A6"):
-        PagedEngine(params, cfg.replace(cache_layout="paged",
-                                        preemption=True), device="cpu")
+    for robust_cfg in (cfg, cfg.replace(cache_layout="paged",
+                                        preemption=True)):
+        eng = PagedEngine(params, robust_cfg, device="cpu", max_len=64)
+        req = Request(uid=7, prompt=np.arange(4, dtype=np.int32),
+                      priority=2)
+        eng.submit(req)
+        assert eng.cancel(7) and req.failed
+        assert req.fail_reason == "cancelled"
+        assert not eng.busy and not eng.cancel(7)
+        assert eng.robust_counters.cancelled == 1
+        assert eng._robust == (robust_cfg is not cfg)
+    assert eng.robust_counters.snapshot()["per_class"]["2"]["cancelled"] == 1
+    assert eng._adm.preemption
 
 
 @pytest.mark.parametrize("scheduler", ["wave", "continuous", "lockstep",
