@@ -90,7 +90,26 @@ Phases, in order:
  20 chaos       ChaosMonkey(seed=0) over the same engine at full width, 16
                 requests: invariants after every step, the pool drained,
                 every request done or failed with a reason
- 21 report      one JSON line per the kernel table
+ 21 async       the pipelined async loop: phase 5's traffic on the packed
+                PagedEngine with async_loop, twice, then once profiled
+                (tokens identical to phase 5's, steps overlapped, no sync
+                fallback, 40 packed launches a step; walls and idle share
+                on against off); then phase 16's sessions (int8, sharing)
+                the same way (80 fold and 40 packed launches a step), held
+                to phase 16's tokens (identical, or near ties where the
+                queued request's admission moves a step)
+ 22 telemetry   Telemetry(enabled=True) on phase 5's traffic, sync and
+                async: phase coverage >= 0.9, tokens identical to
+                telemetry off, the Chrome trace parses line by line; each
+                phase's total and share, TTFT / TPOT / E2E p50 and p95, the
+                `device` phase against the profiled device busy time; then
+                drive_open_loop at 2 requests/s
+ 23 sampling    phase 5's traffic at temperature 0.8 on the packed engine:
+                every sampled batch landed and drawn again by the CPU path
+                (the count of tokens that differ, each a tie on the CPU);
+                an async run of it falls back to the sync step every step
+                with identical tokens
+ 24 report      one JSON line per the kernel table
 
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero before it. `--phases` runs a subset (for bring-up).
@@ -137,9 +156,11 @@ from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.attention import _blockwise_attention  # noqa: E402
 from repro_torch.serve import (AdmissionConfig,  # noqa: E402
                                ChaosMonkey, ContinuousEngine, ServeEngine,
-                               assert_drained, check_invariants)
+                               Telemetry, assert_drained, check_invariants,
+                               drive_open_loop, prng)
 from repro_torch.serve import paged as serve_paged  # noqa: E402
-from repro_torch.serve.engine import kv_cache_byte_stats  # noqa: E402
+from repro_torch.serve.engine import (kv_cache_byte_stats,  # noqa: E402
+                                      sample_tokens)
 from repro_torch.serve.paged import (PagedEngine, Request,  # noqa: E402
                                      pack_slot_ids, packed_write_positions,
                                      schedule_step_tokens)
@@ -707,7 +728,7 @@ def phase_engine():
     cfg, params = engine_model()
     prompts = smoke_prompts(cfg)
     plens = [len(p) for p in prompts]
-    runs, kernels_per_call = [], None
+    runs, kernels_per_call, busy_ms = [], None, None
     for rep in range(3):
         eng = PagedEngine(params, cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
                           block_size=BS, device="cuda")
@@ -727,6 +748,7 @@ def phase_engine():
         launches = hccs_packed_prefill.launches
         if prof is not None:
             kernels_per_call = per_call(profile_summary(prof, wall), launches)
+            busy_ms = prof_busy_ms(prof)
         steps = eng.occupancy_steps
         toks = {r.uid: list(r.out_tokens) for r in done}
         n_new = sum(len(t) for t in toks.values())
@@ -746,7 +768,8 @@ def phase_engine():
           "runs of the engine disagree")
     for toks in runs[0][0].values():
         check(all(0 <= t < cfg.vocab_size for t in toks), "token off vocab")
-    return runs[0][1], runs[0][0], kernels_per_call
+    return runs[0][1], runs[0][0], kernels_per_call, dict(
+        busy_ms=busy_ms, walls=[r[3] for r in runs[:2]])
 
 
 # ----------------------------------------------------------- phases 6, 7 --
@@ -1898,7 +1921,7 @@ def serve_sessions(params, cfg, traffic, profiled=False, new_tokens=32,
     with ctx as prof:
         t0 = time.perf_counter()
         submit(0, np.concatenate([system, users[0]]), "s0")
-        while not reqs[0].out_tokens:
+        while not prefill_dispatched(eng, reqs[0]):
             eng.step()
         for s in range(1, MAX_BATCH):
             submit(s, np.concatenate([system, users[s]]), f"s{s}")
@@ -1922,6 +1945,18 @@ def serve_sessions(params, cfg, traffic, profiled=False, new_tokens=32,
                 prompts={u: np.asarray(r.prompt) for u, r in reqs.items()},
                 launches={k.__name__: k.launches
                           for k in KERNELS + (paged_quant_scatter,)})
+
+
+def prefill_dispatched(eng, req) -> bool:
+    """True once every prompt token of `req` has gone into a step: the
+    step that samples its first token in the sync loop, the dispatch of
+    that step in the async loop (whose token lands a step later)."""
+    if req.out_tokens or req.done:
+        return True
+    for s, r in enumerate(eng._slots):
+        if r is req:
+            return eng._prompt_pos[s] >= len(eng._feeds[s])
+    return False
 
 
 def kernel_total(prof, symbol: str) -> tuple[float, int]:
@@ -2003,7 +2038,9 @@ def phase_sharing():
     divergence("f32 pool", f32["toks"], main["toks"], f32["prompts"],
                main["prompts"], params, cfg)
     return (main["launches"]["paged_quant_scatter"],
-            per_call(n_fold, runs[2]["launches"]["paged_quant_scatter"]))
+            per_call(n_fold, runs[2]["launches"]["paged_quant_scatter"]),
+            dict(toks=main["toks"], prompts=main["prompts"],
+                 walls=[runs[0]["wall"], runs[1]["wall"]], busy_ms=busy))
 
 
 def prof_busy_ms(prof) -> float:
@@ -2560,9 +2597,307 @@ def phase_chaos():
     return dict(launches=launches)
 
 
+# ------------------------------------------------------------ phase 21 --
+
+ROOT = Path(__file__).resolve().parent
+HOT_TEMP = 0.8                  # phase 23's temperature
+ARRIVAL_RATE = 2.0              # phase 22's open-loop requests a second
+
+
+def serve_mixed(params, cfg, prompts, profiled=False, temperature=0.0,
+                **kw):
+    """Phase 5's traffic (`prompts`, 32 new tokens each) through a fresh
+    packed PagedEngine (kw: async_loop, telemetry). The kernels' counts are
+    set to 0 just before the run and read just after. Returns the run's
+    record."""
+    eng = PagedEngine(params, cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                      block_size=BS, device="cuda", **kw)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p.copy(), max_new_tokens=32,
+                           temperature=temperature))
+    torch.cuda.synchronize()
+    for k in KERNELS + (paged_quant_scatter,):
+        k.launches = 0
+    ctx = (torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]) if profiled
+        else contextlib.nullcontext())
+    with ctx as prof:
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches
+                for k in KERNELS + (paged_quant_scatter,)}
+    toks = {r.uid: list(r.out_tokens) for r in done}
+    check(len(done) == len(prompts) and all(
+        len(t) == 32 for t in toks.values()), "not every request done")
+    for t in toks.values():
+        check(all(0 <= x < VOCAB for x in t), "token off vocab")
+    return dict(eng=eng, wall=wall, prof=prof, toks=toks,
+                steps=eng.occupancy_steps, launches=launches)
+
+
+def check_packed_launches(label, run):
+    """40 packed launches a step (one a layer) and no other decode
+    kernel."""
+    la, steps = run["launches"], run["steps"]
+    check(la["hccs_packed_prefill"] == M_LAYERS * steps,
+          f"{label}: packed launches {la['hccs_packed_prefill']} != "
+          f"{M_LAYERS} x {steps} steps")
+    check(not la["hccs_paged_decode"] and not la["hccs_decode"],
+          f"{label}: other kernels ran {la}")
+
+
+def phase_async(packed_tokens, sync_ref, sharing_ref):
+    """The pipelined async loop on phase 5's traffic: twice unprofiled and
+    once profiled, each with its tokens identical to phase 5's (the same
+    forward at the same shapes, greedy, no EOS), steps overlapped, no sync
+    fallback, 40 packed launches a step; the walls and idle share against
+    phase 5's. Then phase 16's sessions (int8, prefix and decode sharing)
+    with the loop on: 80 fold and 40 packed launches a step, held to phase
+    16's tokens: identical where the schedule is, near ties where the
+    ninth turn-1 request (queued for a slot) is admitted a step later
+    (the async loop frees a finished slot at its commit, one step late).
+    Returns the launch counts."""
+    cfg, params = engine_model()
+    prompts = smoke_prompts(cfg)
+    runs = [serve_mixed(params, cfg, prompts, profiled=rep == 2,
+                        async_loop=True) for rep in range(3)]
+    for rep, run in enumerate(runs):
+        eng = run["eng"]
+        n_new = sum(len(t) for t in run["toks"].values())
+        log(f"[async] run {rep}{' (profiled)' if rep == 2 else ''}: "
+            f"{run['steps']} packed steps ({eng.async_overlapped_steps} "
+            f"overlapped, {eng.async_sync_fallbacks} sync fallbacks), "
+            f"hccs_packed_prefill launches "
+            f"{run['launches']['hccs_packed_prefill']}; {n_new} tokens in "
+            f"{run['wall']:.3f}s = {n_new / run['wall']:.1f} new tok/s")
+        check_packed_launches("async", run)
+        check(eng.async_overlapped_steps > 0
+              and eng.async_sync_fallbacks == 0,
+              f"async: {eng.async_overlapped_steps} overlapped, "
+              f"{eng.async_sync_fallbacks} fallbacks")
+        check(run["toks"] == runs[0]["toks"], "async: the runs disagree")
+    if packed_tokens is not None:
+        same = sum(runs[0]["toks"][u] == packed_tokens[u]
+                   for u in packed_tokens)
+        log(f"[async] tokens identical to phase 5's (sync loop) for "
+            f"{same} of {len(packed_tokens)} requests")
+        check(runs[0]["toks"] == packed_tokens,
+              "async: tokens differ from the sync loop's")
+    prof = runs[2]["prof"]
+    profile_summary(prof, runs[2]["wall"], "PackedRows", "async profile")
+    busy = prof_busy_ms(prof)
+    on = [r["wall"] for r in runs[:2]]
+    line = (f"[async] walls on {on[0]:.3f}, {on[1]:.3f} s, idle share "
+            f"{1 - busy / 1e3 / on[0]:.3f}, {1 - busy / 1e3 / on[1]:.3f} "
+            f"(device busy {busy:.1f} ms)")
+    if sync_ref is not None:
+        off = sync_ref["walls"]
+        line += (f"; off (phase 5) {off[0]:.3f}, {off[1]:.3f} s, idle share "
+                 f"{1 - sync_ref['busy_ms'] / 1e3 / off[0]:.3f}, "
+                 f"{1 - sync_ref['busy_ms'] / 1e3 / off[1]:.3f} (device "
+                 f"busy {sync_ref['busy_ms']:.1f} ms)")
+    log(line)
+    q8 = cfg.replace(kv_quant="int8")
+    sess = serve_sessions(params, q8, session_traffic(cfg),
+                          prefix_sharing=True, decode_sharing=True,
+                          async_loop=True)
+    eng, la, steps = sess["eng"], sess["launches"], sess["steps"]
+    n_new = sum(len(t) for t in sess["toks"].values())
+    log(f"[async] sessions: {steps} packed steps "
+        f"({eng.async_overlapped_steps} overlapped, "
+        f"{eng.async_sync_fallbacks} sync fallbacks), fold launches "
+        f"{la['paged_quant_scatter']}, packed launches "
+        f"{la['hccs_packed_prefill']}; {n_new} tokens in {sess['wall']:.3f}s"
+        f" = {n_new / sess['wall']:.1f} new tok/s"
+        + (f" (phase 16, sync: {sharing_ref['walls'][0]:.3f}, "
+           f"{sharing_ref['walls'][1]:.3f} s)" if sharing_ref else ""))
+    check(la["paged_quant_scatter"] == 2 * M_LAYERS * steps,
+          f"async sessions: fold launches {la['paged_quant_scatter']} != "
+          f"2 x {M_LAYERS} x {steps} steps")
+    check(la["hccs_packed_prefill"] == M_LAYERS * steps,
+          f"async sessions: packed launches {la['hccs_packed_prefill']} != "
+          f"{M_LAYERS} x {steps} steps")
+    check(eng.async_overlapped_steps > 0 and eng.async_sync_fallbacks == 0,
+          "async sessions: no overlap, or a sync fallback")
+    if sharing_ref is not None:
+        divergence("async sessions", sess["toks"], sharing_ref["toks"],
+                   sess["prompts"], sharing_ref["prompts"], params, cfg)
+    return dict(packed=runs[0]["launches"]["hccs_packed_prefill"],
+                sessions_packed=la["hccs_packed_prefill"],
+                sessions_fold=la["paged_quant_scatter"], busy_ms=busy)
+
+
+# ------------------------------------------------------------ phase 22 --
+
+def log_snapshot(label, snap, busy_ms=None):
+    """A telemetry snapshot's phases (total, share of step time, count),
+    coverage and TTFT/TPOT/E2E p50/p95; with `busy_ms`, the device phase
+    against a profiled run's device busy time."""
+    ph, lat = snap["phases"], snap["latency"]
+    log(f"[{label}] {ph['steps']} steps, {ph['step_seconds']:.4f} s of "
+        f"step time, coverage {ph['coverage']:.4f}")
+    for name, p in sorted(ph["phases"].items(),
+                          key=lambda kv: -kv[1]["seconds"]):
+        log(f"[{label}]   {name:<10} {p['seconds'] * 1e3:9.2f} ms  "
+            f"{p['share_of_step']:.4f}  (n={p['count']})")
+    for name in ("ttft", "tpot", "e2e", "queue_wait"):
+        d = lat[name]
+        if d["count"]:
+            log(f"[{label}]   {name:<10} p50 {d['p50'] * 1e3:9.3f} ms  p95 "
+                f"{d['p95'] * 1e3:9.3f} ms  (n={d['count']})")
+    if busy_ms is not None and "device" in ph["phases"]:
+        dev = ph["phases"]["device"]["seconds"] * 1e3
+        log(f"[{label}] device phase {dev:.1f} ms against {busy_ms:.1f} ms "
+            f"of device busy time (profiled run of the same traffic): "
+            f"{dev - busy_ms:.1f} ms of it is the host dispatching the "
+            f"forward")
+
+
+def phase_telemetry(packed_tokens, busy):
+    """Telemetry(enabled=True) on phase 5's traffic, the sync and the async
+    loop: coverage >= 0.9, tokens identical to telemetry off (phase 5), a
+    Chrome trace that parses line by line, the phase split and latency
+    percentiles, the device phase against the device busy time of the
+    same traffic profiled (phase 5 sync, phase 21 async). Then the mixed
+    prompts through drive_open_loop at ARRIVAL_RATE requests a second.
+    Returns the launch counts."""
+    cfg, params = engine_model()
+    prompts = smoke_prompts(cfg)
+    out = {}
+    for label, kw in (("sync", {}), ("async", dict(async_loop=True))):
+        tel = Telemetry(enabled=True)
+        run = serve_mixed(params, cfg, prompts, telemetry=tel, **kw)
+        check_packed_launches(f"telemetry {label}", run)
+        snap = run["eng"].snapshot()
+        log(f"[telemetry {label}] wall {run['wall']:.3f}s (profiler "
+            f"fencing the device phase), {run['steps']} steps")
+        log_snapshot(f"telemetry {label}", snap, busy.get(label))
+        check(snap["phases"]["coverage"] >= 0.9,
+              f"telemetry {label}: coverage {snap['phases']['coverage']}")
+        if packed_tokens is not None:
+            check(run["toks"] == packed_tokens,
+                  f"telemetry {label}: tokens differ from telemetry off")
+        path = ROOT / "build" / f"smoke_trace_{label}.jsonl"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        n = tel.profiler.write_chrome_trace(str(path))
+        events = [json.loads(ln) for ln in path.read_text().splitlines()]
+        check(n == len(events) > 0 and all(
+            e["ph"] == "X" and e["cat"] in ("step", "phase")
+            for e in events), f"telemetry {label}: bad Chrome trace")
+        log(f"[telemetry {label}] Chrome trace: {n} events, each line "
+            f"parses")
+        out[label] = run["launches"]["hccs_packed_prefill"]
+    tel = Telemetry(enabled=True)
+    eng = PagedEngine(params, cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                      block_size=BS, device="cuda", telemetry=tel)
+    reqs = [Request(uid=i, prompt=p.copy(), max_new_tokens=32)
+            for i, p in enumerate(prompts)]
+    arrivals = np.cumsum(np.random.default_rng(4).exponential(
+        1.0 / ARRIVAL_RATE, len(reqs)))
+    torch.cuda.synchronize()
+    for k in KERNELS + (paged_quant_scatter,):
+        k.launches = 0
+    t0 = time.perf_counter()
+    done = drive_open_loop(eng, reqs, arrivals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = dict(launches={k.__name__: k.launches
+                         for k in KERNELS + (paged_quant_scatter,)},
+               steps=eng.occupancy_steps)
+    check_packed_launches("open loop", run)
+    check(len(done) == len(reqs) and all(
+        r.done and len(r.out_tokens) == 32 for r in reqs),
+        "open loop: not every request done")
+    log(f"[open loop] {len(reqs)} requests at {ARRIVAL_RATE:g}/s (arrivals "
+        f"over {arrivals[-1]:.3f} s): {eng.occupancy_steps} steps in "
+        f"{wall:.3f}s")
+    log_snapshot("open loop", eng.snapshot())
+    out["open_loop"] = run["launches"]["hccs_packed_prefill"]
+    return out
+
+
+# ------------------------------------------------------------ phase 23 --
+
+class SampleProbe:
+    """Stands in for serve/paged.py's sample_tokens during one run: lands
+    each call's inputs and the tokens the card drew."""
+
+    def __init__(self):
+        self.calls = []
+        self.orig = serve_paged.sample_tokens
+
+    def __enter__(self):
+        serve_paged.sample_tokens = self
+        return self
+
+    def __exit__(self, *exc):
+        serve_paged.sample_tokens = self.orig
+
+    def __call__(self, key, logits, temps, uids, gen_idx):
+        out = self.orig(key, logits, temps, uids, gen_idx)
+        self.calls.append((key, logits.cpu(), np.array(temps),
+                           np.array(uids), np.array(gen_idx), out))
+        return out
+
+
+def phase_sampling():
+    """Phase 5's traffic at temperature HOT_TEMP on the packed engine: every
+    sampled batch's logits landed and drawn again by the CPU path (the same
+    threefry keys, Gumbel noise from torch's CPU log): the count of hot
+    tokens that differ, each of which must be a tie on the CPU (its two
+    candidates within 2 bf16 ulps). Then the same traffic with the async
+    loop: every step a sync fallback, tokens identical. Returns the launch
+    counts."""
+    cfg, params = engine_model()
+    prompts = smoke_prompts(cfg)
+    with SampleProbe() as probe:
+        hot = serve_mixed(params, cfg, prompts, temperature=HOT_TEMP)
+    check_packed_launches("sampling", hot)
+    n_hot, differ = 0, []
+    for key, logits, temps, uids, gen, out in probe.calls:
+        again = sample_tokens(key, logits, temps, uids, gen)
+        rows = np.flatnonzero(temps > 0)
+        n_hot += len(rows)
+        for r in rows[again[rows] != out[rows]]:
+            k = torch.tensor([prng.fold_in(prng.fold_in(key, int(uids[r])),
+                                           int(gen[r]))])
+            z = (prng.gumbel(k, logits.shape[-1], logits.dtype)[0]
+                 + logits[r] / torch.tensor(temps[r], dtype=logits.dtype))
+            z = z.float()
+            gap = float(z[int(again[r])] - z[int(out[r])])
+            differ.append((int(uids[r]), int(gen[r]), gap,
+                           float(z.abs().max())))
+    log(f"[sampling] {hot['steps']} steps, {len(probe.calls)} sampled "
+        f"batches; {len(differ)} of {n_hot} hot tokens drawn on the card "
+        f"differ from the CPU path's draw on the same logits (T = "
+        f"{HOT_TEMP})")
+    for uid, g, gap, top in differ:
+        log(f"[sampling]   request {uid} token {g}: CPU gap {gap:.6f} "
+            f"(|z| up to {top:.3f})")
+        check(gap <= 2 * top * 2.0 ** -8, f"sampling: request {uid} token "
+              f"{g} differs by {gap}, no tie")
+    ahot = serve_mixed(params, cfg, prompts, temperature=HOT_TEMP,
+                       async_loop=True)
+    eng = ahot["eng"]
+    log(f"[sampling] async: {ahot['steps']} steps, "
+        f"{eng.async_sync_fallbacks} sync fallbacks, "
+        f"{eng.async_overlapped_steps} overlapped; wall {ahot['wall']:.3f}s "
+        f"(sync {hot['wall']:.3f}s)")
+    check_packed_launches("sampling async", ahot)
+    check(eng.async_sync_fallbacks == ahot["steps"]
+          and eng.async_overlapped_steps == 0,
+          "sampling async: a hot step did not fall back")
+    check(ahot["toks"] == hot["toks"], "sampling: async tokens differ")
+    return dict(sync=hot["launches"]["hccs_packed_prefill"],
+                async_=ahot["launches"]["hccs_packed_prefill"])
+
+
 def kernel_entry(name, source, replaces, launches, tm, shape,
                  library_ms=None, headers=(), kernels_per_call=None):
-    """One kernel of phase 18's line. `launches` counts wrapper calls on
+    """One kernel of phase 24's line. `launches` counts wrapper calls on
     the main path; `kernels_per_call` is the kernels on the card per
     wrapper call in the path's profiled run (None where not profiled).
     `device_ms` / `cold_ms`: device-only time with K/V warm in L2 / with
@@ -2582,7 +2917,7 @@ def kernel_entry(name, source, replaces, launches, tm, shape,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default=",".join(str(p) for p in range(1, 22)),
+                    default=",".join(str(p) for p in range(1, 25)),
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -2602,9 +2937,9 @@ def main(argv=None):
     if 4 in phases:
         phase_forward()
         mark(4)
-    launches, packed_tokens, packed_per_call = None, None, None
+    launches, packed_tokens, packed_per_call, sync_ref = (None,) * 4
     if 5 in phases:
-        launches, packed_tokens, packed_per_call = phase_engine()
+        launches, packed_tokens, packed_per_call, sync_ref = phase_engine()
         mark(5)
     decode_timings = {}
     if 6 in phases:
@@ -2630,12 +2965,12 @@ def main(argv=None):
     if 14 in phases:
         table3_launches, kernel_t = phase_table3()
         mark(14)
-    fold_t = fold_launches = fold_per_call = None
+    fold_t = fold_launches = fold_per_call = sharing_ref = None
     if 15 in phases:
         fold_t = phase_fold()
         mark(15)
     if 16 in phases:
-        fold_launches, fold_per_call = phase_sharing()
+        fold_launches, fold_per_call, sharing_ref = phase_sharing()
         mark(16)
     if 17 in phases:
         phase_grid(packed_tokens)
@@ -2650,21 +2985,43 @@ def main(argv=None):
     if 20 in phases:
         chaos = phase_chaos()
         mark(20)
+    asynch = tele = sampling = None
     if 21 in phases:
+        asynch = phase_async(packed_tokens, sync_ref, sharing_ref)
+        mark(21)
+    if 22 in phases:
+        busy = {}
+        if sync_ref is not None:
+            busy["sync"] = sync_ref["busy_ms"]
+        if asynch is not None:
+            busy["async"] = asynch["busy_ms"]
+        tele = phase_telemetry(packed_tokens, busy)
+        mark(22)
+    if 23 in phases:
+        sampling = phase_sampling()
+        mark(23)
+    if 24 in phases:
         check(launches and timings and len(decode_timings) == 2
               and len(path_launches) == 2 and {11, 12, 13, 17} <= phases
               and table3_launches and fold_t and fold_launches and spec
-              and overload and chaos, "phase 21 needs phases 3 and 5 to 20")
+              and overload and chaos and asynch and tele and sampling,
+              "phase 24 needs phases 3 and 5 to 23")
         slice_launches = {
             "hccs_packed_prefill": dict(
                 spec=spec["packed"],
                 overload=overload["launches"]["hccs_packed_prefill"],
-                chaos=chaos["launches"]["hccs_packed_prefill"]),
+                chaos=chaos["launches"]["hccs_packed_prefill"],
+                async_mixed=asynch["packed"],
+                async_sessions=asynch["sessions_packed"],
+                telemetry_sync=tele["sync"], telemetry_async=tele["async"],
+                open_loop=tele["open_loop"], sampling=sampling["sync"],
+                sampling_async=sampling["async_"]),
             "paged_quant_scatter": dict(
                 spec_in_step=spec["fold_in_step"],
                 spec_replay=spec["fold_replay"],
                 overload=overload["launches"]["paged_quant_scatter"],
-                chaos=chaos["launches"]["paged_quant_scatter"])}
+                chaos=chaos["launches"]["paged_quant_scatter"],
+                async_sessions=asynch["sessions_fold"])}
         tm = dict(timings[max(timings)], max_abs_err=worst)
         geo = f"granite H={H} Hkv={HKV} d={D}"
         split_headers = ("hccs_split.cuh", "hccs_common.cuh")

@@ -21,15 +21,24 @@ Speculative decoding, and the robustness layer under a seeded chaos run:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
         --reduced --device cpu --chaos 0 --priority-classes 3
 
-`--scheduler`, `--step-layout`, `--prefix-sharing`, `--decode-sharing`,
-`--turns`, `--kv-quant`, `--speculative`, `--draft-len`,
-`--priority-classes`, `--deadline-ms`, `--queue-limit`, `--backpressure`
-and `--chaos` are the JAX launcher's flags, with its guards: `paged` (the
-port's default) is the paged engine, in its packed step layout unless
-`--step-layout lockstep`; `continuous` and `wave` are the slot-arena
-engines. `--decode-kernel fused|static_max` runs attention through the
-CUDA kernels (the port's default); `none` runs the STE attention path (on
-packed steps, the per-slot STE grid).
+The pipelined async loop with telemetry (latency percentiles, the step
+phases, a Chrome trace), and an open-loop Poisson load at 2 requests/s:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
+        --reduced --device cpu --async-loop --telemetry --trace-out t.jsonl
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
+        --reduced --device cpu --arrival-rate 2
+
+`--scheduler`, `--step-layout`, `--token-budget`, `--prefix-sharing`,
+`--decode-sharing`, `--turns`, `--kv-quant`, `--speculative`,
+`--draft-len`, `--async-loop`, `--priority-classes`, `--deadline-ms`,
+`--queue-limit`, `--backpressure`, `--chaos`, `--telemetry`, `--trace-out`
+and `--arrival-rate` are the JAX launcher's flags, with its guards:
+`paged` (the port's default) is the paged engine, in its packed step
+layout unless `--step-layout lockstep`; `continuous` and `wave` are the
+slot-arena engines. `--decode-kernel fused|static_max` runs attention
+through the CUDA kernels (the port's default); `none` runs the STE
+attention path (on packed steps, the per-slot STE grid).
 """
 from __future__ import annotations
 
@@ -83,6 +92,16 @@ def main(argv=None):
                          "token-identical (paged scheduler, packed layout)")
     ap.add_argument("--draft-len", type=int, default=4,
                     help="max draft tokens per decode step (--speculative)")
+    ap.add_argument("--async-loop", action="store_true",
+                    help="pipeline the paged engine's step loop: dispatch "
+                         "step N+1 while step N's sampled tokens are still "
+                         "in flight, committing host bookkeeping one step "
+                         "behind (greedy outputs stay token-identical; "
+                         "paged scheduler, packed layout)")
+    ap.add_argument("--token-budget", type=int, default=0,
+                    help="packed-step token lanes per chunk step "
+                         "(0 = max_batch * block_size, one lockstep chunk "
+                         "step's lane count)")
     ap.add_argument("--priority-classes", type=int, default=1, metavar="N",
                     help="assign requests round-robin to N priority classes "
                          "(0 = lowest); admission serves the highest class "
@@ -108,13 +127,29 @@ def main(argv=None):
                          "exhaustion, cancels, preemption storms, device "
                          "failures, engine invariants asserted after every "
                          "step, the pool drained at the end (paged only)")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="record request lifecycles (TTFT/TPOT/E2E "
+                         "percentiles) and per-step phase timings, and print "
+                         "the unified telemetry snapshot after serving")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the step-phase timeline as Chrome-trace "
+                         "JSONL to PATH (load in Perfetto or "
+                         "chrome://tracing); implies --telemetry")
+    ap.add_argument("--arrival-rate", type=float, default=0.0, metavar="R",
+                    help="serve OPEN-LOOP: requests arrive on a seeded "
+                         "Poisson process at R req/s instead of being "
+                         "batch-drained, so latency percentiles include real "
+                         "queueing (continuous/paged scheduler, single-turn "
+                         "only); implies --telemetry")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the model runs (cpu: plain PyTorch kernels)")
     args = ap.parse_args(argv)
     if args.scheduler != "paged" and (args.step_layout is not None
-                                      or args.block_size or args.num_blocks):
-        raise SystemExit("--step-layout/--block-size/--num-blocks configure "
-                         "the paged engine; use --scheduler paged")
+                                      or args.block_size or args.num_blocks
+                                      or args.token_budget):
+        raise SystemExit("--step-layout/--block-size/--num-blocks/"
+                         "--token-budget configure the paged engine; use "
+                         "--scheduler paged")
     if args.scheduler != "paged" and (args.prefix_sharing
                                       or args.decode_sharing
                                       or args.turns > 1
@@ -128,6 +163,22 @@ def main(argv=None):
     if args.speculative and args.step_layout == "lockstep":
         raise SystemExit("--speculative verifies all drafts in one packed "
                          "step; drop --step-layout lockstep")
+    if args.async_loop and args.scheduler != "paged":
+        raise SystemExit("--async-loop pipelines the paged engine's packed "
+                         "token step; use --scheduler paged")
+    if args.async_loop and args.step_layout == "lockstep":
+        raise SystemExit("--async-loop pipelines the packed token step; "
+                         "drop --step-layout lockstep")
+    if args.arrival_rate < 0:
+        raise SystemExit(f"--arrival-rate must be >= 0, got "
+                         f"{args.arrival_rate}")
+    if args.arrival_rate and args.scheduler == "wave":
+        raise SystemExit("--arrival-rate drives the step-at-a-time engines; "
+                         "the wave scheduler serves whole waves (use "
+                         "--scheduler continuous or paged)")
+    if args.arrival_rate and args.turns > 1:
+        raise SystemExit("--arrival-rate is a single-turn open-loop load "
+                         "test; drop --turns")
     if args.priority_classes < 1:
         raise SystemExit(f"--priority-classes must be >= 1, got "
                          f"{args.priority_classes}")
@@ -146,9 +197,11 @@ def main(argv=None):
     if args.chaos is not None and args.scheduler != "paged":
         raise SystemExit("--chaos injects faults into the paged block pool; "
                          "use --scheduler paged")
-    if args.chaos is not None and args.turns > 1:
+    if args.chaos is not None and (args.turns > 1 or args.arrival_rate):
         raise SystemExit("--chaos drives its own submission schedule; drop "
-                         "--turns")
+                         "--turns/--arrival-rate")
+    telemetry_on = bool(args.telemetry or args.trace_out
+                        or args.arrival_rate)
     packed = args.scheduler == "paged" and args.step_layout != "lockstep"
 
     import numpy as np
@@ -158,7 +211,8 @@ def main(argv=None):
     from repro_torch.models import model as M
     from repro_torch.serve import (AdmissionConfig, ChaosMonkey,
                                    ContinuousEngine, PagedEngine, QueueFull,
-                                   Request, ServeEngine)
+                                   Request, ServeEngine, Telemetry,
+                                   drive_open_loop, format_snapshot)
     from repro_torch.serve.engine import kv_cache_byte_stats
 
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
@@ -166,6 +220,7 @@ def main(argv=None):
     params = M.init_params(cfg, seed=0, device=args.device)
     # a session's history grows every turn: the cache must hold all of them
     max_len = args.turns * (args.prompt_len + args.new_tokens) + 1
+    tel = Telemetry(enabled=telemetry_on)
     # the robustness layer is opt-in (preemption needs the block pool)
     admission = None
     if robust_on:
@@ -181,15 +236,18 @@ def main(argv=None):
                           max_len=max_len, packed=packed,
                           block_size=args.block_size or None,
                           num_blocks=args.num_blocks or None,
+                          token_budget=args.token_budget or None,
                           speculative=args.speculative,
-                          draft_len=args.draft_len, admission=admission,
-                          device=args.device)
+                          draft_len=args.draft_len,
+                          async_loop=args.async_loop, telemetry=tel,
+                          admission=admission, device=args.device)
     else:
         engine_cls = (ContinuousEngine if args.scheduler == "continuous"
                       else ServeEngine)
         kw = {} if args.scheduler == "wave" else dict(admission=admission)
         eng = engine_cls(params, cfg, max_batch=args.max_batch,
-                         max_len=max_len, device=args.device, **kw)
+                         max_len=max_len, telemetry=tel, device=args.device,
+                         **kw)
     rng = np.random.default_rng(0)
     # single-turn traffic under --prefix-sharing shares a system-prompt-like
     # prefix of ~3/4 of the prompt, rounded down to whole blocks (sharing is
@@ -209,6 +267,14 @@ def main(argv=None):
             kw["deadline_e2e"] = args.deadline_ms / 1000.0
         return kw
 
+    if args.arrival_rate:
+        # the open-loop load test warms the engine with one drained request
+        # first, so first-call costs do not head the latency distribution
+        warm = rng.integers(0, cfg.vocab_size,
+                            args.prompt_len).astype(np.int32)
+        eng.submit(Request(uid=-1, prompt=warm, max_new_tokens=2))
+        eng.run()
+        tel.reset()
     t0 = time.perf_counter()
     if args.chaos is not None:
         crng = np.random.default_rng(args.chaos)
@@ -232,6 +298,19 @@ def main(argv=None):
               f"{len(report['failed'])} failed; "
               f"faults: {faults or 'none injected'}")
         print("invariants held after every step; pool fully reclaimed")
+    elif args.arrival_rate:
+        # arrivals come from a seeded Poisson process and do not wait for
+        # the system, so queueing shows up in TTFT
+        reqs = []
+        for i in range(args.requests):
+            tail = rng.integers(0, cfg.vocab_size,
+                                args.prompt_len - shared_len).astype(np.int32)
+            reqs.append(Request(uid=i, prompt=np.concatenate([shared, tail]),
+                                max_new_tokens=args.new_tokens,
+                                **robust_kw(i)))
+        arrivals = np.cumsum(rng.exponential(1.0 / args.arrival_rate,
+                                             args.requests))
+        done = drive_open_loop(eng, reqs, arrivals)
     else:
         done = []
         for turn in range(args.turns):
@@ -259,9 +338,15 @@ def main(argv=None):
               if args.scheduler == "paged" else args.scheduler)
     steps = (eng.decode_steps if args.scheduler == "wave"
              else eng.occupancy_steps)
-    print(f"served {len(done)} requests, {total_new} tokens in {dt:.2f}s "
-          f"({total_new / dt:.1f} tok/s) on {eng.device}: {layout}, "
-          f"{steps} {'decode ' if args.scheduler != 'paged' else ''}steps")
+    mode = (f" open-loop at {args.arrival_rate:g} req/s"
+            if args.arrival_rate else "")
+    print(f"served {len(done)} requests{mode}, {total_new} tokens in "
+          f"{dt:.2f}s ({total_new / dt:.1f} tok/s) on {eng.device}: "
+          f"{layout}, {steps} "
+          f"{'decode ' if args.scheduler != 'paged' else ''}steps")
+    if args.async_loop:
+        print(f"async loop: {eng.async_overlapped_steps} steps overlapped, "
+              f"{eng.async_sync_fallbacks} sync fallbacks")
     if args.scheduler == "paged":
         cb = kv_cache_byte_stats(eng._cache, cfg)
         store = "int8" if args.kv_quant == "int8" else cfg.cache_dtype
@@ -310,6 +395,12 @@ def main(argv=None):
                   f"follow-up-turn prefill tokens "
                   f"({s['followup_tokens_skipped']}/"
                   f"{s['followup_prefill_tokens']}) served from cached KV")
+    if telemetry_on:
+        print(format_snapshot(eng.snapshot()))
+    if args.trace_out:
+        n = tel.profiler.write_chrome_trace(args.trace_out)
+        print(f"wrote {n} trace events to {args.trace_out} "
+              f"(load in Perfetto / chrome://tracing)")
     return done
 
 

@@ -43,18 +43,14 @@ queue becomes an `AdmissionQueue`:
 (`engine.robust_counters.snapshot()`, the JAX snapshot's `robustness`
 section).
 
-Deadlines read `SERVING_CLOCK` (time.perf_counter, the JAX package's serving
-clock) unless `AdmissionConfig.clock` pins another.
+Deadlines read the engine's serving clock (its Telemetry's clock,
+`serve/telemetry.py` SERVING_CLOCK unless injected) unless
+`AdmissionConfig.clock` pins another.
 """
 from __future__ import annotations
 
 import bisect
 import dataclasses
-import time
-
-# the serving clock deadlines read when AdmissionConfig.clock is None (the
-# JAX package's telemetry.SERVING_CLOCK; telemetry is not ported yet)
-SERVING_CLOCK = time.perf_counter
 
 
 class QueueFull(RuntimeError):
@@ -79,8 +75,8 @@ class AdmissionConfig:
                         times before every live slot fails with reason
                         "device_error".
     clock:              deadline clock override (seconds; injectable for
-                        tests). None — the default — means the serving
-                        clock, SERVING_CLOCK.
+                        tests). None — the default — means the engine's
+                        serving clock, its Telemetry's clock.
     """
     max_queue: int | None = None
     backpressure: str = "reject"

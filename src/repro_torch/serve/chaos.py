@@ -34,7 +34,7 @@ Faults are injected at seeded points (numpy Generator), so every run is
 reproducible from (seed, engine config) — CI runs a fixed-seed matrix
 across packed x sharing x int8 legs (tests/test_torch_chaos.py). The
 monkey wraps the engine's device seams (_step_fn, _packed_fn,
-_packed_spec_fn); the verify step is never poisoned.
+_packed_spec_fn, _packed_async_fn); the verify step is never poisoned.
 """
 from __future__ import annotations
 
@@ -160,7 +160,8 @@ class ChaosMonkey:
         self._pending_raise = 0
         self._pending_nan = False
         self._orig = {}
-        for name in ("_step_fn", "_packed_fn", "_packed_spec_fn"):
+        for name in ("_step_fn", "_packed_fn", "_packed_spec_fn",
+                     "_packed_async_fn"):
             self._orig[name] = getattr(eng, name)
             setattr(eng, name, self._wrap(self._orig[name],
                                           allow_nan=name != "_packed_spec_fn"))
@@ -176,8 +177,9 @@ class ChaosMonkey:
             out = fn(*args)
             if self._pending_nan and allow_nan:
                 self._pending_nan = False
-                logits, cache = out
-                return torch.full_like(logits, float("nan")), cache
+                nan = torch.full_like(out[0], float("nan"))
+                # the async seam returns (logits, sampled, cache)
+                return (nan,) + tuple(out[1:])
             return out
         return wrapped
 

@@ -20,7 +20,10 @@ step boundaries; the slot arena has no block pool, so there is no
 preemption or graceful exhaustion here.
 
 The device half writes the arena in place (the JAX engine donates it to
-XLA). Not ported yet, and refused: serving telemetry (ROADMAP.md item A5).
+XLA). Sampling is per request (greedy, or temperature with the JAX
+engines' keys: serve/engine.py sample_tokens); telemetry hooks every step
+(`admit` holds the admission prefill) and `snapshot()` returns the JAX
+schema.
 """
 from __future__ import annotations
 
@@ -29,18 +32,18 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
-from repro_torch.serve.admission import (SERVING_CLOCK, AdmissionQueue,
-                                         QueueFull, RobustnessCounters,
-                                         as_admission)
-from repro_torch.serve.engine import (Request, check_greedy,
-                                      check_params_device, refuse,
-                                      sample_tokens, validate_prompt,
+from repro_torch.serve import telemetry as T
+from repro_torch.serve.admission import (AdmissionQueue, QueueFull,
+                                         RobustnessCounters, as_admission)
+from repro_torch.serve.engine import (BASE_KEY, Request, check_params_device,
+                                      kv_cache_byte_stats, sample_tokens,
+                                      validate_prompt,
                                       warn_decode_kernel_fallback)
 
 
 class ContinuousEngine:
-    """Greedy continuous batching over a slot arena. `occupancy_steps`
-    counts the batched decode steps run so far."""
+    """Continuous batching over a slot arena. `occupancy_steps` counts the
+    batched decode steps run so far."""
 
     def __init__(self, params, cfg, *, max_batch: int = 8,
                  max_len: int = 512, eos_id: int | None = None,
@@ -56,8 +59,6 @@ class ContinuousEngine:
             raise ValueError(
                 f"kv_quant={cfg.kv_quant!r} quantizes the paged block pool; "
                 "the slot arena is fp-only (use cache_layout='paged')")
-        if telemetry is not None:
-            refuse("serving telemetry", "A5")
         check_params_device(params, self.device)
         self.w = params["weights"]
         self.hccs = params["hccs"]
@@ -77,10 +78,16 @@ class ContinuousEngine:
             self._queue: list[Request] = []
         self.robust_counters = RobustnessCounters()
         self._submitted_ts = np.zeros(max_batch, float)
-        # deadlines read the serving clock unless AdmissionConfig pins one
+        self._key = BASE_KEY
+        # request-lifecycle tracing and step-phase profiling; disabled by
+        # default, every hook a flag check
+        self.telemetry = T.as_telemetry(telemetry)
+        # one serving clock for deadlines, queue stamps and telemetry (the
+        # Telemetry's clock) unless AdmissionConfig pins another for
+        # deadlines
         self._clock = (self._adm.clock
                        if self._robust and self._adm.clock is not None
-                       else SERVING_CLOCK)
+                       else self.telemetry.clock)
         self.occupancy_sum = 0.0
         self.occupancy_steps = 0
         warn_decode_kernel_fallback(cfg)
@@ -90,33 +97,45 @@ class ContinuousEngine:
         self._live = np.zeros(max_batch, bool)
         self._lengths = np.zeros(max_batch, np.int32)
         self._last = np.zeros(max_batch, np.int32)    # next token to feed
+        self._temps = np.zeros(max_batch)
 
     # ------------------------------------------------------------- queue --
 
     def submit(self, req: Request):
-        """Queue a request (greedy only). With the robustness layer the
-        bounded queue's backpressure policy runs here: "reject" raises
-        QueueFull before any state is touched; "shed-lowest-priority" drops
-        the lowest-class newest queued request (possibly this one, returned
-        marked failed/"shed")."""
-        check_greedy(req)
+        """Queue a request. With the robustness layer the bounded queue's
+        backpressure policy runs here: "reject" raises QueueFull before any
+        state is touched; "shed-lowest-priority" drops the lowest-class
+        newest queued request (possibly this one, returned marked
+        failed/"shed")."""
         validate_prompt(req.prompt, self.max_len)
+        tel = self.telemetry
+        if self._robust:
+            rc = self.robust_counters
+            rc.klass(req.priority)["submitted"] += 1
+            try:
+                # drive_open_loop's stamped arrival anchors the deadline
+                # clock, so a mid-step arrival's wait counts as queueing
+                now = (req.arrival_ts if req.arrival_ts is not None
+                       else self._clock())
+                shed = self._queue.push(req, now=now)
+            except QueueFull:
+                rc.rejected += 1
+                rc.klass(req.priority)["rejected"] += 1
+                raise
+            for victim in shed:
+                rc.shed += 1
+                rc.klass(victim.priority)["shed"] += 1
+                victim.failed = True
+                victim.fail_reason = "shed"
+                if tel.enabled:
+                    tel.metrics.on_drop(victim.uid)
+            if req.failed:
+                return                   # shed on arrival: nothing enqueued
+        if tel.enabled:
+            tel.metrics.on_submit(req.uid, len(req.prompt),
+                                  ts=req.arrival_ts)
         if not self._robust:
             self._queue.append(req)
-            return
-        rc = self.robust_counters
-        rc.klass(req.priority)["submitted"] += 1
-        try:
-            shed = self._queue.push(req, now=self._clock())
-        except QueueFull:
-            rc.rejected += 1
-            rc.klass(req.priority)["rejected"] += 1
-            raise
-        for victim in shed:
-            rc.shed += 1
-            rc.klass(victim.priority)["shed"] += 1
-            victim.failed = True
-            victim.fail_reason = "shed"
 
     def _expire_deadlines(self, now: float) -> list[Request]:
         """Deadlines at the step boundary: queued requests past TTFT or E2E
@@ -133,6 +152,8 @@ class ContinuousEngine:
             rc.klass(req.priority)["deadline_misses"] += 1
             req.failed = True
             req.fail_reason = reason
+            if self.telemetry.enabled:
+                self.telemetry.metrics.on_drop(req.uid)
             failed.append(req)
         for slot in np.flatnonzero(self._live):
             req = self._slots[slot]
@@ -142,8 +163,11 @@ class ContinuousEngine:
                 rc.klass(req.priority)["deadline_misses"] += 1
                 req.failed = True
                 req.fail_reason = "deadline_e2e"
+                if self.telemetry.enabled:
+                    self.telemetry.metrics.on_drop(req.uid)
                 self._slots[slot] = None
                 self._live[slot] = False
+                self._temps[slot] = 0.0
                 failed.append(req)
         return failed
 
@@ -158,10 +182,13 @@ class ContinuousEngine:
     def _finish(self, slot: int) -> Request:
         req = self._slots[slot]
         req.done = True
+        if self.telemetry.enabled:
+            self.telemetry.metrics.on_finish(req.uid, len(req.out_tokens))
         if self._robust:
             self.robust_counters.klass(req.priority)["finished"] += 1
         self._slots[slot] = None
         self._live[slot] = False
+        self._temps[slot] = 0.0
         return req
 
     def _prefill(self, toks: torch.Tensor, true_len: int):
@@ -196,6 +223,8 @@ class ContinuousEngine:
                 self.robust_counters.klass(req.priority)["admitted"] += 1
             else:
                 req = self._queue.pop(0)
+            if self.telemetry.enabled:
+                self.telemetry.metrics.on_admit(req.uid)
             plen = len(req.prompt)
             toks = np.zeros((1, self._bucket(plen)), np.int32)
             toks[0, :plen] = req.prompt
@@ -205,8 +234,13 @@ class ContinuousEngine:
             self._slots[slot] = req
             self._live[slot] = True
             self._lengths[slot] = plen
-            tok = int(sample_tokens(logits)[0])
+            self._temps[slot] = req.temperature
+            tok = int(sample_tokens(self._key, logits,
+                                    np.asarray([req.temperature]),
+                                    [req.uid], [len(req.out_tokens)])[0])
             req.out_tokens.append(tok)
+            if self.telemetry.enabled:
+                self.telemetry.metrics.on_first_token(req.uid)
             self._last[slot] = tok
             if (len(req.out_tokens) >= req.max_new_tokens or
                     (self.eos_id is not None and tok == self.eos_id)):
@@ -215,20 +249,30 @@ class ContinuousEngine:
 
     def _step(self) -> list[Request]:
         """One batched decode step over the arena; returns newly finished."""
+        prof = self.telemetry.profiler
         live = self._live.copy()
         self.occupancy_sum += float(live.mean())
         self.occupancy_steps += 1
-        self._cache = dict(self._cache, length=torch.tensor(
-            self._lengths, device=self.device))
-        tokens = torch.tensor(self._last[:, None], device=self.device)
-        with torch.inference_mode():
-            logits, self._cache = M.decode_step(self.w, self.hccs, tokens,
-                                                self._cache, self.cfg)
+        with prof.phase("device"):
+            self._cache = dict(self._cache, length=torch.tensor(
+                self._lengths, device=self.device))
+            tokens = torch.tensor(self._last[:, None], device=self.device)
+            with torch.inference_mode():
+                logits, self._cache = M.decode_step(
+                    self.w, self.hccs, tokens, self._cache, self.cfg)
+            if prof.enabled:
+                T.device_fence(self.device)
         # the step advances every slot's frontier; dead slots' writes are
         # garbage parked one past their final token — freeze them here so
         # they overwrite the same masked cell instead of marching on
         self._lengths = np.where(live, self._lengths + 1, self._lengths)
-        nxt = sample_tokens(logits)
+        with prof.phase("sample"):
+            # dead slots sample greedily (temp 0): their uid/index rows are
+            # placeholders that never reach the categorical path
+            nxt = sample_tokens(
+                self._key, logits, np.where(live, self._temps, 0.0),
+                [r.uid if r else 0 for r in self._slots],
+                [len(r.out_tokens) if r else 0 for r in self._slots])
         finished = []
         for i in np.flatnonzero(live):
             req = self._slots[i]
@@ -249,16 +293,22 @@ class ContinuousEngine:
         return bool(self._queue) or bool(self._live.any())
 
     def step(self) -> list[Request]:
-        """Admit from the queue and run ONE batched decode step; returns
-        newly finished requests, in robust mode also those that missed a
-        deadline (a no-op when the engine is idle)."""
-        finished = []
-        if self._robust:
-            finished.extend(self._expire_deadlines(self._clock()))
-        finished.extend(self._admit())
-        if self._live.any():
-            finished.extend(self._step())
-        return finished
+        """Admit from the queue (the admission prefill is the `admit`
+        phase) and run ONE batched decode step; returns newly finished
+        requests, in robust mode also those that missed a deadline (a no-op
+        when the engine is idle)."""
+        prof = self.telemetry.profiler
+        with prof.step():
+            finished = []
+            with prof.phase("admit"):
+                if self._robust:
+                    finished.extend(self._expire_deadlines(self._clock()))
+                finished.extend(self._admit())
+            if self.telemetry.enabled:
+                self.telemetry.metrics.sample_queue_depth()
+            if self._live.any():
+                finished.extend(self._step())
+            return finished
 
     def run(self) -> list[Request]:
         """Serve the whole queue; returns finished requests (uid order
@@ -267,3 +317,15 @@ class ContinuousEngine:
         while self.busy:
             finished.extend(self.step())
         return finished
+
+    def snapshot(self) -> dict:
+        """The schema-versioned telemetry snapshot (T.make_snapshot); the
+        slot arena has no prefix or padding counters."""
+        return T.make_snapshot(
+            "continuous", self.telemetry,
+            kv_cache=kv_cache_byte_stats(self._cache, self.cfg,
+                                         self.max_len),
+            occupancy=(self.occupancy_sum / self.occupancy_steps
+                       if self.occupancy_steps else None),
+            robustness=(self.robust_counters.snapshot()
+                        if self._robust else None))

@@ -1,5 +1,5 @@
 """Batched serving engine: wave-scheduled prefill + decode — the port of
-`repro/serve/engine.py`, plus the request type, admission bound and greedy
+`repro/serve/engine.py`, plus the request type, admission bound and
 sampling every engine of the port shares.
 
 Requests are grouped into waves by prompt length (no padding). Each wave
@@ -9,10 +9,11 @@ discarded) so shapes never change mid-wave. Attention in the prefill is the
 STE path (dense or blockwise); with cfg.decode_kernel on, every decode step
 runs the fused `hccs_decode` kernel over the slot arena.
 
-Not ported yet: temperature sampling (the JAX engines fold (uid, generation
-index) into threefry keys, a stream torch cannot reproduce; ROADMAP.md item
-A5) — a request with temperature > 0 is refused at submit — and serving
-telemetry (A5).
+Sampling (`sample_tokens`) is greedy where a request's temperature is 0 and
+categorical otherwise, each sampled token drawn with the key the JAX
+package folds from the request uid and the token's generation index
+(serve/prng.py rebuilds its threefry streams), so a sampled request draws
+the JAX engines' tokens whatever the batch around it.
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.attention import decode_kernel_blockers
+from repro_torch.serve import prng
+from repro_torch.serve import telemetry as T
 
 
 @dataclasses.dataclass
@@ -36,7 +39,10 @@ class Request:
     (serve/admission.py) only act under an engine's `admission=`: a
     priority class (higher admits, and evicts, first), deadlines in seconds
     from submit, and the count of times the request was preempted (it then
-    re-queues with `out_tokens` as resume state)."""
+    re-queues with `out_tokens` as resume state). `arrival_ts` is the
+    intended arrival (absolute seconds on the serving clock) that
+    drive_open_loop stamps before submit; the engines anchor the telemetry
+    submit time and the deadline clock there (None: arrived at submit)."""
     uid: int
     prompt: np.ndarray            # (t,) int32
     max_new_tokens: int = 32
@@ -49,6 +55,7 @@ class Request:
     failed: bool = False
     fail_reason: str | None = None
     preemptions: int = 0
+    arrival_ts: float | None = None
 
 
 def kv_cache_bytes(cache) -> int:
@@ -85,23 +92,38 @@ def validate_prompt(prompt, max_len: int):
             f"prompt length {len(prompt)} not in [1, {max_len - 1}]")
 
 
-def check_greedy(req: Request):
-    if req.temperature > 0:
-        raise NotImplementedError(
-            "temperature sampling is not ported yet (per-request threefry "
-            "streams): ROADMAP.md item A5")
+# the engines' base key, jax.random.PRNGKey(0) in the JAX engines
+BASE_KEY = prng.prng_key(0)
 
 
-def sample_tokens(logits: torch.Tensor) -> np.ndarray:
-    """Greedy per-row sampling: (B, V) logits -> (B,) np.int64 tokens. The
-    argmax takes the FIRST maximal index on ties, as jnp.argmax does; only
-    the B indices leave the device."""
-    return torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int64)
+def sample_tokens(key, logits: torch.Tensor, temps, uids,
+                  gen_idx) -> np.ndarray:
+    """Per-row sampling of (B, V) logits: greedy where temps == 0,
+    categorical otherwise. Returns (B,) np.int64.
 
-
-def refuse(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md item "
-                              f"{item}")
+    Greedy rows are a device argmax (the FIRST maximal index on ties, as
+    jnp.argmax). A hot row draws from jax.random.categorical's stream
+    under fold_in(fold_in(key, uid), gen_idx), on the logits divided by its
+    temperature in the logits' dtype: a request's samples are a pure
+    function of (request, position), whatever the batch, scheduler or step
+    layout. Negative uids wrap through uint32. Greedy rows never enter the
+    categorical path; only the B indices leave the device."""
+    greedy = torch.argmax(logits, dim=-1)
+    temps = np.asarray(temps, np.float64)
+    hot = np.flatnonzero(temps > 0)
+    if hot.size == 0:
+        return greedy.cpu().numpy().astype(np.int64)
+    uids = np.asarray(uids)
+    gen_idx = np.asarray(gen_idx)
+    keys = torch.tensor([prng.fold_in(prng.fold_in(key, int(uids[i])),
+                                      int(gen_idx[i])) for i in hot],
+                        dtype=torch.int64, device=logits.device)
+    rows = torch.as_tensor(hot, device=logits.device)
+    scaled = logits[rows] / torch.tensor(temps[hot, None],
+                                         dtype=logits.dtype,
+                                         device=logits.device)
+    out = greedy.index_put((rows,), prng.categorical(keys, scaled))
+    return out.cpu().numpy().astype(np.int64)
 
 
 def check_params_device(params, device):
@@ -128,8 +150,8 @@ def warn_decode_kernel_fallback(cfg):
 
 
 class ServeEngine:
-    """The wave engine, greedy. `decode_steps` counts the batched decode
-    steps run so far (each runs every layer's attention once)."""
+    """The wave engine. `decode_steps` counts the batched decode steps run
+    so far (each runs every layer's attention once)."""
 
     def __init__(self, params, cfg, *, max_batch: int = 8,
                  max_len: int = 512, eos_id: int | None = None,
@@ -139,8 +161,6 @@ class ServeEngine:
             raise ValueError(
                 f"kv_quant={cfg.kv_quant!r} quantizes the paged block pool; "
                 "the wave engine's slot arena is fp-only (use PagedEngine)")
-        if telemetry is not None:
-            refuse("serving telemetry", "A5")
         check_params_device(params, self.device)
         self.w = params["weights"]
         self.hccs = params["hccs"]
@@ -151,12 +171,27 @@ class ServeEngine:
         self.cache_dtype = cache_dtype
         self.decode_steps = 0
         self._queue: list[Request] = []
+        self._key = BASE_KEY
+        # request-lifecycle tracing and step-phase profiling (telemetry.py);
+        # disabled by default, every hook a flag check
+        self.telemetry = T.as_telemetry(telemetry)
         warn_decode_kernel_fallback(cfg)
 
     def submit(self, req: Request):
-        check_greedy(req)
         validate_prompt(req.prompt, self.max_len)
+        if self.telemetry.enabled:
+            self.telemetry.metrics.on_submit(req.uid, len(req.prompt),
+                                             ts=req.arrival_ts)
         self._queue.append(req)
+
+    def _sample(self, logits, temps: np.ndarray, wave):
+        return sample_tokens(self._key, logits, temps,
+                             [r.uid for r in wave],
+                             [len(r.out_tokens) for r in wave])
+
+    def _fence(self):
+        if self.telemetry.profiler.enabled:
+            T.device_fence(self.device)
 
     def _next_wave(self) -> list[Request]:
         if not self._queue:
@@ -172,24 +207,40 @@ class ServeEngine:
         return wave
 
     def _run_wave(self, wave: list[Request]):
+        tel = self.telemetry
+        prof = tel.profiler
         b = len(wave)
-        toks = torch.tensor(np.stack([r.prompt for r in wave]),
-                            dtype=torch.int32, device=self.device)
-        with torch.inference_mode():
-            logits, cache = M.prefill(self.w, self.hccs, {"tokens": toks},
-                                      self.cfg, max_len=self.max_len,
-                                      cache_dtype=self.cache_dtype)
-        nxt = sample_tokens(logits)
+        temps = np.asarray([r.temperature for r in wave])
+        with prof.step("prefill"):
+            if tel.enabled:
+                # wave admission is wave start: members leave the queue here
+                for r in wave:
+                    tel.metrics.on_admit(r.uid)
+                tel.metrics.sample_queue_depth()
+            with prof.phase("device"):
+                toks = torch.tensor(np.stack([r.prompt for r in wave]),
+                                    dtype=torch.int32, device=self.device)
+                with torch.inference_mode():
+                    logits, cache = M.prefill(
+                        self.w, self.hccs, {"tokens": toks}, self.cfg,
+                        max_len=self.max_len, cache_dtype=self.cache_dtype)
+                self._fence()
+            with prof.phase("sample"):
+                nxt = self._sample(logits, temps, wave)
         live = np.ones(b, bool)
         # the prefill-sampled token counts against the budget and may be EOS,
         # exactly as in the continuous engine's admission
         for i, r in enumerate(wave):
             tok = int(nxt[i])
             r.out_tokens.append(tok)
+            if tel.enabled:
+                tel.metrics.on_first_token(r.uid)
             if (len(r.out_tokens) >= r.max_new_tokens or
                     (self.eos_id is not None and tok == self.eos_id)):
                 r.done = True
                 live[i] = False
+                if tel.enabled:
+                    tel.metrics.on_finish(r.uid, len(r.out_tokens))
         # the host's copy of the cache frontier (the JAX engine reads the
         # device scalar back instead)
         length = len(wave[0].prompt)
@@ -197,15 +248,21 @@ class ServeEngine:
         for _ in range(max(max_steps, 0)):
             if not live.any():
                 break
-            last = torch.tensor(nxt[:, None], dtype=torch.int32,
-                                device=self.device)
-            with torch.inference_mode():
-                logits, cache = M.decode_step(self.w, self.hccs, last, cache,
-                                              self.cfg)
+            with prof.step("decode"):
+                with prof.phase("device"):
+                    last = torch.tensor(nxt[:, None], dtype=torch.int32,
+                                        device=self.device)
+                    with torch.inference_mode():
+                        logits, cache = M.decode_step(
+                            self.w, self.hccs, last, cache, self.cfg)
+                    self._fence()
+                with prof.phase("sample"):
+                    # finished rows sample greedily (free); their tokens are
+                    # discarded
+                    nxt = self._sample(logits, np.where(live, temps, 0.0),
+                                       wave)
             self.decode_steps += 1
             length += 1
-            # finished rows sample greedily too; their tokens are discarded
-            nxt = sample_tokens(logits)
             for i, r in enumerate(wave):
                 if not live[i]:
                     continue
@@ -215,10 +272,15 @@ class ServeEngine:
                         (self.eos_id is not None and tok == self.eos_id)):
                     r.done = True
                     live[i] = False
+                    if tel.enabled:
+                        tel.metrics.on_finish(r.uid, len(r.out_tokens))
             if not live.any() or length >= self.max_len - 1:
                 break
         for r in wave:
             r.done = True
+            if tel.enabled:
+                # budget/cache-full exits that never hit an in-loop finish
+                tel.metrics.on_finish(r.uid, len(r.out_tokens))
 
     def run(self) -> list[Request]:
         """Serve the whole queue; returns finished requests."""
@@ -230,3 +292,13 @@ class ServeEngine:
             self._run_wave(wave)
             finished.extend(wave)
         return finished
+
+    def snapshot(self) -> dict:
+        """The schema-versioned telemetry snapshot (T.make_snapshot). The
+        wave engine allocates a slot cache per wave, so kv_cache reports
+        that per-wave reservation; it has no prefix or padding counters."""
+        cache = M.init_cache(self.cfg, self.max_batch, self.max_len,
+                             self.cache_dtype, device="meta")
+        return T.make_snapshot(
+            "wave", self.telemetry,
+            kv_cache=kv_cache_byte_stats(cache, self.cfg, self.max_len))

@@ -1,5 +1,4 @@
-"""Paged KV-cache serving — the port of `repro/serve/paged.py` as far as
-greedy serving in either step layout reaches.
+"""Paged KV-cache serving — the port of `repro/serve/paged.py`.
 
 Layout: a GLOBAL pool of fixed-size KV blocks, (L, N, Hkv, block_size, hd)
 per k and v, plus per-request block tables on the host. Logical position p
@@ -73,14 +72,47 @@ step goes through _call_device, which retries in robust mode; its three
 seams (_step_fn, _packed_fn, _packed_spec_fn) are what the chaos harness
 (serve/chaos.py) wraps.
 
+PIPELINED ASYNC LOOP (async_loop=True, packed steps only): the sync loop
+serializes [dispatch N -> land N's tokens -> commit N -> dispatch N+1], so
+the card idles while the host samples, finishes, registers and traces. The
+async loop enqueues step N+1 BEFORE committing step N:
+
+      card   --[ step N ]------[ step N+1 ]-----[ step N+2 ]-->
+                  | sampled_N      ^  | sampled_N+1   ^
+                  v  (on device)   |  v               |
+      host   --[ dispatch N+1 ]--[ commit N ]--[ dispatch N+2 ]--
+                decode lanes read  |  wait on N's event, land its
+                sampled_N on the   |  tokens: append, EOS/budget
+                card (tok_src)     |  finishes, registration,
+                                   |  telemetry, one step late
+
+Frontiers and allocations advance at dispatch, so step N+1 schedules
+against post-N state without N's token values (greedy only: the device
+argmax equals sample_tokens' greedy path). Budget and cache-full finishes
+are predicted and kept out of the next schedule; an EOS slot runs one
+extra in-flight step whose writes are inert once its blocks are freed at
+commit (position-ordered write-before-read; int8 fresh-block scale
+zeroing). Hot or speculative steps commit and then run the sync step
+(async_sync_fallbacks). The pools are written in place on one stream, so
+stream order serializes the steps as buffer donation does in JAX. A step's
+uploads are pinned non-blocking copies (a blocking upload would wait for
+the card); its sampled tokens land in pinned memory through a non-blocking
+copy and a recorded event, and the commit's wait on that event is the one
+host sync of an unprofiled async step. The block tables and lockstep
+frontiers are dirty-tracked device mirrors, uploaded again only after a
+host-side change.
+
+SAMPLING is per request: greedy, or temperature with the JAX engines'
+per-(uid, generation index) keys (serve/engine.py sample_tokens), every
+verify lane of a speculative step with its own index. TELEMETRY
+(serve/telemetry.py) attributes each step to its phases (admit, schedule,
+alloc_cow, device, sample, register, rollback) and traces request
+lifecycles; `snapshot()` returns the JAX schema.
+
 The host half (allocator, trie, scheduler, lane packing, write targets,
 admission) is the JAX package's numpy code, copied; the device half
 replaces the jitted step with donated pools by in-place writes into the
 preallocated pool tensors.
-
-Not ported yet, and refused when switched on (NotImplementedError naming
-the ROADMAP.md item): the async loop (A6), telemetry (A5) and temperature
-sampling (A5).
 """
 from __future__ import annotations
 
@@ -91,12 +123,13 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.kv_quant import paged_quant_scatter
 from repro_torch.models import model as M
 from repro_torch.models.attention import kernel_on
-from repro_torch.serve.admission import (SERVING_CLOCK, AdmissionQueue,
-                                         QueueFull, RobustnessCounters,
-                                         as_admission, choose_victim)
-from repro_torch.serve.engine import (Request, check_greedy,
-                                      check_params_device, refuse,
-                                      sample_tokens, validate_prompt,
+from repro_torch.serve import telemetry as T
+from repro_torch.serve.admission import (AdmissionQueue, QueueFull,
+                                         RobustnessCounters, as_admission,
+                                         choose_victim)
+from repro_torch.serve.engine import (BASE_KEY, Request, check_params_device,
+                                      kv_cache_byte_stats, sample_tokens,
+                                      validate_prompt,
                                       warn_decode_kernel_fallback)
 
 TRASH_BLOCK = 0
@@ -571,11 +604,10 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, max_batch: int,
 
 
 class PagedEngine:
-    """Greedy, synchronous paged engine, packed or lockstep steps, with
-    speculative decoding and the robustness layer. The constructor takes
-    the JAX engine's arguments; those selecting paths not ported yet raise
-    NotImplementedError (see the module docstring). `decode_steps` counts
-    the lockstep layout's (B, 1) decode steps."""
+    """The paged engine, packed or lockstep steps, with sharing, sessions,
+    int8 pools, speculative decoding, the robustness layer, the async loop
+    and telemetry; the JAX engine's constructor arguments. `decode_steps`
+    counts the lockstep layout's (B, 1) decode steps."""
 
     def __init__(self, params, cfg, *, max_batch: int = 8,
                  max_len: int = 512, eos_id: int | None = None,
@@ -598,10 +630,6 @@ class PagedEngine:
             raise ValueError(
                 f"paged KV needs attention-only blocks; {cfg.family} carries "
                 "per-slot SSM state that a block pool cannot page")
-        if async_loop if async_loop is not None else cfg.async_loop:
-            refuse("the pipelined async loop", "A6")
-        if telemetry is not None:
-            refuse("serving telemetry", "A5")
         self.packed = True if packed is None else bool(packed)
         check_params_device(params, self.device)
         warn_decode_kernel_fallback(cfg)
@@ -644,10 +672,16 @@ class PagedEngine:
             self._queue: list[Request] = []
         self.robust_counters = RobustnessCounters()
         self._admit_counter = 0              # monotone admission order
-        # deadlines read the serving clock unless AdmissionConfig pins one
+        self._key = BASE_KEY
+        # request-lifecycle tracing and step-phase profiling; disabled by
+        # default, every hook a flag check
+        self.telemetry = T.as_telemetry(telemetry)
+        # one serving clock for deadlines, queue stamps and telemetry (the
+        # Telemetry's clock) unless AdmissionConfig pins another for
+        # deadlines
         self._clock = (self._adm.clock
                        if self._robust and self._adm.clock is not None
-                       else SERVING_CLOCK)
+                       else self.telemetry.clock)
         self.occupancy_sum = 0.0
         self.occupancy_steps = 0
         # the default budget is one lockstep chunk step's lane count
@@ -713,6 +747,21 @@ class PagedEngine:
                                               self._chunk_cap)})
         # the grid steering rides the step only when the kernel is off
         self._use_grid = not kernel_on(cfg, params["hccs"] or None)
+        # the pipelined async loop (module docstring): packed steps only
+        self.async_loop = bool(cfg.async_loop if async_loop is None
+                               else async_loop)
+        if self.async_loop and not self.packed:
+            raise ValueError(
+                "async_loop pipelines the packed token step; it requires "
+                "packed=True (the lockstep layout is the synchronous "
+                "parity baseline)")
+        # the in-flight packed step awaiting its commit (one deep): None or
+        # the record _dispatch_packed_async builds
+        self._pending: dict | None = None
+        # steps dispatched ahead of the previous step's commit, and steps
+        # that committed first (hot sampling, speculative drafting)
+        self.async_overlapped_steps = 0
+        self.async_sync_fallbacks = 0
         # token-lane telemetry (padding_stats)
         self.lanes_valid = 0
         self.lanes_total = 0
@@ -757,6 +806,12 @@ class PagedEngine:
         self._reg_parent = np.full(max_batch, -1, np.int64)
 
         self._tables = np.full((max_batch, self._nblk_per_seq), -1, np.int32)
+        # dirty-tracked device mirrors of _tables and _lengths: set to None
+        # at every host-side change (_admit, _grow_tables, _cow_shared,
+        # _unwind_allocs, _release_slot, the frontier advances, rollback)
+        # and uploaded again on the next use
+        self._tables_dev = None
+        self._lengths_dev = None
         self._resv = np.zeros(max_batch, np.int64)   # admission reservations
         self._slots: list[Request | None] = [None] * max_batch
         # the FEED is what prefill must cover: req.prompt on a first
@@ -767,6 +822,7 @@ class PagedEngine:
         self._lengths = np.zeros(max_batch, np.int32)
         self._prompt_pos = np.zeros(max_batch, np.int32)  # feed tokens fed
         self._last = np.zeros(max_batch, np.int32)        # next token to feed
+        self._temps = np.zeros(max_batch)
         # robustness per-slot metadata: victim policy keys + deadline clocks
         self._prio = np.zeros(max_batch, np.int64)
         self._admit_seq = np.zeros(max_batch, np.int64)
@@ -780,7 +836,22 @@ class PagedEngine:
         self._step_fn = self._lockstep_forward
         self._packed_fn = self._packed_forward
         self._packed_spec_fn = self._packed_spec_forward
+        self._packed_async_fn = self._packed_async_forward
         self._device_entered = False     # set by a seam as it starts
+
+    # ----------------------------------------------------- device mirrors --
+
+    def _device_tables(self) -> torch.Tensor:
+        """Device mirror of the host block tables, uploaded again only
+        after a host-side change."""
+        if self._tables_dev is None:
+            self._tables_dev = self._dev(self._tables)
+        return self._tables_dev
+
+    def _device_lengths(self) -> torch.Tensor:
+        if self._lengths_dev is None:
+            self._lengths_dev = self._dev(self._lengths)
+        return self._lengths_dev
 
     # ------------------------------------------------------------- queue --
 
@@ -801,7 +872,6 @@ class PagedEngine:
         session state is touched; "shed-lowest-priority" drops the
         lowest-class newest queued request, possibly this one, which then
         returns marked failed/"shed" instead of queued."""
-        check_greedy(req)
         prompt = req.prompt
         followup = False
         if session is not None:
@@ -825,7 +895,11 @@ class PagedEngine:
             rc = self.robust_counters
             rc.klass(req.priority)["submitted"] += 1
             try:
-                shed = self._queue.push(req, now=self._clock())
+                # drive_open_loop's stamped arrival anchors the deadline
+                # clock, so a mid-step arrival's wait counts as queueing
+                now = (req.arrival_ts if req.arrival_ts is not None
+                       else self._clock())
+                shed = self._queue.push(req, now=now)
             except QueueFull:
                 rc.rejected += 1
                 rc.klass(req.priority)["rejected"] += 1
@@ -836,6 +910,9 @@ class PagedEngine:
                 self._drop_request(victim, "shed")
             if req.failed:
                 return                   # shed on arrival: nothing enqueued
+        if self.telemetry.enabled:
+            self.telemetry.metrics.on_submit(req.uid, len(prompt),
+                                             ts=req.arrival_ts)
         if session is not None:
             self._session_busy.add(session)
             self._req_session[id(req)] = session
@@ -948,6 +1025,8 @@ class PagedEngine:
             else:
                 self._queue.pop(0)
             slot = int(np.argmin(self._live))
+            if self.telemetry.enabled:
+                self.telemetry.metrics.on_admit(req.uid)
             origins = [self.trie.origin(key) for key, _ in matched]
             for j, (key, blk) in enumerate(matched):
                 self._tables[slot, j] = self.alloc.fork(blk)
@@ -987,8 +1066,11 @@ class PagedEngine:
             self._feeds[slot] = feed
             self._live[slot] = True
             self._lengths[slot] = start
+            self._tables_dev = None          # forked blocks joined the table
+            self._lengths_dev = None
             self._prompt_pos[slot] = start
             self._resv[slot] = need
+            self._temps[slot] = req.temperature
             # matched blocks are indexed already: registration resumes past
             # them, threading the indexed chain's tail as the parent
             self._reg_level[slot] = len(matched)
@@ -1001,18 +1083,26 @@ class PagedEngine:
         prompt and decode blocks alike (PrefixTrie.match)."""
         return self.trie.match(prompt)
 
-    def _register_blocks(self, slot: int, req: Request):
+    def _register_blocks(self, slot: int, req: Request,
+                         covered: int | None = None):
         """Index every block of this slot now FULLY covered by tokens whose
         values are known: the prompt-covered prefix, or with decode sharing
         the whole written sequence prompt + out_tokens (positions [0,
         length) hold exactly those). Boundary blocks mixing prompt and
         generated tokens count as "decode". The watermark makes this O(1)
         amortized; on equal content the first writer wins, and the walk
-        threads the INDEXED block into the next level's key."""
+        threads the INDEXED block into the next level's key.
+
+        `covered` overrides the written-token count: the async loop commits
+        one step behind dispatch, when _lengths/_prompt_pos already hold
+        the in-flight step's advance, so the commit passes its own record's
+        coverage. The in-flight step writes only at or past it, so no block
+        it writes is registered (shared) while it runs."""
         bs = self.block_size
         plen = len(req.prompt)
-        covered = (int(self._lengths[slot]) if self.decode_sharing
-                   else min(int(self._prompt_pos[slot]), plen))
+        if covered is None:
+            covered = (int(self._lengths[slot]) if self.decode_sharing
+                       else min(int(self._prompt_pos[slot]), plen))
         n_levels = covered // bs
         parent = int(self._reg_parent[slot])
         for j in range(int(self._reg_level[slot]), n_levels):
@@ -1066,6 +1156,7 @@ class PagedEngine:
                 _copy_block_kv(self._cache["layers"], blk, new)
                 self.alloc.free([blk])       # drop this slot's reference
                 self._tables[slot, j] = new
+                self._tables_dev = None
                 self.cow_copies += 1
                 if journal is not None:
                     journal.append(("cow", slot, j, blk, new,
@@ -1134,18 +1225,29 @@ class PagedEngine:
         row = self._tables[slot]
         self.alloc.free(row[row >= 0])
         row[:] = -1
+        self._tables_dev = None
+        self._lengths_dev = None
         self._resv[slot] = 0
         self._slots[slot] = None
         self._feeds[slot] = None
         self._live[slot] = False
         self._lengths[slot] = 0
         self._prompt_pos[slot] = 0
+        self._temps[slot] = 0.0
         self._reg_level[slot] = 0
         self._reg_parent[slot] = -1
+        # async loop: the in-flight step may hold an uncommitted sample of
+        # this slot (and have written a row into the blocks just freed,
+        # inert: see the module docstring). Dead-mark it so the commit
+        # discards the token, as if the slot had never been scheduled.
+        if self._pending is not None:
+            self._pending["dead"][slot] = True
 
     def _finish(self, slot: int) -> Request:
         req = self._slots[slot]
         req.done = True
+        if self.telemetry.enabled:
+            self.telemetry.metrics.on_finish(req.uid, len(req.out_tokens))
         session = self._req_session.pop(id(req), None)
         if session is not None:
             # the session's next turn prepends this full history
@@ -1186,6 +1288,8 @@ class PagedEngine:
         if session is not None:
             self._session_busy.discard(session)
         self._followups.discard(id(req))
+        if self.telemetry.enabled:
+            self.telemetry.metrics.on_drop(req.uid)
         return req
 
     def _fail_slot(self, slot: int, reason: str) -> Request:
@@ -1242,6 +1346,7 @@ class PagedEngine:
             held = int((row >= 0).sum())
             for j in range(held, needed):
                 row[j] = self._alloc_block()
+                self._tables_dev = None
                 if self.quantized:
                     self._fresh.append(int(row[j]))
                 resv_dec = self._resv[slot] > 0
@@ -1259,6 +1364,8 @@ class PagedEngine:
         in the reverse of the pops). A COW whose source block was evicted
         later in the same phase cannot re-fork it; the slot keeps its
         private copy, valid though no longer shared."""
+        if journal:
+            self._tables_dev = None
         for op in reversed(journal):
             if op[0] == "alloc":
                 _, slot, j, blk, resv_dec = op
@@ -1369,7 +1476,17 @@ class PagedEngine:
         return wp.astype(np.int32)
 
     def _dev(self, a) -> torch.Tensor:
-        return torch.tensor(a, device=self.device)
+        """Upload a host array for a step. On the card a pinned,
+        non-blocking copy: it reads its own pinned buffer, so the host
+        array may change at once, and unlike a blocking copy it does not
+        wait for the card's queue to drain."""
+        a = np.asarray(a)
+        if self.device.type != "cuda":
+            return torch.tensor(a, device=self.device)
+        if not a.flags.c_contiguous:
+            a = a.copy()
+        return torch.from_numpy(a).pin_memory().to(self.device,
+                                                   non_blocking=True)
 
     def _step_cache(self, **extras):
         """The model cache of one step: the pools and the step's extras, and
@@ -1380,6 +1497,11 @@ class PagedEngine:
             fresh = self._take_fresh()
             extras["fresh_blocks"] = self._dev(fresh)
         return dict(self._cache, **extras), fresh
+
+    def _fence(self):
+        """The profiler's device-phase fence, only while profiling."""
+        if self.telemetry.profiler.enabled:
+            T.device_fence(self.device)
 
     # ------------------------------------------------------ device seams --
 
@@ -1423,6 +1545,28 @@ class PagedEngine:
             logits = M.logits_from_hidden(self.w, x[0][lane_grid], self.cfg)
         return logits, cache
 
+    def _packed_async_forward(self, tokens, tok_src, prev_sampled, positions,
+                              cache, lane_idx):
+        """Device half of an async-loop packed step: the packed forward,
+        with (a) the token indirection — a lane with tok_src >= 0 feeds the
+        previous step's still-unlanded device sample of slot tok_src, so
+        the host never waits for it to re-upload it — and (b) the greedy
+        sample taken on the card (argmax, first maximal index, as
+        sample_tokens' greedy path), which feeds the next step's
+        indirection. Returns ((B, V) logits, (B,) int32 sampled, cache)."""
+        self._device_entered = True
+        with torch.inference_mode():
+            src = torch.clamp(tok_src, 0, prev_sampled.shape[0] - 1)
+            fed = torch.where(tok_src >= 0, prev_sampled[src], tokens[0])
+            x, cache, _ = M.forward(self.w, self.hccs,
+                                    {"tokens": fed[None],
+                                     "positions": positions},
+                                    self.cfg, cache)
+            h_last = x[0, lane_idx][:, None]                   # (B, 1, D)
+            logits = M.logits_from_hidden(self.w, h_last, self.cfg)[:, 0]
+            sampled = torch.argmax(logits, dim=-1).to(torch.int32)
+        return logits, sampled, cache
+
     def _call_device(self, fn, *args):
         """Run one step's device half. In robust mode a failure raised
         before the seam began (the seam sets _device_entered first) is
@@ -1452,34 +1596,45 @@ class PagedEngine:
     def _step(self, width: int) -> list[Request]:
         """One lockstep batched step: chunk (width == block_size, some slot
         is mid-prompt) or pure decode (width == 1). Returns newly finished."""
+        prof = self.telemetry.profiler
         live = self._live.copy()
         self.occupancy_sum += float(live.mean())
         self.occupancy_steps += 1
-        t_valid = np.zeros(self.max_batch, np.int32)
-        toks = np.zeros((self.max_batch, width), np.int32)
-        for slot in np.flatnonzero(live):
-            feed = self._feeds[slot]
-            pos = int(self._prompt_pos[slot])
-            if pos < len(feed):              # chunked prefill
-                tv = min(width, len(feed) - pos)
-                toks[slot, :tv] = feed[pos:pos + tv]
-                t_valid[slot] = tv
-            else:                            # decode rides along, t_valid 1
-                toks[slot, 0] = self._last[slot]
-                t_valid[slot] = 1
-        self.lanes_valid += int(t_valid.sum())
-        self.lanes_total += self.max_batch * width
-        self._alloc_and_cow(t_valid)
-        dev = self._dev
-        cache, _ = self._step_cache(
-            length=dev(self._lengths), block_table=dev(self._tables),
-            write_pos=dev(self._write_positions(t_valid, width)),
-            kv_len=dev(self._lengths + t_valid))
-        # each slot samples from its LAST VALID lane (t_valid - 1): riding
-        # decode slots have t_valid == 1, mid-prompt slots discard theirs
-        logits, _ = self._call_device(
-            self._step_fn, dev(toks), cache,
-            dev(np.maximum(t_valid - 1, 0).astype(np.int64)))
+        with prof.phase("schedule"):
+            t_valid = np.zeros(self.max_batch, np.int32)
+            toks = np.zeros((self.max_batch, width), np.int32)
+            for slot in np.flatnonzero(live):
+                feed = self._feeds[slot]
+                pos = int(self._prompt_pos[slot])
+                if pos < len(feed):          # chunked prefill
+                    tv = min(width, len(feed) - pos)
+                    toks[slot, :tv] = feed[pos:pos + tv]
+                    t_valid[slot] = tv
+                else:                        # decode rides along, t_valid 1
+                    toks[slot, 0] = self._last[slot]
+                    t_valid[slot] = 1
+            self.lanes_valid += int(t_valid.sum())
+            self.lanes_total += self.max_batch * width
+        with prof.phase("alloc_cow"):
+            self._alloc_and_cow(t_valid)
+        with prof.phase("schedule"):
+            dev = self._dev
+            # the mirrors: the tables change only when a frontier crosses a
+            # block (every block_size tokens of a decode slot)
+            cache, _ = self._step_cache(
+                length=self._device_lengths(),
+                block_table=self._device_tables(),
+                write_pos=dev(self._write_positions(t_valid, width)),
+                kv_len=dev(self._lengths + t_valid))
+            # each slot samples from its LAST VALID lane (t_valid - 1):
+            # riding decode slots have t_valid == 1, mid-prompt slots
+            # discard theirs
+            tokens = dev(toks)
+            last_lane = dev(np.maximum(t_valid - 1, 0).astype(np.int64))
+        with prof.phase("device"):
+            logits, _ = self._call_device(self._step_fn, tokens, cache,
+                                          last_lane)
+            self._fence()
         if width == 1:
             self.decode_steps += 1
         return self._sample_and_finish(live, t_valid, logits)
@@ -1505,6 +1660,23 @@ class PagedEngine:
                     kv_len_slot=dev((self._lengths + t_valid)
                                     .astype(np.int32)))
 
+    def _count_pad_lanes(self, live, remaining, t_valid, width: int):
+        """Lanes the lockstep layout would burn for the same scheduled work
+        (see the JAX engine's _step_packed_sync for the accounting)."""
+        if (remaining > 0).any():
+            n_lockstep = -(-int(t_valid.max()) // self.block_size)
+            riders = int((live & (remaining == 0)).sum())
+            lockstep = n_lockstep * self.max_batch * self.block_size
+            self.pad_lanes_skipped += max(
+                lockstep - width - (n_lockstep - 1) * riders, 0)
+
+    def _step_packed(self) -> list[Request]:
+        """One PACKED engine step: the synchronous one, or with async_loop
+        the pipelined one (module docstring)."""
+        if self.async_loop:
+            return self._step_packed_async()
+        return self._step_packed_sync()
+
     def _step_packed_sync(self) -> list[Request]:
         """One PACKED token step: the step's work flattened into a ragged
         (1, width) token batch with per-token slot ids, positions and causal
@@ -1512,150 +1684,391 @@ class PagedEngine:
         work. With speculative decoding, decode slots add their draft lanes
         and the step verifies them (_verify_and_finish). Returns newly
         finished requests."""
+        prof = self.telemetry.profiler
         live = self._live.copy()
         self.occupancy_sum += float(live.mean())
         self.occupancy_steps += 1
-        remaining = np.zeros(self.max_batch, np.int64)
-        for slot in np.flatnonzero(live):
-            remaining[slot] = (len(self._feeds[slot])
-                               - int(self._prompt_pos[slot]))
-        drafts = (self._propose_drafts(live, remaining)
-                  if self.speculative else {})
-        n_drafts = np.zeros(self.max_batch, np.int64)
-        for slot, d in drafts.items():
-            n_drafts[slot] = len(d)
-        needed = int(np.where(
-            live, np.minimum(np.maximum(remaining, 1) + n_drafts,
-                             self._chunk_cap), 0).sum())
-        needed = min(needed, self.token_budget)
-        width = next(w for w in self._widths if w >= needed)
-        if drafts:
-            # draft-worthwhileness gate: verify lanes only earn a WIDER
-            # rung when they fill at least half the extra lanes it pads in;
-            # drafts inside the plain rung are free. Dropping a step's
-            # drafts is just not drafting: outputs are unchanged.
-            plain = min(int(np.where(
-                live, np.minimum(np.maximum(remaining, 1),
-                                 self._chunk_cap), 0).sum()),
-                self.token_budget)
-            w_plain = next(w for w in self._widths if w >= plain)
-            if 2 * int(n_drafts.sum()) < width - w_plain:
-                drafts = {}
-                n_drafts[:] = 0
-                width = w_plain
-        t_valid = schedule_step_tokens(live, remaining, width,
-                                       self._chunk_cap,
-                                       drafts=n_drafts if drafts else None)
-        if drafts:
-            # the scheduler may truncate drafts to fit the budget
-            for slot in list(drafts):
-                d = drafts[slot][:max(int(t_valid[slot]) - 1, 0)]
+        with prof.phase("schedule"):
+            remaining = np.zeros(self.max_batch, np.int64)
+            for slot in np.flatnonzero(live):
+                remaining[slot] = (len(self._feeds[slot])
+                                   - int(self._prompt_pos[slot]))
+            drafts = (self._propose_drafts(live, remaining)
+                      if self.speculative else {})
+            n_drafts = np.zeros(self.max_batch, np.int64)
+            for slot, d in drafts.items():
                 n_drafts[slot] = len(d)
-                if d:
-                    drafts[slot] = d
-                else:
-                    del drafts[slot]
-        sid, off = pack_slot_ids(t_valid, width)
-        toks = np.zeros(width, np.int32)
-        positions = np.zeros(width, np.int32)
-        for slot in np.flatnonzero(t_valid > 0):
-            tv = int(t_valid[slot])
-            o = int(off[slot])
-            if remaining[slot] > 0:          # prefill chunk (budget-sized)
-                pos = int(self._prompt_pos[slot])
-                toks[o:o + tv] = self._feeds[slot][pos:pos + tv]
-            else:                            # decode: one lane (+ drafts)
-                toks[o] = self._last[slot]
-                if tv > 1:
-                    toks[o + 1:o + tv] = drafts[slot]
-            positions[o:o + tv] = int(self._lengths[slot]) + np.arange(tv)
-        self.lanes_valid += int(t_valid.sum())
-        self.lanes_total += width
-        # lanes the lockstep layout would burn for the same scheduled work
-        # (see the JAX engine's _step_packed_sync for the accounting)
-        if (remaining > 0).any():
-            n_lockstep = -(-int(t_valid.max()) // self.block_size)
-            riders = int((live & (remaining == 0)).sum())
-            lockstep = n_lockstep * self.max_batch * self.block_size
-            self.pad_lanes_skipped += max(
-                lockstep - width - (n_lockstep - 1) * riders, 0)
-        draft_allocs = self._alloc_and_cow(
-            t_valid, remaining if drafts else None)
-        wp = packed_write_positions(t_valid, off, self._tables,
-                                    self._lengths, self.block_size, width)
-        kv_len = np.where(sid >= 0, positions + 1, 0).astype(np.int32)
-        lane_idx = np.maximum(off + t_valid - 1, 0)
-        dev = self._dev
-        extras = dict(block_table=dev(self._tables), write_pos=dev(wp[None]),
-                      kv_len=dev(kv_len), slot_ids=dev(sid))
-        snap_blocks = None
-        if drafts and self.quantized:
-            # the blocks the drafting slots' verify rows can touch: draft
-            # lanes fold with a clamped scale (draft_rows), and after
-            # verification the snapshot is restored and exactly the
-            # committed rows re-folded from the rows stage_rows hands back
-            bs = self.block_size
-            blks = []
-            for slot in sorted(drafts):
-                lo = int(self._lengths[slot])
-                hi = lo + int(t_valid[slot])
-                blks.extend(int(self._tables[slot, j])
-                            for j in range(lo // bs, -(-hi // bs)))
-            snap_blocks = np.full(self._snap_cap, TRASH_BLOCK, np.int64)
-            snap_blocks[:len(blks)] = blks
-            draft_rows = np.zeros(width, bool)
-            for slot in drafts:
-                draft_rows[off[slot] + 1:off[slot] + int(t_valid[slot])] = \
-                    True
-            extras.update(stage_rows=dev(np.zeros((), np.int32)),
-                          draft_rows=dev(draft_rows[None]))
-        if self._use_grid:
-            extras.update(self._grid_extras(t_valid, sid, off, width))
-        cache, fresh_np = self._step_cache(**extras)
-        tokens, pos_dev = dev(toks[None]), dev(positions[None])
-        if not drafts:
-            logits, _ = self._call_device(
-                self._packed_fn, tokens, pos_dev, cache,
-                dev(lane_idx.astype(np.int64)))
-            return self._sample_and_finish(live, t_valid, logits)
+            needed = int(np.where(
+                live, np.minimum(np.maximum(remaining, 1) + n_drafts,
+                                 self._chunk_cap), 0).sum())
+            needed = min(needed, self.token_budget)
+            width = next(w for w in self._widths if w >= needed)
+            if drafts:
+                # draft-worthwhileness gate: verify lanes only earn a WIDER
+                # rung when they fill at least half the extra lanes it pads
+                # in; drafts inside the plain rung are free. Dropping a
+                # step's drafts is just not drafting: outputs are unchanged.
+                plain = min(int(np.where(
+                    live, np.minimum(np.maximum(remaining, 1),
+                                     self._chunk_cap), 0).sum()),
+                    self.token_budget)
+                w_plain = next(w for w in self._widths if w >= plain)
+                if 2 * int(n_drafts.sum()) < width - w_plain:
+                    drafts = {}
+                    n_drafts[:] = 0
+                    width = w_plain
+            t_valid = schedule_step_tokens(live, remaining, width,
+                                           self._chunk_cap,
+                                           drafts=n_drafts if drafts
+                                           else None)
+            if drafts:
+                # the scheduler may truncate drafts to fit the budget
+                for slot in list(drafts):
+                    d = drafts[slot][:max(int(t_valid[slot]) - 1, 0)]
+                    n_drafts[slot] = len(d)
+                    if d:
+                        drafts[slot] = d
+                    else:
+                        del drafts[slot]
+            sid, off = pack_slot_ids(t_valid, width)
+            toks = np.zeros(width, np.int32)
+            positions = np.zeros(width, np.int32)
+            for slot in np.flatnonzero(t_valid > 0):
+                tv = int(t_valid[slot])
+                o = int(off[slot])
+                if remaining[slot] > 0:      # prefill chunk (budget-sized)
+                    pos = int(self._prompt_pos[slot])
+                    toks[o:o + tv] = self._feeds[slot][pos:pos + tv]
+                else:                        # decode: one lane (+ drafts)
+                    toks[o] = self._last[slot]
+                    if tv > 1:
+                        toks[o + 1:o + tv] = drafts[slot]
+                positions[o:o + tv] = (int(self._lengths[slot])
+                                       + np.arange(tv))
+            self.lanes_valid += int(t_valid.sum())
+            self.lanes_total += width
+            self._count_pad_lanes(live, remaining, t_valid, width)
+        with prof.phase("alloc_cow"):
+            draft_allocs = self._alloc_and_cow(
+                t_valid, remaining if drafts else None)
+        with prof.phase("schedule"):
+            wp = packed_write_positions(t_valid, off, self._tables,
+                                        self._lengths, self.block_size,
+                                        width)
+            kv_len = np.where(sid >= 0, positions + 1, 0).astype(np.int32)
+            lane_idx = np.maximum(off + t_valid - 1, 0)
+            dev = self._dev
+            extras = dict(block_table=self._device_tables(),
+                          write_pos=dev(wp[None]), kv_len=dev(kv_len),
+                          slot_ids=dev(sid))
+            snap_blocks = None
+            if drafts and self.quantized:
+                # the blocks the drafting slots' verify rows can touch:
+                # draft lanes fold with a clamped scale (draft_rows), and
+                # after verification the snapshot is restored and exactly
+                # the committed rows re-folded from the rows stage_rows
+                # hands back
+                bs = self.block_size
+                blks = []
+                for slot in sorted(drafts):
+                    lo = int(self._lengths[slot])
+                    hi = lo + int(t_valid[slot])
+                    blks.extend(int(self._tables[slot, j])
+                                for j in range(lo // bs, -(-hi // bs)))
+                snap_blocks = np.full(self._snap_cap, TRASH_BLOCK, np.int64)
+                snap_blocks[:len(blks)] = blks
+                draft_rows = np.zeros(width, bool)
+                for slot in drafts:
+                    draft_rows[off[slot] + 1:
+                               off[slot] + int(t_valid[slot])] = True
+                extras.update(stage_rows=dev(np.zeros((), np.int32)),
+                              draft_rows=dev(draft_rows[None]))
+            if self._use_grid:
+                extras.update(self._grid_extras(t_valid, sid, off, width))
+            cache, fresh_np = self._step_cache(**extras)
+            tokens, pos_dev = dev(toks[None]), dev(positions[None])
+            if drafts:
+                # verify lanes: row i of a drafting slot is its i-th packed
+                # lane (clamped to its last); other slots repeat their
+                # sampling lane
+                lane_grid = np.tile(lane_idx[:, None],
+                                    (1, self.draft_len + 1))
+                for slot in drafts:
+                    lane_grid[slot] = off[slot] + np.minimum(
+                        np.arange(self.draft_len + 1), int(t_valid[slot]) - 1)
+                lanes = dev(lane_grid.astype(np.int64))
+            else:
+                lanes = dev(lane_idx.astype(np.int64))
         snap = staged = None
-        if snap_blocks is not None:
-            # a copy, before the forward writes the pools in place (its
-            # fresh-block reset and folds included)
-            with torch.inference_mode():
-                snap = _gather_block_state(self._cache["layers"],
-                                           dev(snap_blocks))
-        # verify lanes: row i of a drafting slot is its i-th packed lane
-        # (clamped to its last); other slots repeat their sampling lane
-        lane_grid = np.tile(lane_idx[:, None], (1, self.draft_len + 1))
-        for slot in drafts:
-            lane_grid[slot] = off[slot] + np.minimum(
-                np.arange(self.draft_len + 1), int(t_valid[slot]) - 1)
-        logits, out = self._call_device(
-            self._packed_spec_fn, tokens, pos_dev, cache,
-            dev(lane_grid.astype(np.int64)))
-        if snap is not None:
-            staged = (out["layers"]["staged_k"], out["layers"]["staged_v"])
+        with prof.phase("device"):
+            if not drafts:
+                logits, _ = self._call_device(self._packed_fn, tokens,
+                                              pos_dev, cache, lanes)
+            else:
+                if snap_blocks is not None:
+                    # a copy, before the forward writes the pools in place
+                    # (its fresh-block reset and folds included)
+                    with torch.inference_mode():
+                        snap = _gather_block_state(self._cache["layers"],
+                                                   dev(snap_blocks))
+                logits, out = self._call_device(self._packed_spec_fn, tokens,
+                                                pos_dev, cache, lanes)
+                if snap is not None:
+                    staged = (out["layers"]["staged_k"],
+                              out["layers"]["staged_v"])
+            self._fence()
+        if not drafts:
+            return self._sample_and_finish(live, t_valid, logits)
         return self._verify_and_finish(live, t_valid, drafts, off, wp,
                                        logits, draft_allocs, snap_blocks,
                                        snap, staged, fresh_np)
 
+    # ------------------------------------------- pipelined async loop --
+
+    def _step_packed_async(self) -> list[Request]:
+        """One step of the pipelined loop: dispatch step N+1's packed batch,
+        THEN commit step N's, so step N's host bookkeeping overlaps step
+        N+1 on the card.
+
+        Overlap needs step N+1's schedule not to depend on step N's token
+        values: true exactly when every live slot samples greedily and
+        nothing drafts. Otherwise the step commits and then runs the sync
+        step. Step N's commit can still end a slot: at its token budget or
+        the decode cache-full bound, both predictable without the token,
+        so those slots stay out of the dispatch; an EOS slot gets one extra
+        in-flight step whose writes die with the slot's release."""
+        live = self._live
+        hot = bool((live & (self._temps > 0.0)).any())
+        if self.speculative or hot:
+            finished = self._commit_pending()
+            if self._live.any():
+                self.async_sync_fallbacks += 1
+                finished.extend(self._step_packed_sync())
+            return finished
+        p = self._pending
+        sched_live = live.copy()
+        if p is not None:
+            # slots whose pending sample finishes them at commit: scheduling
+            # them would grow frontiers past their end
+            for slot in np.flatnonzero(p["samples"] & ~p["dead"] & live):
+                req = self._slots[slot]
+                if req is None:
+                    continue
+                if (len(req.out_tokens) + 1 >= req.max_new_tokens
+                        or (not p["was_prefill"][slot]
+                            and p["lengths_after"][slot]
+                            >= self.max_len - 1)):
+                    sched_live[slot] = False
+        if not sched_live.any():
+            return self._commit_pending()
+        new_pending = self._dispatch_packed_async(sched_live)
+        old, self._pending = self._pending, new_pending
+        if old is None:
+            return []
+        self.async_overlapped_steps += 1
+        # commits that finish or fail a slot dead-mark new_pending through
+        # _release_slot: the in-flight step's writes for it become inert
+        return self._commit_pending_record(old)
+
+    def _dispatch_packed_async(self, live) -> dict:
+        """Schedule, allocate and enqueue one packed step WITHOUT waiting
+        for its results (the greedy front half of _step_packed_sync, no
+        drafts). Advances _lengths/_prompt_pos at dispatch, so the next
+        dispatch schedules against the post-step state, and returns the
+        pending record _commit_pending lands one step later. Raises
+        BlockPoolExhausted with its journal unwound, as the sync path."""
+        prof = self.telemetry.profiler
+        self.occupancy_sum += float(live.mean())
+        self.occupancy_steps += 1
+        p = self._pending
+        with prof.phase("schedule"):
+            remaining = np.zeros(self.max_batch, np.int64)
+            for slot in np.flatnonzero(live):
+                remaining[slot] = (len(self._feeds[slot])
+                                   - int(self._prompt_pos[slot]))
+            needed = int(np.where(
+                live, np.minimum(np.maximum(remaining, 1), self._chunk_cap),
+                0).sum())
+            needed = min(needed, self.token_budget)
+            width = next(w for w in self._widths if w >= needed)
+            t_valid = schedule_step_tokens(live, remaining, width,
+                                           self._chunk_cap)
+            sid, off = pack_slot_ids(t_valid, width)
+            toks = np.zeros(width, np.int32)
+            # decode-lane token indirection: tok_src[lane] = the slot whose
+            # token is the in-flight step's device sample (not landed on
+            # the host); -1 = fed from toks
+            tok_src = np.full(width, -1, np.int32)
+            positions = np.zeros(width, np.int32)
+            for slot in np.flatnonzero(t_valid > 0):
+                tv = int(t_valid[slot])
+                o = int(off[slot])
+                if remaining[slot] > 0:      # prefill chunk (host tokens)
+                    pos = int(self._prompt_pos[slot])
+                    toks[o:o + tv] = self._feeds[slot][pos:pos + tv]
+                elif (p is not None and p["samples"][slot]
+                        and not p["dead"][slot]):
+                    tok_src[o] = slot        # step N's device sample
+                else:
+                    toks[o] = self._last[slot]
+                positions[o:o + tv] = (int(self._lengths[slot])
+                                       + np.arange(tv))
+            self.lanes_valid += int(t_valid.sum())
+            self.lanes_total += width
+            self._count_pad_lanes(live, remaining, t_valid, width)
+        with prof.phase("alloc_cow"):
+            self._alloc_and_cow(t_valid)
+        with prof.phase("schedule"):
+            wp = packed_write_positions(t_valid, off, self._tables,
+                                        self._lengths, self.block_size,
+                                        width)
+            kv_len = np.where(sid >= 0, positions + 1, 0).astype(np.int32)
+            lane_idx = np.maximum(off + t_valid - 1, 0)
+            dev = self._dev
+            extras = dict(block_table=self._device_tables(),
+                          write_pos=dev(wp[None]), kv_len=dev(kv_len),
+                          slot_ids=dev(sid))
+            if self._use_grid:
+                extras.update(self._grid_extras(t_valid, sid, off, width))
+            cache, _ = self._step_cache(**extras)
+            if p is not None:
+                prev = p["sampled"]
+            else:
+                prev = torch.zeros(self.max_batch, dtype=torch.int32,
+                                   device=self.device)
+            args = (dev(toks[None]), dev(tok_src), prev,
+                    dev(positions[None]), cache,
+                    dev(lane_idx.astype(np.int64)))
+        with prof.phase("device"):
+            # no fence: landing the results is _commit_pending's job, one
+            # step later. The sampled tokens go to pinned memory by a
+            # non-blocking copy whose event the commit waits on.
+            logits, sampled, _ = self._call_device(self._packed_async_fn,
+                                                   *args)
+            event = None
+            if self.device.type == "cuda":
+                host = torch.empty(self.max_batch, dtype=torch.int32,
+                                   pin_memory=True)
+                with torch.inference_mode():
+                    host.copy_(sampled, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+            else:
+                host = sampled
+        with prof.phase("sample"):
+            # the frontier advance AT DISPATCH (the commit reads the
+            # record's snapshots, never the advanced arrays)
+            feed_len = np.asarray([len(f) if f is not None else 1 << 30
+                                   for f in self._feeds])
+            samples = live & (self._prompt_pos + t_valid >= feed_len)
+            was_prefill = live & (self._prompt_pos < feed_len)
+            self._lengths_dev = None
+            for slot in np.flatnonzero(live):
+                tv = int(t_valid[slot])
+                self._lengths[slot] += tv
+                self._prompt_pos[slot] = min(self._prompt_pos[slot] + tv,
+                                             feed_len[slot])
+        return {
+            "live": live.copy(),
+            "samples": samples,
+            "was_prefill": was_prefill,
+            "lengths_after": self._lengths.copy(),
+            "prompt_pos_after": self._prompt_pos.copy(),
+            "logits": logits,                # on the card, not landed
+            "sampled": sampled,              # the next step's indirection
+            "host": host,                    # lands when `event` completes
+            "event": event,
+            "dead": np.zeros(self.max_batch, bool),
+        }
+
+    def _commit_pending(self) -> list[Request]:
+        """Land and commit the in-flight step, if any (the drain: sync
+        fallbacks, empty schedules, step()'s no-live-work branch). Pops the
+        record FIRST, so releases inside the commit do not dead-mark the
+        record being committed."""
+        p, self._pending = self._pending, None
+        if p is None:
+            return []
+        return self._commit_pending_record(p)
+
+    def _commit_pending_record(self, p) -> list[Request]:
+        """The host back half of a pipelined step, one step late: wait for
+        the step's sampled tokens, then run _sample_and_finish's commit loop
+        against the record's SNAPSHOTS (the live arrays already hold the
+        next step's advance). Slots released since dispatch are dead-marked
+        and skipped. Registration passes the record's own coverage, so no
+        block the in-flight next step writes is registered."""
+        prof = self.telemetry.profiler
+        with prof.phase("device"):
+            # the profiler's fence moves here from the dispatch: device time
+            # lands on the step whose results are being landed
+            self._fence()
+        finished: list[Request] = []
+        with prof.phase("sample"):
+            live = p["live"] & ~p["dead"]
+            samples = p["samples"] & ~p["dead"]
+            # the unprofiled async step's one host sync
+            if p["event"] is not None:
+                p["event"].synchronize()
+            sampled = p["host"].numpy()
+            if self._robust and self._adm.nan_check:
+                bad = (~torch.isfinite(p["logits"]).all(-1)).cpu().numpy()
+                for slot in np.flatnonzero(samples & bad):
+                    finished.append(self._fail_slot(int(slot),
+                                                    "nan_logits"))
+                    live[slot] = False
+                    samples[slot] = False
+        for slot in np.flatnonzero(live):
+            req = self._slots[slot]
+            if req is None:
+                continue
+            if self.prefix_sharing and (p["was_prefill"][slot]
+                                        or self.decode_sharing):
+                covered = (int(p["lengths_after"][slot])
+                           if self.decode_sharing
+                           else min(int(p["prompt_pos_after"][slot]),
+                                    len(req.prompt)))
+                with prof.phase("register"):
+                    self._register_blocks(slot, req, covered=covered)
+            if not samples[slot]:
+                continue                     # still mid-prompt at dispatch
+            tok = int(sampled[slot])
+            req.out_tokens.append(tok)
+            if self.telemetry.enabled and len(req.out_tokens) == 1:
+                self.telemetry.metrics.on_first_token(req.uid)
+            self._last[slot] = tok
+            if (len(req.out_tokens) >= req.max_new_tokens or
+                    (self.eos_id is not None and tok == self.eos_id) or
+                    (not p["was_prefill"][slot] and
+                     p["lengths_after"][slot] >= self.max_len - 1)):
+                finished.append(self._finish(slot))
+        return finished
+
     def _sample_and_finish(self, live, t_valid, logits) -> list[Request]:
         """Sample each slot that produced a next token, advance frontiers,
         register prefixes, finish slots at budget/EOS/cache-full."""
-        feed_len = np.asarray([len(f) if f is not None else 1 << 30
-                               for f in self._feeds])
-        samples = live & (self._prompt_pos + t_valid >= feed_len)
-        finished: list[Request] = []
-        if self._robust and self._adm.nan_check:
-            # only rows about to be sampled matter (the KV write is not
-            # affected): a non-finite one fails its request with a reason
-            bad = (~torch.isfinite(logits).all(-1)).cpu().numpy()
-            for slot in np.flatnonzero(samples & bad):
-                finished.append(self._fail_slot(int(slot), "nan_logits"))
-                live[slot] = False
-                samples[slot] = False
-        nxt = sample_tokens(logits)
+        prof = self.telemetry.profiler
+        with prof.phase("sample"):
+            feed_len = np.asarray([len(f) if f is not None else 1 << 30
+                                   for f in self._feeds])
+            samples = live & (self._prompt_pos + t_valid >= feed_len)
+            finished: list[Request] = []
+            if self._robust and self._adm.nan_check:
+                # only rows about to be sampled matter (the KV write is not
+                # affected): a non-finite one fails its request with a
+                # reason
+                bad = (~torch.isfinite(logits).all(-1)).cpu().numpy()
+                for slot in np.flatnonzero(samples & bad):
+                    finished.append(self._fail_slot(int(slot), "nan_logits"))
+                    live[slot] = False
+                    samples[slot] = False
+            # non-sampling slots go greedy (temp 0): their uid/index rows
+            # are placeholders that never reach the categorical path
+            nxt = sample_tokens(
+                self._key, logits, np.where(samples, self._temps, 0.0),
+                [r.uid if r else 0 for r in self._slots],
+                [len(r.out_tokens) if r else 0 for r in self._slots])
+        self._lengths_dev = None             # frontiers advance below
         for slot in np.flatnonzero(live):
             req = self._slots[slot]
             tv = int(t_valid[slot])
@@ -1666,11 +2079,14 @@ class PagedEngine:
             if self.prefix_sharing and (was_prefill or self.decode_sharing):
                 # before any _finish below, so a block completed on a
                 # terminating step is still cached
-                self._register_blocks(slot, req)
+                with prof.phase("register"):
+                    self._register_blocks(slot, req)
             if not samples[slot]:
                 continue                     # still mid-prompt
             tok = int(nxt[slot])
             req.out_tokens.append(tok)
+            if self.telemetry.enabled and len(req.out_tokens) == 1:
+                self.telemetry.metrics.on_first_token(req.uid)
             self._last[slot] = tok
             # the cache-full guard only applies to decode-written KV
             if (len(req.out_tokens) >= req.max_new_tokens or
@@ -1683,11 +2099,13 @@ class PagedEngine:
     def _verify_and_finish(self, live, t_valid, drafts, off, wp, logits,
                            draft_allocs, snap_blocks, snap, staged,
                            fresh_np) -> list[Request]:
-        """Speculative step tail: take every verify lane's greedy token (the
-        token a never-drafted engine samples at that position), accept the
-        longest draft prefix that matches, emit the accepted run plus the
-        model's own token at the first mismatch, then roll the rejected
-        lanes back so the step leaves no trace of them:
+        """Speculative step tail: sample EVERY verify lane with the owning
+        request's per-(uid, position) key (lane i of a drafting slot is
+        generation index len(out_tokens) + i: the token a never-drafted
+        engine samples there), accept the longest draft prefix that
+        matches, emit the accepted run plus the model's own token at the
+        first mismatch, then roll the rejected lanes back so the step
+        leaves no trace of them:
           * host: draft-only allocations freed in REVERSE allocation order
             (restores the free list exactly), table entries back to -1,
             decremented reservations returned;
@@ -1697,18 +2115,35 @@ class PagedEngine:
             (_restore_and_replay) after EVERY verify step, accepted or not.
         Finishes are deferred until after the rollback, so their frees
         append to a free list the rollback already restored."""
+        prof = self.telemetry.profiler
         bs = self.block_size
         width = wp.shape[0]
         kk1 = logits.shape[1]
-        feed_len = np.asarray([len(f) if f is not None else 1 << 30
-                               for f in self._feeds])
-        samples = live & (self._prompt_pos + t_valid >= feed_len)
-        toks = sample_tokens(logits.reshape(-1, logits.shape[-1])).reshape(
-            self.max_batch, kk1)
+        with prof.phase("sample"):
+            feed_len = np.asarray([len(f) if f is not None else 1 << 30
+                                   for f in self._feeds])
+            samples = live & (self._prompt_pos + t_valid >= feed_len)
+            # one flat sampling batch over (slot, verify lane); rows past a
+            # slot's verify lanes, and every row of a slot not sampling,
+            # go greedy (temp 0) and are discarded
+            n_ver = np.ones(self.max_batch, np.int64)
+            for slot, d in drafts.items():
+                n_ver[slot] = 1 + len(d)
+            col = np.arange(kk1)[None, :]
+            do = samples[:, None] & (col < n_ver[:, None])
+            uids = np.asarray([r.uid if r else 0 for r in self._slots])
+            gen0 = np.asarray([len(r.out_tokens) if r else 0
+                               for r in self._slots])
+            toks = sample_tokens(
+                self._key, logits.reshape(-1, logits.shape[-1]),
+                np.where(do, self._temps[:, None], 0.0).reshape(-1),
+                np.repeat(uids, kk1), (gen0[:, None] + col).reshape(-1),
+            ).reshape(self.max_batch, kk1)
         finished_slots: list[int] = []
         replay = np.zeros(width, bool)       # committed verify lanes
         keep_blocks: dict[int, int] = {}     # slot -> committed block count
         any_reject = False
+        self._lengths_dev = None             # frontiers advance below
         for slot in np.flatnonzero(live):
             req = self._slots[slot]
             tv = int(t_valid[slot])
@@ -1721,11 +2156,14 @@ class PagedEngine:
                                              feed_len[slot])
                 if self.prefix_sharing and (was_prefill
                                             or self.decode_sharing):
-                    self._register_blocks(slot, req)
+                    with prof.phase("register"):
+                        self._register_blocks(slot, req)
                 if not samples[slot]:
                     continue                 # still mid-prompt
                 tok = int(toks[slot, 0])
                 req.out_tokens.append(tok)
+                if self.telemetry.enabled and len(req.out_tokens) == 1:
+                    self.telemetry.metrics.on_first_token(req.uid)
                 self._last[slot] = tok
                 if (len(req.out_tokens) >= req.max_new_tokens or
                         (self.eos_id is not None and tok == self.eos_id) or
@@ -1769,46 +2207,53 @@ class PagedEngine:
             self._lengths[slot] += m
             req.out_tokens.extend(emitted)
             if self.decode_sharing:
-                self._register_blocks(slot, req)
+                with prof.phase("register"):
+                    self._register_blocks(slot, req)
             self._last[slot] = emitted[-1]
             if fin:
                 finished_slots.append(slot)
-        for slot, jdx, blk, resv_dec in reversed(draft_allocs):
-            if jdx < keep_blocks[slot]:
-                continue                     # covered by committed rows
-            self.alloc.free([blk])
-            self._tables[slot, jdx] = -1
-            if resv_dec:
-                self._resv[slot] += 1
-        if any_reject:
-            self.spec_rollbacks += 1
-        if snap is not None:
-            # snapshot blocks allocated this step AND still held get zeroed
-            # scales; freed draft blocks keep their restored stale state
-            held = set()
-            for slot in drafts:
-                row = self._tables[slot]
-                held.update(int(b) for b in row[row >= 0])
-            fresh_live = ((set(int(b) for b in fresh_np) & held)
-                          - {TRASH_BLOCK})
-            fresh_mask = np.asarray(
-                [int(b) in fresh_live for b in snap_blocks], bool)
-            replay_pos = np.where(
-                replay, wp.astype(np.int64),
-                TRASH_BLOCK * bs + np.arange(width, dtype=np.int64) % bs)
-            with torch.inference_mode():
-                _restore_and_replay(
-                    self._cache["layers"], snap, self._dev(snap_blocks),
-                    self._dev(fresh_mask), staged[0], staged[1],
-                    self._dev(replay_pos.astype(np.int32)[None]))
+        with prof.phase("rollback"):
+            for slot, jdx, blk, resv_dec in reversed(draft_allocs):
+                if jdx < keep_blocks[slot]:
+                    continue                 # covered by committed rows
+                self.alloc.free([blk])
+                self._tables[slot, jdx] = -1
+                self._tables_dev = None
+                if resv_dec:
+                    self._resv[slot] += 1
+            if any_reject:
+                self.spec_rollbacks += 1
+            if snap is not None:
+                # snapshot blocks allocated this step AND still held get
+                # zeroed scales; freed draft blocks keep their restored
+                # stale state
+                held = set()
+                for slot in drafts:
+                    row = self._tables[slot]
+                    held.update(int(b) for b in row[row >= 0])
+                fresh_live = ((set(int(b) for b in fresh_np) & held)
+                              - {TRASH_BLOCK})
+                fresh_mask = np.asarray(
+                    [int(b) in fresh_live for b in snap_blocks], bool)
+                replay_pos = np.where(
+                    replay, wp.astype(np.int64),
+                    TRASH_BLOCK * bs + np.arange(width, dtype=np.int64) % bs)
+                with torch.inference_mode():
+                    _restore_and_replay(
+                        self._cache["layers"], snap, self._dev(snap_blocks),
+                        self._dev(fresh_mask), staged[0], staged[1],
+                        self._dev(replay_pos.astype(np.int32)[None]))
         return [self._finish(slot) for slot in finished_slots]
 
     # --------------------------------------------------------------- run --
 
     @property
     def busy(self) -> bool:
-        """True while the engine has queued or in-flight requests."""
-        return bool(self._queue) or bool(self._live.any())
+        """True while the engine has queued or in-flight requests; an
+        uncommitted pipelined step counts (its tokens have not landed in
+        Request.out_tokens yet)."""
+        return (bool(self._queue) or bool(self._live.any())
+                or self._pending is not None)
 
     def step(self) -> list[Request]:
         """Admit from the queue and run ONE step (packed, or a lockstep
@@ -1821,40 +2266,53 @@ class PagedEngine:
         failing phase unwound its allocations, so state is exactly pre-step;
         a victim is preempted (the lowest class, most recently admitted,
         possibly the slot that needed to grow) and the next step retries."""
-        finished: list[Request] = []
-        if self._robust:
-            finished.extend(self._expire_deadlines(self._clock()))
-        self._admit()
-        if not self._live.any():
-            # a robust queue may stall head-of-line (no preemptible lower
-            # class); without the layer a stalled queue beside a free pool
-            # is a scheduling bug
-            assert self._robust or not self._queue, \
-                "admission stalled with free pool"
+        prof = self.telemetry.profiler
+        with prof.step():
+            finished: list[Request] = []
+            with prof.phase("admit"):
+                if self._robust:
+                    finished.extend(self._expire_deadlines(self._clock()))
+                self._admit()
+            if self.telemetry.enabled:
+                self.telemetry.metrics.sample_queue_depth()
+            if not self._live.any():
+                if self._pending is not None:
+                    # the pipeline's drain: every live slot ended at the
+                    # last commit (or was released), one dispatched step is
+                    # still in flight; land it
+                    finished.extend(self._commit_pending())
+                    return finished
+                # a robust queue may stall head-of-line (no preemptible
+                # lower class); without the layer a stalled queue beside a
+                # free pool is a scheduling bug
+                assert self._robust or not self._queue, \
+                    "admission stalled with free pool"
+                return finished
+            try:
+                if self.packed:
+                    finished.extend(self._step_packed())
+                else:
+                    prefilling = any(
+                        self._prompt_pos[s] < len(self._feeds[s])
+                        for s in np.flatnonzero(self._live))
+                    finished.extend(
+                        self._step(self.block_size if prefilling else 1))
+            except BlockPoolExhausted:
+                if not (self._robust and self._adm.graceful_exhaustion):
+                    raise
+                self.robust_counters.exhaustion_events += 1
+                victim = choose_victim(np.flatnonzero(self._live),
+                                       self._prio, self._admit_seq)
+                if victim is not None:
+                    self._preempt_slot(int(victim))
+            except DeviceStepFailed:
+                # a device failure past max_device_retries (robust mode
+                # only): fail every live slot with a reason instead of
+                # wedging the engine
+                for slot in np.flatnonzero(self._live):
+                    finished.append(self._fail_slot(int(slot),
+                                                    "device_error"))
             return finished
-        try:
-            if self.packed:
-                finished.extend(self._step_packed_sync())
-            else:
-                prefilling = any(self._prompt_pos[s] < len(self._feeds[s])
-                                 for s in np.flatnonzero(self._live))
-                finished.extend(
-                    self._step(self.block_size if prefilling else 1))
-        except BlockPoolExhausted:
-            if not (self._robust and self._adm.graceful_exhaustion):
-                raise
-            self.robust_counters.exhaustion_events += 1
-            victim = choose_victim(np.flatnonzero(self._live),
-                                   self._prio, self._admit_seq)
-            if victim is not None:
-                self._preempt_slot(int(victim))
-        except DeviceStepFailed:
-            # a device failure past max_device_retries (robust mode only):
-            # fail every live slot with a reason instead of wedging the
-            # engine
-            for slot in np.flatnonzero(self._live):
-                finished.append(self._fail_slot(int(slot), "device_error"))
-        return finished
 
     def run(self) -> list[Request]:
         """Serve the whole queue; returns finished requests (uid order
@@ -1863,3 +2321,17 @@ class PagedEngine:
         while self.busy:
             finished.extend(self.step())
         return finished
+
+    def snapshot(self) -> dict:
+        """The schema-versioned telemetry snapshot (T.make_snapshot):
+        lifecycle latencies and step phases when telemetry is on, with the
+        prefix, padding, KV-byte, occupancy and robustness counters."""
+        return T.make_snapshot(
+            "paged", self.telemetry,
+            kv_cache=kv_cache_byte_stats(self._cache, self.cfg, None),
+            occupancy=(self.occupancy_sum / self.occupancy_steps
+                       if self.occupancy_steps else None),
+            prefix=self.prefix_stats(),
+            padding=self.padding_stats(),
+            robustness=(self.robust_counters.snapshot()
+                        if self._robust else None))

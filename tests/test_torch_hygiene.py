@@ -7,6 +7,7 @@ its configs are the JAX package's, field for field.
 """
 import ast
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -70,6 +71,7 @@ def test_every_port_module_imports_without_jax():
             "repro_torch.models.blocks", "repro_torch.kernels.decode",
             "repro_torch.serve.engine", "repro_torch.serve.continuous",
             "repro_torch.serve.paged", "repro_torch.launch.serve",
+            "repro_torch.serve.prng", "repro_torch.serve.telemetry",
             "repro_torch.kernels.ops", "repro_torch.kernels.ref",
             "repro_torch.kernels.hccs", "repro_torch.kernels.softmax_bf16",
             "repro_torch.kernels.attention"} <= mods
@@ -85,8 +87,7 @@ UNPORTED = [
     "launch/mesh.py", "launch/roofline.py", "launch/train.py", "models/moe.py",
     "models/ssm.py", "optim/__init__.py", "optim/adamw.py",
     "optim/compression.py", "parallel/__init__.py", "parallel/sharding.py",
-    "serve/telemetry.py", "train/__init__.py", "train/loop.py",
-    "train/steps.py"]
+    "train/__init__.py", "train/loop.py", "train/steps.py"]
 
 
 def test_unported_modules_are_the_recorded_list():
@@ -127,36 +128,26 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         PagedEngine(params, cfg, device="meta")
 
 
-@pytest.mark.parametrize("engine,kw,cfg_kw", [
-    ("paged", dict(async_loop=True), {}),
-    ("paged", dict(telemetry=object()), {}),
-    ("continuous", dict(telemetry=object()), {}),
-    ("wave", dict(telemetry=object()), {}),
-], ids=["async", "telemetry", "continuous-telemetry", "wave-telemetry"])
-def test_unported_paths_raise(engine, kw, cfg_kw):
-    cfg = _cfg(**cfg_kw)
-    params = M.init_params(_cfg(), device="cpu")
-    cls = {"paged": PagedEngine, "lockstep": PagedEngine,
-           "continuous": ContinuousEngine, "wave": ServeEngine}[engine]
-    if engine == "lockstep":
-        kw = dict(kw, packed=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
-        cls(params, cfg, device="cpu", **kw)
-
-
 @pytest.mark.parametrize("engine,kw", [
     ("paged", dict(speculative=True)),
     ("paged", dict(admission=AdmissionConfig(max_queue=4))),
     ("continuous", dict(admission=AdmissionConfig(
         max_queue=4, backpressure="shed-lowest-priority"))),
-], ids=["speculative", "admission", "continuous-admission"])
+    ("paged", dict(async_loop=True)),
+    ("paged", dict(telemetry=True)),
+    ("continuous", dict(telemetry=True)),
+    ("wave", dict(telemetry=True)),
+], ids=["speculative", "admission", "continuous-admission", "async",
+        "telemetry", "continuous-telemetry", "wave-telemetry"])
 def test_ported_paths_serve(engine, kw):
     """The options that earlier slices refused now serve: speculative
-    decoding and the robustness layer on the paged engine, robust admission
-    on the continuous one (greedy requests run to completion)."""
+    decoding, the robustness layer and the async loop on the paged engine,
+    robust admission on the continuous one, telemetry on all three (greedy
+    requests run to completion; telemetry traces every one)."""
     cfg = _cfg()
     params = M.init_params(cfg, device="cpu")
-    cls = {"paged": PagedEngine, "continuous": ContinuousEngine}[engine]
+    cls = {"paged": PagedEngine, "continuous": ContinuousEngine,
+           "wave": ServeEngine}[engine]
     eng = cls(params, cfg, device="cpu", max_batch=2, max_len=64, **kw)
     rng = np.random.default_rng(0)
     reqs = [Request(uid=i, prompt=rng.integers(0, 50, 9).astype(np.int32),
@@ -169,6 +160,12 @@ def test_ported_paths_serve(engine, kw):
     if "admission" in kw:
         assert eng.robust_counters.snapshot()["per_class"]["0"][
             "finished"] == 3
+    if "async_loop" in kw:
+        assert eng.async_overlapped_steps > 0
+    if "telemetry" in kw:
+        snap = eng.snapshot()
+        assert snap["latency"]["requests"] == 3
+        assert snap["phases"]["steps"] > 0
 
 
 @pytest.mark.parametrize("engine", [ServeEngine, ContinuousEngine])
@@ -184,9 +181,10 @@ def test_unported_request_and_launcher_options_raise():
     cfg = _cfg()
     eng = PagedEngine(M.init_params(cfg, device="cpu"), cfg, device="cpu",
                       max_len=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
-        eng.submit(Request(uid=0, prompt=np.arange(4, dtype=np.int32),
-                           temperature=0.7))
+    hot = Request(uid=0, prompt=np.arange(4, dtype=np.int32),
+                  max_new_tokens=5, temperature=0.7)
+    eng.submit(hot)                      # temperature sampling serves
+    assert eng.run() == [hot] and hot.done and len(hot.out_tokens) == 5
     done = port_serve.main(["--arch", "granite-3-2b", "--reduced",
                             "--device", "cpu", "--speculative",
                             "--decode-sharing", "--turns", "2", "--requests",
@@ -282,6 +280,47 @@ def test_launcher_serves_every_scheduler_on_cpu(scheduler, capsys):
     done = port_serve.main(args)
     assert len(done) == 3 and all(len(r.out_tokens) == 3 for r in done)
     assert "served 3 requests" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags", [
+    ["--async-loop", "--scheduler", "wave"],
+    ["--async-loop", "--step-layout", "lockstep"],
+    ["--token-budget", "16", "--scheduler", "continuous"],
+    ["--arrival-rate", "2", "--scheduler", "wave"],
+    ["--arrival-rate", "2", "--turns", "2"],
+    ["--arrival-rate", "-1"],
+    ["--chaos", "0", "--arrival-rate", "2"],
+])
+def test_launcher_refuses_what_the_jax_launcher_refuses(flags):
+    with pytest.raises(SystemExit):
+        port_serve.main(["--arch", "granite-3-2b", "--reduced", "--device",
+                         "cpu"] + flags)
+
+
+@pytest.mark.parametrize("mode", ["async-trace", "open-loop"])
+def test_launcher_async_telemetry_and_open_loop(mode, tmp_path, capsys):
+    """--async-loop with --trace-out prints the snapshot and writes a
+    Chrome trace that parses line by line; --arrival-rate serves every
+    request open-loop through drive_open_loop."""
+    args = ["--arch", "granite-3-2b", "--reduced", "--device", "cpu",
+            "--requests", "3", "--prompt-len", "9", "--new-tokens", "3",
+            "--block-size", "8", "--decode-kernel", "none"]
+    trace = tmp_path / "trace.jsonl"
+    if mode == "async-trace":
+        args += ["--async-loop", "--token-budget", "16", "--trace-out",
+                 str(trace)]
+    else:
+        args += ["--arrival-rate", "50"]
+    done = port_serve.main(args)
+    assert len(done) == 3 and all(len(r.out_tokens) == 3 for r in done)
+    out = capsys.readouterr().out
+    assert "telemetry snapshot (schema v2, engine=paged)" in out
+    if mode == "async-trace":
+        assert "async loop:" in out and "0 sync fallbacks" in out
+        events = [json.loads(ln) for ln in trace.read_text().splitlines()]
+        assert events and {e["cat"] for e in events} == {"step", "phase"}
+    else:
+        assert "open-loop at 50 req/s" in out
 
 
 def test_decode_wrappers_on_cpu_count_no_launch():
