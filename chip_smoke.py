@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, one CUDA card
     python3 chip_smoke.py --phases 1,2,3,6,7,11,12,13   # the kernel checks
+    python3 chip_smoke.py --phases 1,2,24,25,26,27       # calibrate, train
 
 Builds the CUDA kernels from the sources in this checkout, holds every
 kernel against its plain PyTorch version on the card, drives the port's
@@ -34,7 +35,8 @@ Phases, in order:
   8 lockstep    lockstep PagedEngine on phase 5's requests, twice, then
                 once profiled; its tokens held to phase 5's by the near-tie
                 rule (ROADMAP C1: every request's first divergence must be
-                a near tie of the model's logits)
+                a near tie of the model's logits and of both paths' own
+                logits, tapped on the profiled runs)
   9 continuous  ContinuousEngine on phase 5's requests, the same way
  10 wave        ServeEngine on 8 requests of 512 prompt tokens, the same
                 way, held to the packed engine on the same requests
@@ -66,7 +68,8 @@ Phases, in order:
                 prefix: hits, COW, turn 2's skip rate, the int8/f32 byte
                 ratio, 80 fold and 40 packed launches a step; twice, once
                 profiled; then sharing off and an f32 pool, each held to it
-                by the near-tie rule
+                by the near-tie rule (a later turn after a diverged history
+                held to the sharing engine's serving of its own prompt)
  17 grid        the packed PagedEngine without the kernel (the per-slot STE
                 grid) on phase 5's requests, profiled once, held to phase 5
                 by the near-tie rule
@@ -96,8 +99,7 @@ Phases, in order:
                 fallback, 40 packed launches a step; walls and idle share
                 on against off); then phase 16's sessions (int8, sharing)
                 the same way (80 fold and 40 packed launches a step), held
-                to phase 16's tokens (identical, or near ties where the
-                queued request's admission moves a step)
+                to phase 16's tokens by the near-tie rule
  22 telemetry   Telemetry(enabled=True) on phase 5's traffic, sync and
                 async: phase coverage >= 0.9, tokens identical to
                 telemetry off, the Chrome trace parses line by line; each
@@ -109,7 +111,26 @@ Phases, in order:
                 (the count of tokens that differ, each a tie on the CPU);
                 an async run of it falls back to the sync step every step
                 with identical tokens
- 24 report      one JSON line per the kernel table
+ 24 calibrate   offline per-head calibration at full width: granite
+                with softmax captures its attention logits on 2 LM batches
+                of 2 x 256 tokens, 64 rows a head, scales amax / 127,
+                calibrate_heads(per_head, i16_div) over the 589 feasible
+                theta through the hccs_rows kernel (launches counted);
+                8 heads redone on the CPU must pick the card's theta (or
+                tie its KL)
+ 25 train       QAT with theta frozen at full width: HCCS with the
+                calibrated theta, remat on, 4 AdamW steps of 4 x 512 LM
+                tokens through make_train_step and train_loop, then 2 with
+                int8 gradient compression; finite losses, weights moved,
+                theta unchanged bit for bit, peak memory; one step at 2
+                layers against the CPU path (loss, gradients, update)
+ 26 checkpoint  at 2 layers: save at step 2, restore bit for bit, resume;
+                the resumed losses equal the uninterrupted run's within
+                the card's run-to-run spread
+ 27 serve       the trained, calibrated model serves 4 requests x 16 new
+                tokens through the packed PagedEngine (40 packed launches
+                a step)
+ 28 report      one JSON line per the kernel table
 
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero before it. `--phases` runs a subset (for bring-up).
@@ -119,7 +140,9 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -132,8 +155,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import kernels as KAPI  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.checkpoint.manager import _flatten as ckpt_flatten  # noqa
+from repro_torch.configs.base import TrainConfig  # noqa: E402
+from repro_torch.core.calibrate import _head_inputs as head_inputs  # noqa
+from repro_torch.core.calibrate import _kl_for_grid as kl_for_grid  # noqa
+from repro_torch.core.calibrate import (calibrate_heads,  # noqa: E402
+                                        calibrate_rows,
+                                        collect_attention_logits)
 from repro_torch.core.constraints import (default_params,  # noqa: E402
                                           feasible_grid, validate_params)
+from repro_torch.data import LMStream, LMStreamConfig  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.attention import (fused_plan,  # noqa: E402
                                            fused_smem_bytes, hccs_mha_fused,
@@ -153,17 +185,23 @@ from repro_torch.kernels.kv_quant import (fold_smem_bytes,  # noqa: E402
 from repro_torch.kernels.softmax_bf16 import (softmax_bf16,  # noqa: E402
                                               softmax_bf16_ref)
 from repro_torch.models import model as M  # noqa: E402
-from repro_torch.models.attention import _blockwise_attention  # noqa: E402
+from repro_torch.models.attention import (  # noqa: E402
+    _blockwise_attention, capture_attention_logits)
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serve import (AdmissionConfig,  # noqa: E402
                                ChaosMonkey, ContinuousEngine, ServeEngine,
                                Telemetry, assert_drained, check_invariants,
                                drive_open_loop, prng)
+from repro_torch.serve import continuous as serve_continuous  # noqa: E402
+from repro_torch.serve import engine as serve_engine  # noqa: E402
 from repro_torch.serve import paged as serve_paged  # noqa: E402
 from repro_torch.serve.engine import (kv_cache_byte_stats,  # noqa: E402
                                       sample_tokens)
 from repro_torch.serve.paged import (PagedEngine, Request,  # noqa: E402
                                      pack_slot_ids, packed_write_positions,
                                      schedule_step_tokens)
+from repro_torch.train import (make_train_step,  # noqa: E402
+                               train_loop, train_state_from_params)
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12                # H100 SXM, f32 outside the tensor cores
@@ -728,10 +766,12 @@ def phase_engine():
     cfg, params = engine_model()
     prompts = smoke_prompts(cfg)
     plens = [len(p) for p in prompts]
-    runs, kernels_per_call, busy_ms = [], None, None
+    runs, kernels_per_call, busy_ms, tap = [], None, None, None
     for rep in range(3):
         eng = PagedEngine(params, cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
                           block_size=BS, device="cuda")
+        if rep == 2:                # the reference's own logits (C1)
+            tap = LogitTap(eng)
         for i, p in enumerate(prompts):
             eng.submit(Request(uid=i, prompt=p.copy(), max_new_tokens=32))
         torch.cuda.synchronize()
@@ -769,7 +809,7 @@ def phase_engine():
     for toks in runs[0][0].values():
         check(all(0 <= t < cfg.vocab_size for t in toks), "token off vocab")
     return runs[0][1], runs[0][0], kernels_per_call, dict(
-        busy_ms=busy_ms, walls=[r[3] for r in runs[:2]])
+        busy_ms=busy_ms, walls=[r[3] for r in runs[:2]], own=tap.own)
 
 
 # ----------------------------------------------------------- phases 6, 7 --
@@ -987,8 +1027,10 @@ KERNEL_SYMBOLS = {"hccs_packed_prefill": "PackedRows",
 # 4x the largest gap seen. A forced wrong token gave 1.78.
 NEAR_TIE_GAP = 0.25
 
-# Phases 18-19 also hold each first divergence to the two paths' OWN logits
-# (LogitTap): at position k both paths saw the same context, so each one's
+# Every path compared also holds each first divergence to the two paths'
+# OWN logits (LogitTap on the PagedEngine, SampleTap on the slot-arena
+# engines; phases 8-10, 16-19 and 21): at position k both paths saw the
+# same context, so each one's
 # margin between its token and the other's, in the numerics that chose
 # it, must be a near tie (at most OWN_TIE_GAP). The f32-KV forward above
 # measures that gap in a third model (f32 KV against the paths' int8 KV).
@@ -1005,39 +1047,112 @@ TAP_K = 16                      # logits kept per sampled position
 class LogitTap:
     """A PagedEngine's own logits at every token it samples: wraps its
     three device seams to keep the top TAP_K logits of each returned row
-    (with the live slots' requests and token counts), and its step() to
-    file each request's new tokens: own[(uid, k)] = (values, token ids) of
-    the logits that chose token k (row (slot, i) of a verify step chose
-    the slot's i-th new token)."""
+    (with the live slots' requests and token counts), its step() to file
+    each request's new tokens, and its async commit (which lands a step
+    dispatched one step earlier) likewise: own[(uid, k)] = (values, token
+    ids) of the logits that chose token k (row (slot, i) of a verify step
+    chose the slot's i-th new token). The rows stay on the card until
+    `own` is first read, so the tap adds no host sync to the run."""
 
     def __init__(self, eng):
-        self.own, self._last = {}, None
+        self._filed, self._last, self._own = [], None, None
         for name in ("_step_fn", "_packed_fn", "_packed_spec_fn"):
             setattr(eng, name, self._seam(eng, getattr(eng, name)))
-        step = eng.step
+        step, commit = eng.step, eng._commit_pending_record
 
         def stepped():
             self._last = None
             out = step()
             if self._last is not None:
-                v, i, live = self._last
-                v, i = v.cpu().numpy(), i.cpu().numpy()
-                for s, req, n0 in live:
-                    for r in range(len(req.out_tokens) - n0):
-                        self.own[(req.uid, n0 + r)] = (v[s, r], i[s, r])
+                self._file(*self._last)
+            return out
+
+        def committed(p):
+            live = self._live(eng, p["live"] & ~p["dead"])
+            v, i = self._top(p["logits"])
+            out = commit(p)
+            self._file(v, i, live)
             return out
         eng.step = stepped
+        eng._commit_pending_record = committed
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    @staticmethod
+    def _top(logits):
+        rows = logits if logits.dim() == 3 else logits[:, None]
+        return torch.topk(rows.float(), TAP_K, dim=-1)
+
+    @staticmethod
+    def _live(eng, live):
+        return [(int(s), eng._slots[s], len(eng._slots[s].out_tokens))
+                for s in np.flatnonzero(live) if eng._slots[s] is not None]
+
+    def _file(self, v, i, live):
+        self._filed.append((v, i, [(s, req, n0, len(req.out_tokens))
+                                   for s, req, n0 in live]))
 
     def _seam(self, eng, fn):
         def wrapped(*args):
             logits, cache = fn(*args)
-            rows = logits if logits.dim() == 3 else logits[:, None]
-            v, i = torch.topk(rows.float(), TAP_K, dim=-1)
-            self._last = (v, i, [
-                (int(s), eng._slots[s], len(eng._slots[s].out_tokens))
-                for s in np.flatnonzero(eng._live)])
+            self._last = (*self._top(logits), self._live(eng, eng._live))
             return logits, cache
         return wrapped
+
+    @property
+    def own(self):
+        if self._own is None:
+            self._own = {}
+            for v, i, live in self._filed:
+                v, i = v.cpu().numpy(), i.cpu().numpy()
+                for s, req, n0, n1 in live:
+                    for r in range(n1 - n0):
+                        self._own[(req.uid, n0 + r)] = (v[s, r], i[s, r])
+        return self._own
+
+
+class SampleTap:
+    """The own logits of the slot-arena engines (ContinuousEngine, wave
+    ServeEngine), which sample every row through `sample_tokens`: stands in
+    for it in serve/engine.py and serve/continuous.py during one run and
+    keeps the top TAP_K logits of each row under (uid, generation index).
+    The first row filed under a key wins: an empty slot's placeholder row
+    reuses uid 0 and index 0 after request 0's own first token, and a
+    finished wave row files under an index past its last token. The rows
+    stay on the card until `own` is first read."""
+
+    def __init__(self):
+        self._rows, self._own, self._orig = [], None, None
+
+    def __enter__(self):
+        self._orig = serve_engine.sample_tokens
+        serve_engine.sample_tokens = serve_continuous.sample_tokens = self
+        return self
+
+    def __exit__(self, *exc):
+        serve_engine.sample_tokens = serve_continuous.sample_tokens = \
+            self._orig
+        return False
+
+    def __call__(self, key, logits, temps, uids, gen_idx):
+        v, i = torch.topk(logits.float(), TAP_K, dim=-1)
+        self._rows.append((v, i, [int(u) for u in uids],
+                           [int(g) for g in gen_idx]))
+        return self._orig(key, logits, temps, uids, gen_idx)
+
+    @property
+    def own(self):
+        if self._own is None:
+            self._own = {}
+            for v, i, uids, gens in self._rows:
+                v, i = v.cpu().numpy(), i.cpu().numpy()
+                for r, key in enumerate(zip(uids, gens)):
+                    self._own.setdefault(key, (v[r], i[r]))
+        return self._own
 
 
 def own_margin(own, uid, k, mine, other) -> float:
@@ -1067,7 +1182,7 @@ def divergence(label, toks, ref, prompts, ref_prompts, params, cfg,
     the paths agreed. Every first divergence must be a near tie (gap <=
     NEAR_TIE_GAP). A request whose prompt differs between the paths (a
     session turn after a diverged turn) continues an earlier divergence and
-    is counted apart. With `own` (the two paths' LogitTap records) each
+    is counted apart. With `own` (the two paths' tap records) each
     first divergence must also be a near tie in both paths' own logits
     (own_margin <= OWN_TIE_GAP), no request may be carried, and the
     reference's own top-1/top-2 margins where the paths agree give the
@@ -1142,14 +1257,15 @@ def divergence(label, toks, ref, prompts, ref_prompts, params, cfg,
     return len(gaps), worst
 
 
-def phase_engine_path(label: str, make, prompts, kernel, steps_of):
+def phase_engine_path(label: str, make, prompts, kernel, steps_of, tap):
     """Drive one serving path three times on the same requests (32 new
-    tokens each), the third under torch.profiler: every request done,
+    tokens each), the third under torch.profiler and `tap(eng)` (the
+    path's own logits): every request done,
     identical tokens in every run, and the path's kernel launched 40 times
     per decode step (once per layer) and the other kernels never. Returns
     (tokens, launches, (kernels on the card, wrapper calls) of the profiled
-    run)."""
-    runs, profiled = [], (None, 0)
+    run, own logits of the profiled run)."""
+    runs, profiled, own = [], (None, 0), None
     for rep in range(3):
         eng = make()
         for i, p in enumerate(prompts):
@@ -1161,11 +1277,14 @@ def phase_engine_path(label: str, make, prompts, kernel, steps_of):
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) if rep == 2
             else contextlib.nullcontext())
-        with ctx as prof:
+        with (tap(eng) if rep == 2 else contextlib.nullcontext()) as tp, \
+                ctx as prof:
             t0 = time.perf_counter()
             done = eng.run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        if tp is not None:
+            own = tp.own
         launches = kernel.launches
         if prof is not None:
             profiled = (profile_summary(
@@ -1195,13 +1314,13 @@ def phase_engine_path(label: str, make, prompts, kernel, steps_of):
                   f"vocab")
         runs.append((toks, launches))
     check(all(r[0] == runs[0][0] for r in runs), f"{label}: the runs disagree")
-    return runs[0] + (profiled,)
+    return runs[0] + (profiled, own)
 
 
 M_LAYERS, VOCAB = 40, 49155       # granite-3-2b (checked in phase_paths)
 
 
-def phase_paths(packed_tokens, phases):
+def phase_paths(packed_tokens, packed_own, phases):
     """Phases 8-10: the lockstep PagedEngine, the ContinuousEngine and the
     wave ServeEngine on granite at full width. Returns the kernels' launch
     counts {kernel name: launches} summed over the paths that ran, and
@@ -1223,25 +1342,26 @@ def phase_paths(packed_tokens, phases):
             profiled.setdefault(name, (0, 0))
     by_uid = dict(enumerate(prompts))
     if 8 in phases:
-        toks, *rest = phase_engine_path(
+        toks, n, prof, own = phase_engine_path(
             "lockstep", lambda: PagedEngine(
                 params, cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
                 block_size=BS, packed=False, device="cuda"),
-            prompts, hccs_paged_decode, lambda e: e.decode_steps)
-        count("hccs_paged_decode", *rest)
+            prompts, hccs_paged_decode, lambda e: e.decode_steps, LogitTap)
+        count("hccs_paged_decode", n, prof)
         if packed_tokens is not None:
             divergence("lockstep", toks, packed_tokens, by_uid, by_uid,
-                       params, cfg)
+                       params, cfg, own=(own, packed_own))
     if 9 in phases:
-        toks, *rest = phase_engine_path(
+        toks, n, prof, own = phase_engine_path(
             "continuous", lambda: ContinuousEngine(
                 params, arena_cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
                 device="cuda"),
-            prompts, hccs_decode, lambda e: e.occupancy_steps)
-        count("hccs_decode", *rest)
+            prompts, hccs_decode, lambda e: e.occupancy_steps,
+            lambda eng: SampleTap())
+        count("hccs_decode", n, prof)
         if packed_tokens is not None:
             divergence("continuous", toks, packed_tokens, by_uid, by_uid,
-                       params, cfg)
+                       params, cfg, own=(own, packed_own))
     if 10 in phases:
         # one prompt length, so the 8 requests form one wave; its prefill
         # attends over the 2048-row arena, which takes the blockwise path
@@ -1250,18 +1370,20 @@ def phase_paths(packed_tokens, phases):
                         for _ in range(MAX_BATCH)]
         eng = PagedEngine(params, cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
                           block_size=BS, device="cuda")
+        wave_tap = LogitTap(eng)
         for i, p in enumerate(wave_prompts):
             eng.submit(Request(uid=i, prompt=p.copy(), max_new_tokens=32))
         packed_wave = {r.uid: list(r.out_tokens) for r in eng.run()}
-        toks, *rest = phase_engine_path(
+        toks, n, prof, own = phase_engine_path(
             "wave", lambda: ServeEngine(
                 params, arena_cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
                 device="cuda"),
-            wave_prompts, hccs_decode, lambda e: e.decode_steps)
-        count("hccs_decode", *rest)
+            wave_prompts, hccs_decode, lambda e: e.decode_steps,
+            lambda eng: SampleTap())
+        count("hccs_decode", n, prof)
         wave_by_uid = dict(enumerate(wave_prompts))
         divergence("wave", toks, packed_wave, wave_by_uid, wave_by_uid,
-                   params, cfg)
+                   params, cfg, own=(own, wave_tap.own))
     return launches, {k: per_call(*v) for k, v in profiled.items()}
 
 
@@ -1978,9 +2100,12 @@ def phase_sharing():
     q8 = cfg.replace(kv_quant="int8")
     traffic = session_traffic(cfg)
     share = dict(prefix_sharing=True, decode_sharing=True)
-    runs = [serve_sessions(params, q8, traffic, profiled=rep == 2, **share)
+    taps = []
+    runs = [serve_sessions(params, q8, traffic, profiled=rep == 2,
+                           on_engine=(lambda e: taps.append(LogitTap(e)))
+                           if rep == 2 else None, **share)
             for rep in range(3)]
-    main = runs[0]
+    main = dict(runs[0], tap=taps[0])
     for rep, run in enumerate(runs):
         steps, la = run["steps"], run["launches"]
         n_new = sum(len(t) for t in run["toks"].values())
@@ -2020,8 +2145,8 @@ def phase_sharing():
         f"idle share of the unprofiled walls "
         f"{1 - busy / 1e3 / runs[0]['wall']:.3f}, "
         f"{1 - busy / 1e3 / runs[1]['wall']:.3f}")
-    plain = serve_sessions(params, q8, traffic)
-    f32 = serve_sessions(params, cfg, traffic, **share)
+    plain = tapped_sessions(params, q8, traffic)
+    f32 = tapped_sessions(params, cfg, traffic, **share)
     ratio = (kv_cache_byte_stats(main["eng"]._cache, q8)["cache_bytes_logical"]
              / kv_cache_byte_stats(f32["eng"]._cache, cfg)
              ["cache_bytes_logical"])
@@ -2033,14 +2158,35 @@ def phase_sharing():
     check(ratio == want, f"int8/f32 byte ratio {ratio}")
     check(f32["launches"]["paged_quant_scatter"] == 0,
           "the f32 pool launched the fold")
-    divergence("sharing off", plain["toks"], main["toks"], plain["prompts"],
-               main["prompts"], params, cfg)
-    divergence("f32 pool", f32["toks"], main["toks"], f32["prompts"],
-               main["prompts"], params, cfg)
+    for label, run in (("sharing off", plain), ("f32 pool", f32)):
+        held_to_sessions(label, run, main, params, q8, cfg, share)
     return (main["launches"]["paged_quant_scatter"],
             per_call(n_fold, runs[2]["launches"]["paged_quant_scatter"]),
-            dict(toks=main["toks"], prompts=main["prompts"],
+            dict(toks=main["toks"], prompts=main["prompts"], tap=main["tap"],
                  walls=[runs[0]["wall"], runs[1]["wall"]], busy_ms=busy))
+
+
+def tapped_sessions(params, cfg, traffic, **kw):
+    """serve_sessions with the engine's own logits tapped (run["tap"])."""
+    taps = []
+    run = serve_sessions(params, cfg, traffic,
+                         on_engine=lambda e: taps.append(LogitTap(e)), **kw)
+    return dict(run, tap=taps[0])
+
+
+def held_to_sessions(label, run, ref, params, ref_cfg, cfg, share):
+    """ROADMAP C1's rule for a sessions run against phase 16's reference
+    run (both tapped): a later turn whose history diverged is held to the
+    reference engine's serving of its own prompt, history included (plain
+    requests, `share` on), instead of the reference's turn."""
+    later = {uid: prompt for uid, prompt in run["prompts"].items()
+             if not np.array_equal(prompt, ref["prompts"][uid])}
+    again = serve_prompts(params, ref_cfg, later, 32, **share)
+    log(f"[{label}] {len(later)} later turns after a diverged history "
+        f"re-served by the reference engine")
+    ref_toks, ref_prompts, ref_own = against(run, ref, again)
+    divergence(label, run["toks"], ref_toks, run["prompts"], ref_prompts,
+               params, cfg, own=(run["tap"].own, ref_own))
 
 
 def prof_busy_ms(prof) -> float:
@@ -2057,7 +2203,7 @@ def prof_busy_ms(prof) -> float:
 
 # ------------------------------------------------------------ phase 17 --
 
-def phase_grid(packed_tokens):
+def phase_grid(packed_tokens, packed_own):
     """The packed PagedEngine with decode_kernel="none" (the per-slot STE
     grid) on phase 5's traffic, once, profiled: its wall and device busy
     time, no HCCS kernel launched, and its tokens held to phase 5's by
@@ -2067,6 +2213,7 @@ def phase_grid(packed_tokens):
     prompts = smoke_prompts(cfg)
     eng = PagedEngine(params, grid_cfg, max_batch=MAX_BATCH,
                       max_len=MAX_LEN, block_size=BS, device="cuda")
+    tap = LogitTap(eng)
     for i, p in enumerate(prompts):
         eng.submit(Request(uid=i, prompt=p.copy(), max_new_tokens=32))
     torch.cuda.synchronize()
@@ -2090,7 +2237,8 @@ def phase_grid(packed_tokens):
     profile_summary(prof, wall, "PackedRows", "grid profile")
     if packed_tokens is not None:
         by_uid = dict(enumerate(prompts))
-        divergence("grid", toks, packed_tokens, by_uid, by_uid, params, cfg)
+        divergence("grid", toks, packed_tokens, by_uid, by_uid, params, cfg,
+                   own=(tap.own, packed_own))
 
 
 # ------------------------------------------------------------ phase 18 --
@@ -2701,9 +2849,9 @@ def phase_async(packed_tokens, sync_ref, sharing_ref):
                  f"busy {sync_ref['busy_ms']:.1f} ms)")
     log(line)
     q8 = cfg.replace(kv_quant="int8")
-    sess = serve_sessions(params, q8, session_traffic(cfg),
-                          prefix_sharing=True, decode_sharing=True,
-                          async_loop=True)
+    share = dict(prefix_sharing=True, decode_sharing=True)
+    sess = tapped_sessions(params, q8, session_traffic(cfg), async_loop=True,
+                           **share)
     eng, la, steps = sess["eng"], sess["launches"], sess["steps"]
     n_new = sum(len(t) for t in sess["toks"].values())
     log(f"[async] sessions: {steps} packed steps "
@@ -2723,8 +2871,8 @@ def phase_async(packed_tokens, sync_ref, sharing_ref):
     check(eng.async_overlapped_steps > 0 and eng.async_sync_fallbacks == 0,
           "async sessions: no overlap, or a sync fallback")
     if sharing_ref is not None:
-        divergence("async sessions", sess["toks"], sharing_ref["toks"],
-                   sess["prompts"], sharing_ref["prompts"], params, cfg)
+        held_to_sessions("async sessions", sess, sharing_ref, params, q8,
+                         cfg, share)
     return dict(packed=runs[0]["launches"]["hccs_packed_prefill"],
                 sessions_packed=la["hccs_packed_prefill"],
                 sessions_fold=la["paged_quant_scatter"], busy_ms=busy)
@@ -2895,9 +3043,373 @@ def phase_sampling():
                 async_=ahot["launches"]["hccs_packed_prefill"])
 
 
+# ------------------------------------------------------ phases 24-27 --
+
+CAL_BATCHES, CAL_BATCH, CAL_SEQ = 2, 2, 256     # the capture's LM batches
+CAL_ROWS = 64                   # calibration rows per head
+CAL_MODE = "i16_div"            # the paper's int16 objective
+CAL_CHECK_HEADS = 8             # heads calibrated again on the CPU
+CAL_KL_TIE = 1e-6               # a different theta within this KL (rel.)
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_STEPS, INT8_STEPS = 4, 2
+TRAIN_LR = 3e-4                 # one warmup step: the first update moves
+CHECK_BATCH, CHECK_SEQ = 1, 128  # phase 25's 2-layer card-vs-CPU step
+SERVE_REQUESTS, SERVE_NEW = 4, 16
+
+
+def granite_params(**kw):
+    """granite-3-2b at full width (depth and options from `kw`), bf16
+    weights from seed 0 on the card."""
+    cfg = get_config("granite-3-2b").replace(**kw)
+    return cfg, M.init_params(cfg, seed=0, device="cuda")
+
+
+def lm_batches(cfg, batch: int, seq: int):
+    """batch_at(step, device) of the seeded synthetic LM stream at the
+    model's vocab (labels -100 past each row's last token)."""
+    stream = LMStream(LMStreamConfig(vocab_size=cfg.vocab_size,
+                                     seq_len=seq, global_batch=batch))
+    return lambda step, device="cuda": {
+        k: torch.from_numpy(v).to(device)
+        for k, v in stream.batch_at(step).items()}
+
+
+def phase_calibrate():
+    """Offline per-head calibration at full width (paper section III-C):
+    granite with softmax attention captures its attention logits
+    (capture_attention_logits) on 2 LM batches of 2 x 256 tokens; 64 rows
+    a head are drawn as the JAX package draws them; the scales are
+    amax / 127; calibrate_heads(per_head, i16_div) searches the 589
+    feasible theta at n = 256 for all 1280 heads through the hccs_rows
+    kernel (counted). Eight heads are calibrated again on the CPU: the
+    card's theta must be the CPU's, or within CAL_KL_TIE of its KL (a
+    tie). Returns the calibrated hccs tree (L, H) and the counts."""
+    cfg, params = granite_params(attention_prob="softmax")
+    batch_at = lm_batches(cfg, CAL_BATCH, CAL_SEQ)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    captured = []
+    for step in range(CAL_BATCHES):
+        with torch.no_grad(), capture_attention_logits() as cap:
+            M.forward(params["weights"], params["hccs"],
+                      {"tokens": batch_at(step)["tokens"]}, cfg)
+        check(len(cap) == cfg.num_layers, f"calibrate: {len(cap)} layers "
+              f"captured")
+        captured.append(torch.stack(cap).transpose(1, 2))  # (L,H,B,T,T)
+    torch.cuda.synchronize()
+    t_capture = time.perf_counter() - t0
+    rows = collect_attention_logits(captured, max_rows_per_head=CAL_ROWS)
+    del captured, cap, params
+    torch.cuda.empty_cache()
+    L, H, R, n = rows.shape
+    check((L, H, R, n) == (M_LAYERS, cfg.num_heads, CAL_ROWS, CAL_SEQ)
+          and np.isfinite(rows).all(), f"calibrate: rows {rows.shape}")
+    scale = np.abs(rows).max(axis=(2, 3)) / 127.0
+    grid = feasible_grid(n)
+    hccs_rows.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    theta, kl = calibrate_heads(rows, scale, n, "per_head", CAL_MODE,
+                                device="cuda")
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t0
+    launches = hccs_rows.launches
+    evals = L * H * len(grid) * R * n
+    log(f"[calibrate] captured {CAL_BATCHES} x {CAL_BATCH} x {CAL_SEQ} "
+        f"tokens in {t_capture:.3f}s; rows {rows.shape}; per-head grid "
+        f"{L * H} heads x {len(grid)} theta x {R} x {n} = {evals:.3e} "
+        f"integer evaluations in {t_cal:.3f}s ({evals / t_cal:.3e}/s), "
+        f"hccs_rows launches {launches}; card {CARD}")
+    check(launches > 0, "calibrate: hccs_rows never launched")
+    B, S, Dmax = (t.cpu().numpy() for t in theta.astuple())
+    validate_params(B, S, Dmax, n)
+    t0 = time.perf_counter()
+    for f in np.linspace(0, L * H - 1, CAL_CHECK_HEADS).round().astype(int):
+        l, h = divmod(int(f), H)
+        cpu_theta, cpu_kl = calibrate_rows(rows[l, h], float(scale[l, h]), n,
+                                           CAL_MODE, grid, device="cpu")
+        card = (int(B[l, h]), int(S[l, h]), int(Dmax[l, h]))
+        xq, pref = head_inputs(rows[l, h], float(scale[l, h]), "cpu")
+        card_kl = float(kl_for_grid(xq, pref, torch.tensor(
+            [card], dtype=torch.int32), CAL_MODE)[0])
+        rel = abs(card_kl - cpu_kl) / cpu_kl
+        log(f"[calibrate]   head ({l}, {h}): card theta {card} KL "
+            f"{kl[l, h]:.6f}, CPU theta {cpu_theta} KL {cpu_kl:.6f}; the "
+            f"card's theta on the CPU: KL {card_kl:.6f} (rel. {rel:.2e})")
+        check(card == cpu_theta or rel <= CAL_KL_TIE, f"calibrate: head "
+              f"({l}, {h}) card theta {card} != CPU {cpu_theta}, no tie")
+    t_check = time.perf_counter() - t0
+    triples = set(zip(B.ravel().tolist(), S.ravel().tolist(),
+                      Dmax.ravel().tolist()))
+    log(f"[calibrate] {CAL_CHECK_HEADS} heads redone on the CPU in "
+        f"{t_check:.3f}s; KL per layer (mean over heads): "
+        + ", ".join(f"{v:.4f}" for v in kl.mean(1)))
+    log(f"[calibrate] theta spread: {len(triples)} distinct triples over "
+        f"{L * H} heads; B {B.min()}-{B.max()}, S {S.min()}-{S.max()}, D "
+        f"{Dmax.min()}-{Dmax.max()}; KL {kl.min():.4f}-{kl.max():.4f} "
+        f"(mean {kl.mean():.4f}); scales {scale.min():.5f}-"
+        f"{scale.max():.5f}")
+    hccs = {"B": theta.B, "S": theta.S, "D": theta.D,
+            "scale": torch.tensor(scale, dtype=torch.float32, device="cuda")}
+    return dict(hccs=hccs, launches=launches, seconds=t_cal)
+
+
+def weight_probe(weights) -> dict:
+    """Copies of a few slices of the weights: embedding rows and two
+    layers' projections (the norms' scales sit at 1.0, where a bf16 ulp is
+    26x an update of lr 3e-4, so they may not move in a few steps)."""
+    lay = weights["layers"]
+    return {"embed": weights["embed"]["table"][:2048].clone(),
+            "wq[0]": lay["attn"]["wq"][0, :256].clone(),
+            "w_in[-1]": lay["mlp"]["w_in"][-1, :256].clone()}
+
+
+def loss_and_grads(params, batch, cfg):
+    """lm_loss and its gradients w.r.t. every weight (as the train step
+    takes them)."""
+    flat = {k: v.detach().requires_grad_()
+            for k, v in M.flatten_tree(params["weights"]).items()}
+    with torch.enable_grad():
+        loss, _ = M.lm_loss(M.unflatten_tree(flat), params["hccs"], batch,
+                            cfg)
+        grads = torch.autograd.grad(loss, list(flat.values()))
+    return loss.detach(), dict(zip(flat, grads))
+
+
+# Gates of phase 25's 2-layer step, card against the CPU path (bf16
+# weights and gradients; the card's matmuls and reductions round
+# elsewhere), set from the first run on an H100 80GB HBM3 at 700 W
+# (PERF.md section 6): loss 5.1e-5 relative; gradient leaves 1.5e-2
+# (median) to 2.4e-2 (layers.attn.wk) in relative norm, a few bf16 ulps;
+# 1.0e-2 of the bf16 weights differ after the update. The gates
+# are 2-4x the readings.
+CHECK_LOSS_RTOL = 2e-4
+CHECK_GRAD_REL = 5e-2           # ||g_card - g_cpu|| / ||g_cpu||, worst leaf
+CHECK_PARAM_SHARE = 3e-2        # bf16 weights that differ after the step
+
+
+def step_against_cpu(cal, tcfg):
+    """One step at 2 layers and full width on the card and on the CPU, on
+    the same weights (the card's, copied) and batch: the loss, each
+    gradient leaf's relative difference, and the share of weights that
+    differ after the same AdamW update."""
+    cfg, params = granite_params(num_layers=2)
+    params["hccs"] = {k: v[:2].clone() for k, v in cal["hccs"].items()}
+    host = M.params_to(params, "cpu")
+    batch_at = lm_batches(cfg, CHECK_BATCH, CHECK_SEQ)
+    t0 = time.perf_counter()
+    loss_c, g_c = loss_and_grads(params, batch_at(0), cfg)
+    loss_h, g_h = loss_and_grads(host, batch_at(0, "cpu"), cfg)
+    rel = {k: float(torch.linalg.vector_norm(g_c[k].float().cpu()
+                                             - g_h[k].float())
+                    / torch.linalg.vector_norm(g_h[k].float()))
+           for k in g_h}
+    worst = max(rel, key=rel.get)
+    dloss = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+    new = {}
+    for side, p, g in (("card", params, g_c), ("host", host, g_h)):
+        w, _, stats = adamw.apply_updates(
+            p["weights"], M.unflatten_tree(g), adamw.init(p["weights"]),
+            tcfg)
+        new[side] = (M.flatten_tree(w), float(stats["grad_norm"]))
+    differ = sum(int((a.cpu() != new["host"][0][k]).sum())
+                 for k, a in new["card"][0].items())
+    total = sum(a.numel() for a in new["host"][0].values())
+    log(f"[train] 2 layers, card against the CPU ({CHECK_BATCH} x "
+        f"{CHECK_SEQ} tokens, {time.perf_counter() - t0:.1f}s): loss "
+        f"{float(loss_c):.6f} / {float(loss_h):.6f} (rel. {dloss:.2e}); "
+        f"gradient leaves' relative difference: worst {worst} {rel[worst]:.3e}"
+        f", median {np.median(list(rel.values())):.3e}; grad_norm "
+        f"{new['card'][1]:.6f} / {new['host'][1]:.6f}; after one AdamW "
+        f"update {differ} of {total} bf16 weights differ "
+        f"({differ / total:.2e})")
+    check(dloss <= CHECK_LOSS_RTOL, f"train: 2-layer loss differs {dloss}")
+    check(rel[worst] <= CHECK_GRAD_REL, f"train: gradient {worst} differs "
+          f"{rel[worst]}")
+    check(differ / total <= CHECK_PARAM_SHARE, f"train: {differ} weights "
+          f"differ after one update")
+
+
+def phase_train(cal):
+    """QAT with theta frozen (paper section V-B) at full width: granite with
+    HCCS attention, the calibrated theta and scales, remat on, AdamW at
+    lr 3e-4 after one warmup step; 4 steps of 4 x 512 tokens through
+    make_train_step and train_loop, then 2 more with int8 gradient
+    compression (error feedback, JAX's noise streams). Gates: finite
+    losses, the weights moved, theta and the scales unchanged bit for bit;
+    then one step at 2 layers against the CPU path. Returns the trained
+    params (weights and the calibrated hccs)."""
+    torch.cuda.empty_cache()
+    cfg, params = granite_params()
+    check(cfg.remat != "none", "train: remat off")
+    params["hccs"] = {k: v.clone() for k, v in cal["hccs"].items()}
+    frozen = {k: v.clone() for k, v in params["hccs"].items()}
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1,
+                       total_steps=TRAIN_STEPS + INT8_STEPS)
+    before = weight_probe(params["weights"])
+    n_params = sum(v.numel() for v in M.flatten_tree(
+        params["weights"]).values())
+    state = train_state_from_params(params, tcfg)
+    batch_at = lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, hist = train_loop(state, make_train_step(cfg, tcfg), batch_at,
+                             total_steps=TRAIN_STEPS, log_every=1,
+                             log_fn=lambda m: log(f"[train] {m}"))
+    peak = torch.cuda.max_memory_allocated()
+    t8 = dataclasses.replace(tcfg, grad_compression="int8")
+    state["ef_error"] = adamw.tree_map(
+        lambda p: torch.zeros_like(p, dtype=torch.float32),
+        state["params"]["weights"])
+    torch.cuda.reset_peak_memory_stats()
+    state, hist8 = train_loop(state, make_train_step(cfg, t8),
+                              lambda s: batch_at(TRAIN_STEPS + s),
+                              total_steps=INT8_STEPS, log_every=1,
+                              log_fn=lambda m: log(f"[train int8] {m}"))
+    peak8 = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist + hist8]
+    toks = TRAIN_BATCH * TRAIN_SEQ
+    dts = [h["dt"] for h in hist]
+    log(f"[train] {n_params / 1e9:.3f}B params; {TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: losses "
+        + ", ".join(f"{v:.4f}" for v in losses[:TRAIN_STEPS])
+        + f"; step times " + ", ".join(f"{d:.3f}" for d in dts)
+        + f" s (after the first: {np.mean(dts[1:]):.3f} s = "
+        f"{toks / np.mean(dts[1:]):.0f} tokens/s); peak memory "
+        f"{peak / 2**30:.2f} GiB; card {CARD}")
+    log(f"[train int8] {INT8_STEPS} steps: losses "
+        + ", ".join(f"{v:.4f}" for v in losses[TRAIN_STEPS:])
+        + "; step times " + ", ".join(f"{h['dt']:.3f}" for h in hist8)
+        + f" s; peak memory {peak8 / 2**30:.2f} GiB (error feedback "
+        f"{4 * n_params / 2**30:.2f} GiB); card {CARD}")
+    check(len(losses) == TRAIN_STEPS + INT8_STEPS
+          and np.isfinite(losses).all(), f"train: losses {losses}")
+    check(int(state["opt"].step) == TRAIN_STEPS + INT8_STEPS,
+          "train: optimizer step count")
+    after = weight_probe(state["params"]["weights"])
+    moved = {k: float((after[k] != v).float().mean())
+             for k, v in before.items()}
+    log(f"[train] share of probed weights changed: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in moved.items()))
+    check(all(v > 0 for v in moved.values()), f"train: weights unmoved "
+          f"{moved}")
+    check(all(torch.equal(state["params"]["hccs"][k], v)
+              for k, v in frozen.items()), "train: theta or scales moved")
+    trained = state["params"]
+    del state
+    torch.cuda.empty_cache()
+    step_against_cpu(cal, tcfg)
+    return dict(params=trained, losses=losses, peak=peak, peak8=peak8,
+                step_s=float(np.mean(dts[1:])))
+
+
+def phase_checkpoint(cal):
+    """Checkpoint and resume at 2 layers and full width: three
+    uninterrupted 4-step runs give the card's run-to-run spread of the
+    loss; a run saves at step 2 (train_loop's final save), the checkpoint
+    restores bit for bit into a fresh state, and a fresh train_loop
+    resumes from it: its steps 2-3 must equal the uninterrupted losses
+    within twice that spread (the embedding's backward accumulates with
+    atomics). Written under build/ and removed."""
+    cfg = get_config("granite-3-2b").replace(num_layers=2)
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1,
+                       total_steps=4)
+    hccs = {k: v[:2].clone() for k, v in cal["hccs"].items()}
+
+    def fresh(seed=0):
+        p = M.init_params(cfg, seed=seed, device="cuda")
+        p["hccs"] = {k: v.clone() for k, v in hccs.items()}
+        return train_state_from_params(p, tcfg)
+    batch_at = lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    step = make_train_step(cfg, tcfg)
+    whole = [[h["loss"] for h in train_loop(fresh(), step, batch_at,
+                                            total_steps=4, log_every=0)[1]]
+             for _ in range(3)]
+    spread = max(abs(a - b) for r in whole[1:] for a, b in zip(whole[0], r))
+    ckdir = ROOT / "build" / "smoke_checkpoint"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        saved, first = train_loop(fresh(), step, batch_at, total_steps=2,
+                                  ckpt_dir=str(ckdir), cfg=cfg, log_every=0)
+        t_save = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in ckdir.rglob("*")
+                     if f.is_file())
+        t0 = time.perf_counter()
+        restored, manifest = CheckpointManager(str(ckdir)).restore(
+            fresh(seed=1), cfg=cfg)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        a, b = ckpt_flatten(saved), ckpt_flatten(restored)
+        check(manifest["step"] == 2 and a.keys() == b.keys()
+              and all(torch.equal(a[k], b[k]) for k in a),
+              "checkpoint: the restored state differs from the saved one")
+        del restored
+        resumed, rest = train_loop(fresh(seed=1), step, batch_at,
+                                   total_steps=4, ckpt_dir=str(ckdir),
+                                   cfg=cfg, log_every=0,
+                                   log_fn=lambda m: log(f"[checkpoint] {m}"))
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    got = [h["loss"] for h in first + rest]
+    check([h["step"] for h in first + rest] == [0, 1, 2, 3],
+          "checkpoint: steps run")
+    delta = max(abs(x - y) for x, y in zip(got, whole[0]))
+    gate = 2 * spread if spread else 1e-6 * abs(whole[0][-1])
+    log(f"[checkpoint] {len(a)} leaves, {nbytes / 1e9:.3f} GB; train and "
+        f"save to step 2 {t_save:.2f}s, restore {t_restore:.2f}s; "
+        f"uninterrupted losses {whole[0]}, run-to-run spread {spread:.3e}; "
+        f"saved-and-resumed losses {got}, largest difference {delta:.3e} "
+        f"(gate {gate:.3e}); card {CARD}")
+    check(delta <= gate, f"checkpoint: resumed losses differ by {delta}")
+    return dict(seconds_save=t_save, seconds_restore=t_restore,
+                bytes=nbytes, spread=spread, delta=delta)
+
+
+def phase_serve_trained(trained):
+    """The trained, calibrated model served: 4 seeded requests of 64-512
+    prompt tokens, 16 new tokens each, through the packed PagedEngine with
+    the fused kernel (40 hccs_packed_prefill launches a step, no other
+    decode kernel). Returns the launches."""
+    cfg = get_config("granite-3-2b").replace(decode_kernel="fused",
+                                             cache_layout="paged")
+    params = trained["params"]
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(64, 513, SERVE_REQUESTS)]
+    eng = PagedEngine(params, cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                      block_size=BS, device="cuda")
+    reqs = [Request(uid=i, prompt=p.copy(), max_new_tokens=SERVE_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    for k in KERNELS + (paged_quant_scatter,):
+        k.launches = 0
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = dict(launches={k.__name__: k.launches
+                         for k in KERNELS + (paged_quant_scatter,)},
+               steps=eng.occupancy_steps)
+    n_new = sum(len(r.out_tokens) for r in reqs)
+    log(f"[serve trained] {len(reqs)} requests ({sum(map(len, prompts))} "
+        f"prompt tokens), {run['steps']} packed steps, "
+        f"hccs_packed_prefill launches "
+        f"{run['launches']['hccs_packed_prefill']}; {n_new} tokens in "
+        f"{wall:.3f}s; first request's tokens {reqs[0].out_tokens}")
+    check(all(r.done and len(r.out_tokens) == SERVE_NEW for r in reqs),
+          "serve trained: not every request done")
+    check(all(0 <= t < VOCAB for r in reqs for t in r.out_tokens),
+          "serve trained: token off vocab")
+    check_packed_launches("serve trained", run)
+    return run["launches"]["hccs_packed_prefill"]
+
+
 def kernel_entry(name, source, replaces, launches, tm, shape,
                  library_ms=None, headers=(), kernels_per_call=None):
-    """One kernel of phase 24's line. `launches` counts wrapper calls on
+    """One kernel of phase 28's line. `launches` counts wrapper calls on
     the main path; `kernels_per_call` is the kernels on the card per
     wrapper call in the path's profiled run (None where not profiled).
     `device_ms` / `cold_ms`: device-only time with K/V warm in L2 / with
@@ -2917,7 +3429,7 @@ def kernel_entry(name, source, replaces, launches, tm, shape,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default=",".join(str(p) for p in range(1, 25)),
+                    default=",".join(str(p) for p in range(1, 29)),
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -2950,7 +3462,8 @@ def main(argv=None):
         mark(7)
     path_launches, path_per_call = {}, {}
     if phases & {8, 9, 10}:
-        path_launches, path_per_call = phase_paths(packed_tokens, phases)
+        path_launches, path_per_call = phase_paths(
+            packed_tokens, sync_ref and sync_ref["own"], phases)
         mark("8-10")
     if 11 in phases:
         phase_rows()
@@ -2973,7 +3486,7 @@ def main(argv=None):
         fold_launches, fold_per_call, sharing_ref = phase_sharing()
         mark(16)
     if 17 in phases:
-        phase_grid(packed_tokens)
+        phase_grid(packed_tokens, sync_ref and sync_ref["own"])
         mark(17)
     spec = overload = chaos = None
     if 18 in phases:
@@ -3000,12 +3513,29 @@ def main(argv=None):
     if 23 in phases:
         sampling = phase_sampling()
         mark(23)
+    cal = trained = ckpt = served = None
     if 24 in phases:
+        cal = phase_calibrate()
+        mark(24)
+    if 25 in phases:
+        check(cal is not None, "phase 25 needs phase 24's theta")
+        trained = phase_train(cal)
+        mark(25)
+    if 26 in phases:
+        check(cal is not None, "phase 26 needs phase 24's theta")
+        ckpt = phase_checkpoint(cal)
+        mark(26)
+    if 27 in phases:
+        check(trained is not None, "phase 27 needs phase 25's weights")
+        served = phase_serve_trained(trained)
+        mark(27)
+    if 28 in phases:
         check(launches and timings and len(decode_timings) == 2
               and len(path_launches) == 2 and {11, 12, 13, 17} <= phases
               and table3_launches and fold_t and fold_launches and spec
-              and overload and chaos and asynch and tele and sampling,
-              "phase 24 needs phases 3 and 5 to 23")
+              and overload and chaos and asynch and tele and sampling
+              and cal and ckpt and served,
+              "phase 28 needs phases 3 and 5 to 27")
         slice_launches = {
             "hccs_packed_prefill": dict(
                 spec=spec["packed"],
@@ -3015,7 +3545,7 @@ def main(argv=None):
                 async_sessions=asynch["sessions_packed"],
                 telemetry_sync=tele["sync"], telemetry_async=tele["async"],
                 open_loop=tele["open_loop"], sampling=sampling["sync"],
-                sampling_async=sampling["async_"]),
+                sampling_async=sampling["async_"], trained=served),
             "paged_quant_scatter": dict(
                 spec_in_step=spec["fold_in_step"],
                 spec_replay=spec["fold_replay"],
@@ -3046,12 +3576,13 @@ def main(argv=None):
                          f"B=8, {geo} Tmax={MAX_LEN}, f32 arena, mode "
                          f"wide", headers=split_headers,
                          kernels_per_call=path_per_call["hccs_decode"]),
-            kernel_entry("hccs_rows", "hccs_rows.cu",
-                         "src/repro/kernels/hccs.py:79",
-                         table3_launches["hccs_rows"],
-                         kernel_t["hccs_rows"],
-                         f"{G_ROWS} x {G_COLS} int8, per-head theta, "
-                         f"i16_div"),
+            dict(kernel_entry("hccs_rows", "hccs_rows.cu",
+                              "src/repro/kernels/hccs.py:79",
+                              table3_launches["hccs_rows"],
+                              kernel_t["hccs_rows"],
+                              f"{G_ROWS} x {G_COLS} int8, per-head theta, "
+                              f"i16_div"),
+                 slice_launches=dict(calibration=cal["launches"])),
             kernel_entry("softmax_bf16", "softmax_bf16.cu",
                          "src/repro/kernels/softmax_bf16.py:32",
                          table3_launches["softmax_bf16"],

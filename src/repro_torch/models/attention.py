@@ -17,9 +17,13 @@ softmax baseline), and every cache branch serving runs:
 Paged pools are float, or int8 with per-(block, kv head) scales
 (cfg.kv_quant="int8"): every paged branch reads them dequantized.
 
+Without a cache (training, calibration capture) the dense and blockwise
+paths write nothing in place, so autograd can differentiate them; inside
+`capture_attention_logits()` every dense-attention call appends its f32
+logits (B, H, Tq, Tk), as the JAX package's eager capture does.
+
 Not ported yet, and refused (NotImplementedError naming the ROADMAP.md
-item): hot buffers and the segment merge (A3), M-RoPE (A3) and
-`capture_attention_logits` (A9).
+item): hot buffers and the segment merge (A3) and M-RoPE (A3).
 
 One departure from the JAX package: the dense path returns the query's
 dtype, as its blockwise path and the kernels do. The JAX dense path returns
@@ -39,6 +43,25 @@ from repro_torch.kernels.kv_quant import paged_quant_scatter
 from repro_torch.models.layers import apply_rope
 
 NEG_INF = -1e30
+
+# eager capture hook for offline calibration: inside
+# `capture_attention_logits()` every dense-attention call appends its float
+# logits (B, H, Tq, Tk), scaled by 1/sqrt(d) and taken BEFORE masking (a
+# causal model's rows hold its masked future keys too, as the JAX
+# package's do)
+_CAPTURE: list | None = None
+
+
+class capture_attention_logits:
+    def __enter__(self):
+        global _CAPTURE
+        _CAPTURE = []
+        return _CAPTURE
+
+    def __exit__(self, *a):
+        global _CAPTURE
+        _CAPTURE = None
+        return False
 
 
 def _normal(gen, shape, dtype, device, std):
@@ -62,8 +85,8 @@ def init_attention(gen, cfg, dtype, device, layers: int):
 
 def init_hccs_head_params(cfg, device, n_ref: int = 128) -> dict:
     """Per-head HCCS (B, S, D) + int8 logit scale for one layer: shapes (H,),
-    at the constraint-feasible default (offline calibration replaces them;
-    not ported yet, ROADMAP.md item A9)."""
+    at the constraint-feasible default (offline calibration,
+    `core/calibrate.py`, replaces them)."""
     B, S, D = default_params(n_ref)
     h = max(cfg.num_heads, 1)
     full = (lambda v, dt: torch.full((h,), v, dtype=dt, device=device))
@@ -202,6 +225,8 @@ def _dense_attention(q, k, v, valid, cfg, hccs):
     qg = q.reshape(b, hkv, g, tq, hd)
     logits = _einsum("bkgqd,bktd->bkgqt", qg, k).float()
     logits = (logits / _sqrt_hd(hd, q.device)).reshape(b, h, tq, tk)
+    if _CAPTURE is not None:
+        _CAPTURE.append(logits.detach())
     if cfg.attention_prob == "hccs" and hccs is not None:
         params = HCCSParams(B=hccs["B"][:, None, None],
                             S=hccs["S"][:, None, None],

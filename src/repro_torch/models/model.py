@@ -8,13 +8,19 @@ Params layout (the JAX package's, as plain dicts of tensors):
 
 The JAX model scans the stacked layers with lax.scan; here a Python loop
 hands layer i its slice of every (L, ...) leaf, views into the stacked
-tensors. Learned position embeddings, classification heads and
-embedding inputs are not ported yet (ROADMAP.md items A3, A10).
+tensors. Without a cache (training) each block runs under
+torch.utils.checkpoint when cfg.remat is "dots" or "full" and autograd is
+on: the JAX scan's remat unit, recomputed whole (memory changes, numbers
+do not). `hccs` is detached, as the JAX forward stops its gradient: theta
+and the logit scales stay frozen during QAT. Learned position embeddings,
+classification heads, MoE aux losses and embedding inputs are not ported
+yet (ROADMAP.md items A3, A10).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks
@@ -124,13 +130,13 @@ def params_from_jax(np_params, cfg, device=None):
         else:
             t = torch.tensor(a)              # copies: JAX's are read-only
         out[key] = t.to(device)
-    return unflatten_tree(out)
+    return {"hccs": {}, **unflatten_tree(out)}   # a softmax model's is empty
 
 
 def params_to(params, device):
     """A copy of a params tree on another device."""
-    return unflatten_tree({k: v.to(device)
-                           for k, v in flatten_tree(params).items()})
+    return {"hccs": {}, **unflatten_tree(
+        {k: v.to(device) for k, v in flatten_tree(params).items()})}
 
 
 def _layer(tree, i):
@@ -138,9 +144,22 @@ def _layer(tree, i):
             for k, v in tree.items()}
 
 
-def forward(weights, hccs, batch, cfg, cache):
+def _block_caller(cfg):
+    """apply_block without a cache, under torch.utils.checkpoint when
+    cfg.remat asks for it and autograd is recording."""
+    def call(lp, x, hc, positions):
+        return blocks.apply_block(lp, x, cfg, hc, None, None, positions)[0]
+
+    if cfg.remat in ("dots", "full") and torch.is_grad_enabled():
+        return lambda *a: checkpoint(call, *a, use_reentrant=False)
+    return call
+
+
+def forward(weights, hccs, batch, cfg, cache=None):
     """batch: {"tokens": (B, T)} with optional "positions" (B, T).
 
+    cache None: the training / calibration forward (positions default to
+    arange(T); nothing is written; returns (hidden, None, aux)). Otherwise
     cache: the model cache {"layers": {"k", "v": (L, ...)}, "length"} — a
     slot arena (L, B, Hkv, Tmax, hd) with a scalar or (B,) `length`, or the
     paged pools (L, N, Hkv, bs, hd) (int8 pools with "k_scale"/"v_scale"
@@ -156,13 +175,23 @@ def forward(weights, hccs, batch, cfg, cache):
     _check_supported(cfg)
     x = embed_tokens(weights["embed"], batch["tokens"], cfg)
     b, t = x.shape[:2]
-    length = cache.get("length")
+    length = cache.get("length") if cache is not None else None
     positions = batch.get("positions")
     if positions is None:
         # length is a scalar (lockstep) or a (B,) per-slot vector
-        positions = (torch.atleast_1d(length)[:, None]
+        base = (length if length is not None else
+                torch.zeros((), dtype=torch.int32, device=x.device))
+        positions = (torch.atleast_1d(base)[:, None]
                      + torch.arange(t, device=x.device)[None, :]
                      ).expand(b, t)
+    hccs = {k: v.detach() for k, v in hccs.items()}   # theta frozen (QAT)
+    if cache is None:
+        call = _block_caller(cfg)
+        for i in range(cfg.num_layers):
+            x = call(_layer(weights["layers"], i), x,
+                     {k: v[i] for k, v in hccs.items()} or None, positions)
+        x = apply_norm(weights["final_norm"], x, cfg)
+        return x, None, torch.zeros((), device=x.device)
     extras = {k: cache[k] for k in PAGED_EXTRAS if k in cache}
     staged = {"staged_k": [], "staged_v": []}
     for i in range(cfg.num_layers):
@@ -186,6 +215,23 @@ def forward(weights, hccs, batch, cfg, cache):
 
 def logits_from_hidden(weights, x, cfg):
     return lm_logits(weights["embed"], weights, x, cfg)
+
+
+def lm_loss(weights, hccs, batch, cfg):
+    """Next-token cross-entropy. batch needs "labels" (B, T) with -100 =
+    pad. The gold logit is gathered (the JAX package's one-hot einsum has
+    exactly one nonzero term, so the value is the same, and no (B, T, V)
+    one-hot is made)."""
+    x, _, aux = forward(weights, hccs, batch, cfg)
+    logits = logits_from_hidden(weights, x, cfg)
+    labels = batch["labels"].long()
+    mask = labels >= 0
+    labels_c = torch.clamp(labels, min=0)
+    logz = torch.logsumexp(logits.float(), dim=-1)
+    gold = torch.gather(logits, -1, labels_c[..., None])[..., 0].float()
+    nll = (logz - gold) * mask
+    loss = nll.sum() / torch.clamp(mask.sum(), min=1)
+    return loss, {"lm_loss": loss, "aux_loss": aux}
 
 
 def init_cache(cfg, batch_size: int, max_len: int, cache_dtype=None,

@@ -7,17 +7,22 @@ The parts the engines need, as JAX 0.9 computes them with
 
     PRNGKey(seed)        (0, seed) for 0 <= seed < 2**32
     fold_in(key, d)      threefry2x32(key, (0, d))
-    bits(key, (n,), 32)  w0 ^ w1 of threefry2x32(key, (0, i)), i < n
+    split(key, n)        threefry2x32(key, (0, i)), i < n, as (w0, w1)
+    bits(key, (n,), 32)  w0 ^ w1 of threefry2x32(key, (hi, lo)) over the
+                         flat index i = hi * 2**32 + lo, i < n
     bits 16 / 8          the low 16 / 8 bits of that XOR
     uniform f32          bits32 >> 9 | 0x3F800000, as f32, minus 1
     uniform bf16         bits8 >> 1 | 0x3F80, as bf16, minus 1 (bf16 has 7
                          mantissa bits, under the 8 that make JAX draw 8
                          random bits instead of 16)
+    uniform(lo, hi) f32  max(lo, f * (hi - lo) + lo) of that f32 f
     gumbel               -log(-log(max(tiny, u))) in the logits' dtype
     categorical          argmax(gumbel + logits) over the last axis
 
 Words are int64 tensors masked to 32 bits, vectorised over the draw index
-(and over rows of keys), on the device of the tensors given.
+(and over rows of keys), on the device of the tensors given. The counter
+is the flat index, so a draw of n values can be made in pieces
+(`start`): each piece equals its slice of the whole draw.
 
 The bits, the uniform and the bf16 Gumbel noise equal JAX's bit for bit.
 f32 Gumbel noise does not always: XLA's CPU `log` is not correctly rounded
@@ -67,14 +72,28 @@ def fold_in(key: tuple[int, int], data: int) -> tuple[int, int]:
     return threefry2x32(int(key[0]), int(key[1]), 0, int(data) & MASK32)
 
 
-def random_bits(keys: torch.Tensor, n: int, width: int = 32) -> torch.Tensor:
-    """`jax.random.bits(key, (n,), uint<width>)` for each key of `keys`
-    ((..., 2) int64), as (..., n) int64 on the keys' device."""
+def split(key, n: int = 2) -> list[tuple[int, int]]:
+    """`jax.random.split(key, n)` (the partitionable form JAX 0.9 runs):
+    key i is threefry2x32(key, (0, i)). `key` is a pair of ints or a (2,)
+    tensor of uint32 values."""
+    k0, k1 = (int(v) for v in key)
+    count = torch.arange(n, dtype=torch.int64)
+    w0, w1 = threefry2x32(k0, k1, torch.zeros_like(count), count)
+    return list(zip(w0.tolist(), w1.tolist()))
+
+
+def random_bits(keys: torch.Tensor, n: int, width: int = 32,
+                start: int = 0) -> torch.Tensor:
+    """`jax.random.bits(key, shape, uint<width>)` for each key of `keys`
+    ((..., 2) int64): the draws at flat indices [start, start + n) of any
+    shape holding at least start + n values, as (..., n) int64 on the keys'
+    device."""
     if width not in (8, 16, 32):
         raise ValueError(f"width must be 8, 16 or 32, got {width}")
     k0, k1 = keys[..., :1], keys[..., 1:]
-    count = torch.arange(n, dtype=torch.int64, device=keys.device)
-    w0, w1 = threefry2x32(k0, k1, torch.zeros_like(count), count)
+    count = torch.arange(start, start + n, dtype=torch.int64,
+                         device=keys.device)
+    w0, w1 = threefry2x32(k0, k1, count >> 32, count & MASK32)
     return (w0 ^ w1) & ((1 << width) - 1)
 
 
@@ -94,6 +113,19 @@ def uniform(keys: torch.Tensor, n: int, dtype) -> torch.Tensor:
     else:
         raise TypeError(f"uniform draws f32 or bf16, not {dtype}")
     return torch.clamp_min(f - 1.0, tiny)
+
+
+def uniform_range(keys: torch.Tensor, n: int, minval: float,
+                  maxval: float, start: int = 0) -> torch.Tensor:
+    """`jax.random.uniform(key, shape, jnp.float32, minval, maxval)` at flat
+    indices [start, start + n) for each key ((..., 2) int64): the f32 f of
+    `uniform`, then max(lo, f * (hi - lo) + lo) with lo, hi the bounds in
+    f32, as JAX builds it."""
+    bits = random_bits(keys, n, 32, start)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo, hi = (torch.tensor(v, dtype=torch.float32, device=keys.device)
+              for v in (minval, maxval))
+    return torch.maximum(lo, f * (hi - lo) + lo)
 
 
 def gumbel(keys: torch.Tensor, n: int, dtype) -> torch.Tensor:

@@ -81,13 +81,9 @@ def test_every_port_module_imports_without_jax():
 # port: the port's progress meter (ROADMAP.md item A1). The list shrinks as
 # slices land; a module ported or added on either side must update it.
 UNPORTED = [
-    "checkpoint/__init__.py", "checkpoint/manager.py", "configs/shapes.py",
-    "core/calibrate.py", "core/qat.py", "data/__init__.py",
-    "data/synthetic.py", "launch/dryrun.py", "launch/inspect_hlo.py",
-    "launch/mesh.py", "launch/roofline.py", "launch/train.py", "models/moe.py",
-    "models/ssm.py", "optim/__init__.py", "optim/adamw.py",
-    "optim/compression.py", "parallel/__init__.py", "parallel/sharding.py",
-    "train/__init__.py", "train/loop.py", "train/steps.py"]
+    "configs/shapes.py", "launch/dryrun.py", "launch/inspect_hlo.py",
+    "launch/mesh.py", "launch/roofline.py", "models/moe.py", "models/ssm.py",
+    "parallel/__init__.py", "parallel/sharding.py"]
 
 
 def test_unported_modules_are_the_recorded_list():
@@ -126,6 +122,33 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         port_serve.main(["--arch", "granite-3-2b", "--reduced"])
     with pytest.raises(ValueError, match="lie on"):
         PagedEngine(params, cfg, device="meta")
+
+
+def test_training_and_calibration_entry_points_raise_without_cuda(
+        monkeypatch):
+    """make_train_state, the training launcher and calibration run on the
+    card unless asked for the CPU, and raise without one."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.calibrate import calibrate_heads, calibrate_rows
+    from repro_torch.launch import train as port_train
+    from repro_torch.train import make_train_state
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = _cfg()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_state(0, cfg, TrainConfig())
+    assert make_train_state(0, cfg, TrainConfig(), device="cpu")[
+        "opt"].step.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_train.main(["--arch", "granite-3-2b", "--reduced", "--steps",
+                         "1"])
+    rows = np.random.default_rng(0).normal(0, 1, (1, 2, 4, 16))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calibrate_rows(rows[0, 0], 0.01, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calibrate_heads(rows, np.full((1, 2), 0.01), 16)
+    params, _ = calibrate_heads(rows, np.full((1, 2), 0.01), 16,
+                                device="cpu")
+    assert params.B.device.type == "cpu"
 
 
 @pytest.mark.parametrize("engine,kw", [
