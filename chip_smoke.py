@@ -58,16 +58,23 @@ Phases, in order:
                 of phases 11-14 (per call, device only warm and L2-cold,
                 plain versions, torch.softmax, the blockwise STE
                 attention)
- 15 fold        paged_quant_scatter (the int8 pool's quantizing write)
-                against paged_quant_scatter_ref: f32/bf16 rows, writes of
-                8, 64 and 256 rows, exact and random, in one call, split
-                over three, with draft rows; pools and scales bit-identical;
-                times of a 256-row write
+ 15 fold        paged_quant_scatter_kv (the int8 pools' quantizing write,
+                K and V in one launch) against paged_quant_scatter_kv_ref:
+                f32/bf16 rows, writes of 8, 64 and 256 rows with the
+                engine's pad lanes and fresh blocks, exact and random, in
+                one call, split over three, with draft rows, K alone
+                (paged_quant_scatter); 4096 rows, past one launch's shared
+                memory (folded in slices by the one C call); a 40-layer
+                replay in one launch; pools and scales bit-identical; times
+                at 8/64/256 rows and the replay; one layer's kernels and
+                aten ops at the engine's shapes
  16 sharing     the packed PagedEngine with int8 KV, prefix and decode
                 sharing, two turns of 8 sessions on a 512-token system
                 prefix: hits, COW, turn 2's skip rate, the int8/f32 byte
-                ratio, 80 fold and 40 packed launches a step; twice, once
-                profiled; then sharing off and an f32 pool, each held to it
+                ratio, 40 fold (K and V) and 40 packed launches a step;
+                twice, once profiled (no kernel but the fold launched inside
+                an int8 write); then sharing off and an f32 pool, each held
+                to it
                 by the near-tie rule (a later turn after a diverged history
                 held to the sharing engine's serving of its own prompt)
  17 grid        the packed PagedEngine without the kernel (the per-slot STE
@@ -78,8 +85,8 @@ Phases, in order:
                 turns of 64 new tokens; drafting on twice, once profiled,
                 off once, on with an f32 pool once. Gates: drafted =
                 accepted + rejected, >= 1 verify step and rollback, 40
-                packed and 80 in-step fold launches a step, 80 replay fold
-                launches a verify step, drafting on against off (and f32
+                packed and 40 in-step fold launches a step, 1 replay fold
+                launch a verify step, drafting on against off (and f32
                 against int8) by the near-tie rule, every request done, and
                 one captured verify step's restore and replay byte-identical
                 to the same restore and replay through the plain fold
@@ -98,7 +105,7 @@ Phases, in order:
                 (tokens identical to phase 5's, steps overlapped, no sync
                 fallback, 40 packed launches a step; walls and idle share
                 on against off); then phase 16's sessions (int8, sharing)
-                the same way (80 fold and 40 packed launches a step), held
+                the same way (40 fold and 40 packed launches a step), held
                 to phase 16's tokens by the near-tie rule
  22 telemetry   Telemetry(enabled=True) on phase 5's traffic, sync and
                 async: phase coverage >= 0.9, tokens identical to
@@ -138,6 +145,7 @@ non-zero before it. `--phases` runs a subset (for bring-up).
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import contextlib
 import dataclasses
@@ -179,11 +187,13 @@ from repro_torch.kernels.decode import (SPLIT_KEYS,  # noqa: E402
                                         paged_qint, split_count,
                                         split_smem_bytes, workspace_bytes)
 from repro_torch.kernels.hccs import hccs_rows, hccs_rows_ref  # noqa: E402
-from repro_torch.kernels.kv_quant import (fold_smem_bytes,  # noqa: E402
-                                          paged_quant_scatter,
-                                          paged_quant_scatter_ref)
+from repro_torch.kernels.kv_quant import (  # noqa: E402
+    MAX_SMEM_BYTES, fold_smem_bytes, paged_quant_scatter,
+    paged_quant_scatter_kv, paged_quant_scatter_kv_ref,
+    paged_quant_scatter_ref)
 from repro_torch.kernels.softmax_bf16 import (softmax_bf16,  # noqa: E402
                                               softmax_bf16_ref)
+from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.attention import (  # noqa: E402
     _blockwise_attention, capture_attention_logits)
@@ -686,6 +696,9 @@ def phase_forward():
 DevEvent = collections.namedtuple("DevEvent", "name start end")
 
 
+WRITE_TAG = "int8_write"        # phase 16's span around each int8 write
+
+
 def device_events(prof) -> list:
     """The CUDA events of a profiled run, read once from the profiler's raw
     (kineto) results: building `prof.events()` for a full-width engine run
@@ -693,8 +706,9 @@ def device_events(prof) -> list:
     if not hasattr(prof, "device_events"):
         out = []
         for e in prof.profiler.kineto_results.events():
-            if not str(e.device_type()).endswith("CUDA"):
-                continue
+            if (not str(e.device_type()).endswith("CUDA")
+                    or e.is_user_annotation() or e.name() == WRITE_TAG):
+                continue                # a record_function span, no kernel
             start = e.start_ns() / 1e3
             out.append(DevEvent(e.name(), start, start + e.duration_ns()
                                 / 1e3))
@@ -1008,6 +1022,9 @@ def phase_decode_kernel(kind: str):
 # ------------------------------------------------------- phases 8, 9, 10 --
 
 KERNELS = (hccs_packed_prefill, hccs_paged_decode, hccs_decode)
+# the fold's counter: both its wrappers (a layer's K and V, the main path;
+# one pool) count their C calls on paged_quant_scatter_kv
+FOLD_KERNELS = (paged_quant_scatter_kv,)
 # what the profiler's names of each wrapper's kernels hold: the split
 # sweep's passes are instantiated on the wrapper's row type
 KERNEL_SYMBOLS = {"hccs_packed_prefill": "PackedRows",
@@ -1833,166 +1850,403 @@ def phase_table3():
 FOLD_ROWS = (8, 64, 256)        # a decode step, a mixed step, a prefill step
 
 
-def fold_case(n_rows: int, row_dtype, exact: bool, seed: int, draft: bool):
-    """One layer's K write of a packed step at granite's shapes, laid out by
-    the engine's host code: 8 slots at frontiers 5-2000 in a shuffled pool,
-    prefill chunks and decode lanes scheduled into n_rows lanes, pad lanes
-    steered into the trash block 0. Every block holds stale bytes; the
-    slots' written blocks (and the trash block) have scales, the blocks the
-    step opens have scale 0 (fresh). Exact rows are multiples of 2^-3; random
-    rows vary in magnitude row by row, so scales grow mid-block."""
-    rng = np.random.default_rng(seed)
-    fronts = np.array([700, 400, 1200, 5, 300, 64, 2000, 129])
-    remaining = {8: [0] * 8, 64: [40] + [0] * 7,
-                 256: [150, 60, 0, 30, 0, 0, 0, 0]}[n_rows]
-    t_valid = schedule_step_tokens(np.ones(MAX_BATCH, bool),
-                                   np.asarray(remaining), n_rows, 4 * BS)
-    sid, off = pack_slot_ids(t_valid, n_rows)
-    n_blocks = 1 + int(sum(-(-(f + tv) // BS) for f, tv in
-                           zip(fronts, t_valid)))
+FOLD_FRONTS = np.array([700, 400, 1200, 5, 300, 64, 2000, 129])
+FOLD_REPLAY_W = 64              # the commonest verify-step width (phase 18)
+FOLD_WIDE_ROWS = 4096           # a --token-budget 4096 step: two launches
+
+
+def fold_layout(rng, t_valid, width: int):
+    """The engine's host layout of one packed step at granite's shapes: 8
+    slots at FOLD_FRONTS in a shuffled pool, their `t_valid` lanes packed
+    into `width` (pad lanes steered into the trash block 0), and one block
+    allocated that no row reaches yet. Returns (n_blocks, stale scales
+    (n_blocks, HKV), write targets (width,), the slots' lane offsets, the
+    fresh blocks: the ones the step opens and the unreached one)."""
+    sid, off = pack_slot_ids(t_valid, width)
+    n_blocks = 2 + int(sum(-(-(f + tv) // BS) for f, tv in
+                           zip(FOLD_FRONTS, t_valid)))
     perm = rng.permutation(np.arange(1, n_blocks))
     table = np.full((MAX_BATCH, NBLK), -1, np.int32)
     scales = rng.uniform(0.005, 0.05, (n_blocks, HKV))
-    c = 0
-    for s, (f, tv) in enumerate(zip(fronts, t_valid)):
+    fresh, c = [int(perm[-1])], 0
+    for s, (f, tv) in enumerate(zip(FOLD_FRONTS, t_valid)):
         nb = -(-(f + int(tv)) // BS)
         table[s, :nb] = perm[c:c + nb]
-        scales[table[s, -(-f // BS):nb]] = 0.0      # opened by this step
+        fresh.extend(int(x) for x in table[s, -(-f // BS):nb])
         c += nb
-    wp = packed_write_positions(t_valid, off, table, fronts, BS, n_rows)
-    shape = (1, HKV, n_rows, D)
+    wp = packed_write_positions(t_valid, off, table, FOLD_FRONTS, BS, width)
+    return n_blocks, scales, wp, off, np.asarray(fresh, np.int32)
+
+
+def fold_rows(rng, shape, exact: bool, row_dtype):
+    """Exact rows are multiples of 2^-3; random rows vary in magnitude row
+    by row, so scales grow mid-block."""
     if exact:
         rows = rng.integers(-32, 33, shape) / 8.0
     else:
         rows = (rng.normal(0, 1, shape)
-                * rng.choice([0.05, 1.0, 6.0], (1, 1, n_rows, 1)))
+                * rng.choice([0.05, 1.0, 6.0],
+                             (*shape[:-3], 1, shape[-2], 1)))
+    return torch.tensor(rows, dtype=torch.float32, device="cuda").to(
+        row_dtype)
+
+
+def fold_case(n_rows: int, row_dtype, exact: bool, seed: int, draft: bool):
+    """One layer's K and V write of a packed step at granite's shapes, laid
+    out by the engine's host code (fold_layout): prefill chunks and decode
+    lanes scheduled into n_rows lanes. Every block holds stale bytes and a
+    stale scale; `fresh_blocks` lists the blocks the step opens and one it
+    does not reach, padded with the trash block to 24 entries, as the
+    engine lists them (more where the step opens more: the wide write,
+    whose chunks are not capped). K is a contiguous (1, Hkv, T, d) tensor, as apply_rope
+    leaves it, V the transposed (1, T, Hkv, d) projection; their rows and
+    pools are distinct."""
+    rng = np.random.default_rng(seed)
+    remaining = {8: [0] * 8, 64: [40] + [0] * 7,
+                 256: [150, 60, 0, 30, 0, 0, 0, 0],
+                 FOLD_WIDE_ROWS: [1300, 1600, 0, 1000, 0, 0, 0, 0]}[n_rows]
+    t_valid = schedule_step_tokens(
+        np.ones(MAX_BATCH, bool), np.asarray(remaining), n_rows,
+        4 * BS if n_rows <= FOLD_ROWS[-1] else None)
+    n_blocks, scales, wp, _, fresh = fold_layout(rng, t_valid, n_rows)
     dev = "cuda"
+
+    def pool(sc, rows):
+        return dict(pool=torch.tensor(
+            rng.integers(-128, 128, (n_blocks, HKV, BS, D)),
+            dtype=torch.int8, device=dev),
+            scales=torch.tensor(sc, dtype=torch.float32, device=dev),
+            rows=rows)
+    k = pool(scales, fold_rows(rng, (1, HKV, n_rows, D), exact, row_dtype))
+    v = pool(rng.uniform(0.005, 0.05, scales.shape), fold_rows(
+        rng, (1, n_rows, HKV, D), exact, row_dtype).transpose(1, 2))
     return dict(
-        pool=torch.tensor(rng.integers(-128, 128, (n_blocks, HKV, BS, D)),
-                          dtype=torch.int8, device=dev),
-        scales=torch.tensor(scales, dtype=torch.float32, device=dev),
-        new_kv=torch.tensor(rows, dtype=torch.float32,
-                            device=dev).to(row_dtype),
-        write_pos=torch.tensor(wp[None], dtype=torch.int32, device=dev),
+        k=k, v=v, write_pos=torch.tensor(wp[None], dtype=torch.int32,
+                                         device=dev),
         draft_rows=(torch.tensor(rng.random((1, n_rows)) < 0.25, device=dev)
-                    if draft else None))
+                    if draft else None),
+        fresh_blocks=torch.tensor(
+            np.pad(fresh, (0, max(0, 24 - len(fresh)))), device=dev))
+
+
+def fold_replay_case(seed: int, layers: int = 1):
+    """One verify step's replay at granite's shapes (serve/paged.py
+    _restore_and_replay, after the restore): 8 decoding slots with
+    DRAFT_LEN draft lanes each in a width-FOLD_REPLAY_W packed step, 1 to 5
+    of each slot's lanes committed, every other lane steered into the trash
+    block, the blocks the step opened at scale 0; K and V rows staged f32
+    (L, 1, Hkv, W, d), pools (L, N, Hkv, bs, d) for `layers` > 1, one
+    layer's shapes (no layer axis) for 1."""
+    rng = np.random.default_rng(seed)
+    t_valid = schedule_step_tokens(
+        np.ones(MAX_BATCH, bool), np.zeros(MAX_BATCH, np.int64),
+        FOLD_REPLAY_W, 4 * BS, drafts=np.full(MAX_BATCH, DRAFT_LEN))
+    n_blocks, scales, wp, off, fresh = fold_layout(rng, t_valid,
+                                                   FOLD_REPLAY_W)
+    scales[fresh] = 0.0
+    keep = np.zeros(FOLD_REPLAY_W, bool)
+    for s, tv in enumerate(t_valid):
+        keep[off[s]:off[s] + int(rng.integers(1, tv + 1))] = True
+    pos = np.where(keep, wp, np.arange(FOLD_REPLAY_W) % BS).astype(np.int32)
+    lead = (layers,) if layers > 1 else ()
+    dev = "cuda"
+
+    def pool():
+        return dict(
+            pool=torch.tensor(rng.integers(-128, 128,
+                                           (*lead, n_blocks, HKV, BS, D)),
+                              dtype=torch.int8, device=dev),
+            scales=torch.tensor(np.broadcast_to(scales,
+                                                (*lead, *scales.shape)),
+                                dtype=torch.float32, device=dev).contiguous(),
+            rows=fold_rows(rng, (*lead, 1, HKV, FOLD_REPLAY_W, D), False,
+                           torch.float32))
+    return dict(k=pool(), v=pool(), write_pos=torch.tensor(pos[None],
+                                                           device=dev),
+                draft_rows=None, fresh_blocks=None,
+                committed=int(keep.sum()))
+
+
+def fold_args(case, state=None) -> tuple:
+    """paged_quant_scatter_kv's arguments for `case`, on `state`'s pools
+    and scales (fold_state) where given."""
+    st = state or {n: (case[n]["pool"], case[n]["scales"]) for n in "kv"}
+    return (*st["k"], case["k"]["rows"], *st["v"], case["v"]["rows"],
+            case["write_pos"], case["draft_rows"], case["fresh_blocks"])
+
+
+def fold_state(case) -> dict:
+    """Copies of the case's pools and scales, {"k": (pool, scales), "v":
+    ...}."""
+    return {n: (case[n]["pool"].clone(), case[n]["scales"].clone())
+            for n in "kv"}
 
 
 def fold_work(case) -> tuple[float, str, float, float]:
     """Least time for one fold call: the rows and targets read once, each
-    distinct (block, kv head) payload and scale the step touches read and
-    written once, over the HBM rate; against its operations (per row value
-    the abs, max, division and rounding; per scale growth a requant of the
+    distinct (layer, pool, block, kv head) payload and scale the step
+    touches read and written once, each unreached fresh block's scale
+    written, over the HBM rate; against its operations (per row value the
+    abs, max, division and rounding; per scale growth a requant of the
     block's payload, replayed here from the data) over the f32 rate."""
     wp = case["write_pos"].cpu().numpy().reshape(-1)
-    rows = case["new_kv"].float().cpu().numpy()[0].transpose(1, 0, 2)
-    sc = case["scales"].cpu().numpy().copy()
     blocks = wp // BS
-    grows = 0
-    for i, blk in enumerate(blocks):          # the scale chain of the data
-        cand = (np.maximum(np.abs(rows[i]).max(-1), np.float32(1e-6))
-                .astype(np.float32) * np.float32(1.0 / 127.0))
-        s_new = np.maximum(sc[blk], cand)
-        grows += int((s_new != sc[blk]).sum())
-        sc[blk] = s_new
     r, m = wp.shape[0], np.unique(blocks).shape[0]
-    elem = case["new_kv"].element_size()
-    nbytes = (r * HKV * D * elem + r * 4 + 2 * m * HKV * BS * D
-              + 2 * m * HKV * 4)
-    ops = 6.0 * r * HKV * D + 5.0 * grows * BS * D
+    fresh = (set() if case["fresh_blocks"] is None else
+             set(case["fresh_blocks"].cpu().numpy().tolist()))
+    nbytes = r * 4 + 4 * len(fresh - set(blocks.tolist())) * HKV * 2
+    ops = 0.0
+    for name in "kv":
+        rows_all = case[name]["rows"].float().cpu().numpy()
+        sc_all = case[name]["scales"].cpu().numpy()
+        if rows_all.ndim == 4:
+            rows_all, sc_all = rows_all[None], sc_all[None]
+        for rows, sc in zip(rows_all, sc_all):
+            rows = rows[0].transpose(1, 0, 2)
+            sc = sc.copy()
+            sc[sorted(fresh)] = 0.0
+            grows = 0
+            for i, blk in enumerate(blocks):     # the scale chain of the data
+                cand = (np.maximum(np.abs(rows[i]).max(-1), np.float32(1e-6))
+                        .astype(np.float32) * np.float32(1.0 / 127.0))
+                s_new = np.maximum(sc[blk], cand)
+                grows += int((s_new != sc[blk]).sum())
+                sc[blk] = s_new
+            nbytes += (r * HKV * D * case[name]["rows"].element_size()
+                       + 2 * m * HKV * BS * D + 2 * m * HKV * 4)
+            ops += 6.0 * r * HKV * D + 5.0 * grows * BS * D
     return (*bound(nbytes, ops), nbytes, ops)
 
 
 def phase_fold():
-    """paged_quant_scatter against paged_quant_scatter_ref on the card: f32
-    and bf16 rows, writes of 8, 64 and 256 rows, exact and random values;
-    the rows in one call, the same rows split over three calls (against the
-    plain version's one call), and with draft rows. Gate: pools and scales
-    bit-identical. Then the times of a 256-row bf16 write."""
+    """paged_quant_scatter_kv against paged_quant_scatter_kv_ref on the
+    card: f32 and bf16 rows, writes of 8, 64 and 256 rows with the
+    engine's pad lanes and fresh blocks, exact and random values, distinct
+    K and V rows in one launch: in one call, split over three, with draft
+    rows, and K alone through paged_quant_scatter; a write of
+    FOLD_WIDE_ROWS rows, more than one launch's shared memory holds; then a
+    speculative replay of all 40 layers in one launch. Gate: pools and
+    scales bit-identical. Then the times at 8/64/256 rows and the
+    replay."""
     lib = kbuild.load_library()
-    for r in (1, 8, 256, 4096):
-        c = lib.paged_quant_scatter_smem_bytes(r, BS, D)
-        py = fold_smem_bytes(r, BS, D)
-        check(c == py, f"fold_smem_bytes({r}, {BS}, {D}): C {c} != Python "
-              f"{py}")
-    n_cases, timing = 0, {}
+    for r in (0, 1, 8, 16, 17, 256, 4096):
+        for bs in (16, BS):
+            c = lib.paged_quant_scatter_kv_smem_bytes(r, bs)
+            py = fold_smem_bytes(r, bs)
+            check(c == py, f"fold_smem_bytes({r}, {bs}): C {c} != Python "
+                  f"{py}")
+    n_cases = 0
     for n_rows in FOLD_ROWS:
         for row_dtype in (torch.float32, torch.bfloat16):
             for exact in (True, False):
-                for variant in ("one call", "split", "draft"):
+                for variant in ("one call", "split", "draft", "K alone"):
                     case = fold_case(n_rows, row_dtype, exact,
                                      seed=n_rows + 3 * n_cases,
                                      draft=variant == "draft")
-                    pool, sc = case["pool"].clone(), case["scales"].clone()
-                    paged_quant_scatter_ref(pool, sc, case["new_kv"],
-                                            case["write_pos"],
-                                            case["draft_rows"])
-                    got_pool, got_sc = (case["pool"].clone(),
-                                        case["scales"].clone())
-                    cuts = ((0, n_rows) if variant != "split" else
-                            (0, n_rows // 3, n_rows // 2, n_rows))
-                    for a, b in zip(cuts[:-1], cuts[1:]):
-                        dr = case["draft_rows"]
-                        paged_quant_scatter(
-                            got_pool, got_sc, case["new_kv"][:, :, a:b],
-                            case["write_pos"][:, a:b],
-                            None if dr is None else dr[:, a:b])
+                    want, got = fold_state(case), fold_state(case)
+                    if variant == "K alone":
+                        for st in (want, got):
+                            st["k"][1][case["fresh_blocks"].long()] = 0.0
+                        paged_quant_scatter_ref(*want["k"], case["k"]["rows"],
+                                                case["write_pos"])
+                        paged_quant_scatter(*got["k"], case["k"]["rows"],
+                                            case["write_pos"])
+                    else:
+                        paged_quant_scatter_kv_ref(*fold_args(case, want))
+                        cuts = ((0, n_rows) if variant != "split" else
+                                (0, n_rows // 3, n_rows // 2, n_rows))
+                        for a, b in zip(cuts[:-1], cuts[1:]):
+                            dr = case["draft_rows"]
+                            paged_quant_scatter_kv(
+                                *got["k"], case["k"]["rows"][:, :, a:b],
+                                *got["v"], case["v"]["rows"][:, :, a:b],
+                                case["write_pos"][:, a:b],
+                                None if dr is None else dr[:, a:b],
+                                case["fresh_blocks"] if a == 0 else None)
                     torch.cuda.synchronize()
                     what = (f"{n_rows} rows {row_dtype} "
                             f"{'exact' if exact else 'random'} {variant}")
-                    check(torch.equal(got_pool, pool),
-                          f"fold pool differs: {what}, "
-                          f"{int((got_pool != pool).sum())} bytes")
-                    check(torch.equal(got_sc, sc),
-                          f"fold scales differ: {what}")
+                    check_fold(got, want, what)
                     n_cases += 1
-                    if (n_rows == FOLD_ROWS[-1] and not exact
-                            and variant == "one call"):
-                        timing[str(row_dtype).split(".")[-1]] = fold_times(
-                            case)
+    check(fold_smem_bytes(FOLD_WIDE_ROWS, BS) > MAX_SMEM_BYTES,
+          f"{FOLD_WIDE_ROWS} rows fit one launch's shared memory")
+    for variant in ("one call", "draft"):
+        case = fold_case(FOLD_WIDE_ROWS, torch.bfloat16, False, seed=29,
+                         draft=variant == "draft")
+        want, got = fold_state(case), fold_state(case)
+        paged_quant_scatter_kv_ref(*fold_args(case, want))
+        paged_quant_scatter_kv(*fold_args(case, got))
+        torch.cuda.synchronize()
+        check_fold(got, want, f"{FOLD_WIDE_ROWS} rows bf16 random {variant}")
+        n_cases += 1
+    replay = {n: fold_replay_case(seed=17 + n, layers=n) for n in (1, M_LAYERS)}
+    for layers, case in replay.items():
+        want, got = fold_state(case), fold_state(case)
+        paged_quant_scatter_kv_ref(*fold_args(case, want))
+        paged_quant_scatter_kv(*fold_args(case, got))
+        torch.cuda.synchronize()
+        check_fold(got, want, f"replay of {layers} layer(s)")
+        n_cases += 1
     log(f"[fold] {n_cases} cases (rows {FOLD_ROWS}, f32 and bf16, exact and "
-        f"random, one call / split over three calls / draft rows): pools "
-        f"and scales bit-identical to the plain version")
-    for name, tm in timing.items():
-        log(f"[fold] timing 256 rows, {name}: kernel {tm['ms']:.4f} ms per "
-            f"call, device {tm['device_ms']:.4f} ms warm / "
-            f"{tm['cold_ms']:.4f} ms L2-cold rows, plain "
-            f"{tm['plain_ms']:.4f} ms, bound {tm['bound_ms']:.5f} ms "
-            f"({tm['bound_by']}: {tm['bytes'] / 1e6:.3f} MB, "
-            f"{tm['flops'] / 1e6:.2f} M ops); {tm['passes']}")
-    return dict(timing["bfloat16"], max_abs_err=0.0)
+        f"random, K and V in one launch in one call / split over three "
+        f"calls / with draft rows, K alone; {FOLD_WIDE_ROWS} rows in slices; "
+        f"the replay at W "
+        f"{FOLD_REPLAY_W} of 1 and {M_LAYERS} layers in one launch): pools "
+        f"and scales bit-identical to the plain version; card {CARD}")
+    timing = {}
+    for n_rows in FOLD_ROWS:
+        case = fold_case(n_rows, torch.bfloat16, False, seed=5 + n_rows,
+                         draft=False)
+        timing[f"{n_rows} bf16 rows, K+V"] = fold_times(case)
+    timing[f"replay, {M_LAYERS} layers, W {FOLD_REPLAY_W} f32, K+V"] = \
+        fold_times(replay[M_LAYERS], plain_iters=2)
+    for what, tm in timing.items():
+        log(f"[fold] timing {what}: kernel {tm['ms']:.4f} ms per call, "
+            f"device {tm['device_ms']:.4f} ms warm / {tm['cold_ms']:.4f} ms "
+            f"L2-cold, plain {tm['plain_ms']:.4f} ms, bound "
+            f"{tm['bound_ms']:.5f} ms ({tm['bound_by']}: "
+            f"{tm['bytes'] / 1e6:.3f} MB, {tm['flops'] / 1e6:.2f} M ops); "
+            f"{tm['passes']}; card {CARD}")
+    log(f"[fold] one layer's int8 write at the engine's shapes (64 lanes): "
+        f"{fold_call_counts()}")
+    return dict(timing[f"{FOLD_ROWS[-1]} bf16 rows, K+V"], max_abs_err=0.0,
+                timing=timing)
 
 
-def fold_times(case) -> dict:
-    """The fold's times at one case: the pool and scales are restored
+def check_fold(got, want, what: str):
+    for n in "kv":
+        check(torch.equal(got[n][0], want[n][0]),
+              f"fold {n} pool differs: {what}, "
+              f"{int((got[n][0] != want[n][0]).sum())} bytes")
+        check(torch.equal(got[n][1], want[n][1]),
+              f"fold {n} scales differ: {what}")
+
+
+def fold_times(case, plain_iters: int = 5) -> dict:
+    """The K+V fold's times at one case: the pools and scales are restored
     before each call (the fold is in place), and the restore's own time is
     taken off every number."""
-    p0, s0 = case["pool"].clone(), case["scales"].clone()
-    pool, sc = case["pool"], case["scales"]
+    saved = fold_state(case)
+    live = {n: (case[n]["pool"], case[n]["scales"]) for n in "kv"}
 
     def restore():
-        pool.copy_(p0)
-        sc.copy_(s0)
+        for n in "kv":
+            for dst, src in zip(live[n], saved[n]):
+                dst.copy_(src)
 
     def kernel():
         restore()
-        paged_quant_scatter(pool, sc, case["new_kv"], case["write_pos"])
+        paged_quant_scatter_kv(*fold_args(case))
 
     def plain():
         restore()
-        paged_quant_scatter_ref(pool, sc, case["new_kv"], case["write_pos"])
+        paged_quant_scatter_kv_ref(*fold_args(case))
     base = (cuda_time_ms(restore), graph_time_ms(restore),
             cold_time_ms(restore))
     bound_ms, by, nbytes, ops = fold_work(case)
-    return dict(ms=cuda_time_ms(kernel) - base[0],
-                device_ms=graph_time_ms(kernel) - base[1],
-                cold_ms=cold_time_ms(kernel) - base[2],
-                plain_ms=cuda_time_ms(plain, iters=5) - base[0],
-                passes=kernel_passes(
-                    lambda: paged_quant_scatter(pool, sc, case["new_kv"],
-                                                case["write_pos"])),
-                bound_ms=bound_ms, bound_by=by, bytes=nbytes, flops=ops)
+    out = dict(ms=cuda_time_ms(kernel) - base[0],
+               device_ms=graph_time_ms(kernel) - base[1],
+               cold_ms=cold_time_ms(kernel) - base[2],
+               plain_ms=cuda_time_ms(plain, iters=plain_iters,
+                                     warmup=1) - base[0],
+               passes=kernel_passes(
+                   lambda: paged_quant_scatter_kv(*fold_args(case))),
+               bound_ms=bound_ms, bound_by=by, bytes=nbytes, flops=ops)
+    restore()
+    return out
 
+
+def host_profile(prof, tag: str) -> dict:
+    """The host side of a profiled run, read once from its kineto events:
+    aten ops (nested ones counted), device kernels, and the device kernels
+    launched inside the `tag` ranges (record_function), matched to their
+    runtime launch by correlation id, by kernel name."""
+    ranges, launch_at, kern, aten = [], {}, [], 0
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if str(e.device_type()).endswith("CUDA"):
+            if not (e.is_user_annotation() or name == tag):
+                kern.append((e.correlation_id(), name))
+        elif name == tag:
+            ranges.append((e.start_ns(), e.end_ns()))
+        elif name.startswith("aten::"):
+            aten += 1
+        elif name.startswith(("cudaLaunch", "cuLaunch")):
+            launch_at[e.correlation_id()] = e.start_ns()
+    ranges.sort()
+    starts = [a for a, _ in ranges]
+    inside = collections.Counter()
+    for corr, name in kern:
+        t = launch_at.get(corr)
+        if t is None:
+            continue
+        i = bisect.bisect_right(starts, t) - 1
+        if i >= 0 and t <= ranges[i][1]:
+            inside[name] += 1
+    return dict(aten=aten, kernels=len(kern), tag_calls=len(ranges),
+                matched=sum(1 for c, _ in kern if c in launch_at),
+                inside=inside)
+
+
+@contextlib.contextmanager
+def tagged(module, name: str, tag: str):
+    """`module.name` wrapped in torch.profiler.record_function(tag) for the
+    duration: host_profile then finds the kernels each call launched."""
+    fn = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        with torch.profiler.record_function(tag):
+            return fn(*a, **kw)
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def short_name(name: str) -> str:
+    """A kernel's name without its namespace, template and arguments."""
+    name = name.replace("(anonymous namespace)::", "").replace("void ", "")
+    return name.split("<")[0].split("(")[0].split("::")[-1].strip()[:60]
+
+
+def fold_call_counts(calls: int = 20) -> str:
+    """What one layer's int8 write (models/attention.py _quant_write) costs
+    the host and the card at the engine's call shapes: a 64-lane packed
+    step's K and V (fold_case), with the fresh-block list, without and with
+    draft rows; profiled over `calls` layers: aten ops and device kernels a
+    layer, by kernel name."""
+    case = fold_case(64, torch.bfloat16, False, seed=11, draft=True)
+    parts = []
+    for dr in (None, case["draft_rows"]):
+        cache = dict(k=case["k"]["pool"], v=case["v"]["pool"],
+                     k_scale=case["k"]["scales"],
+                     v_scale=case["v"]["scales"],
+                     write_pos=case["write_pos"],
+                     fresh_blocks=case["fresh_blocks"])
+        if dr is not None:
+            cache["draft_rows"] = dr
+
+        def layer(cache=cache):
+            A._quant_write(cache, case["k"]["rows"], case["v"]["rows"])
+        layer()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                layer()
+            torch.cuda.synchronize()
+        hp = host_profile(prof, "")
+        by = collections.Counter()
+        for e in device_events(prof):
+            by[short_name(e.name)] += 1
+        parts.append(
+            f"{'verify' if dr is not None else 'plain'} step: "
+            f"{hp['aten'] / calls:.1f} aten ops a layer; device kernels by "
+            f"name: " + ", ".join(f"{n} {c}" for n, c in by.most_common())
+            + f" ({hp['kernels']} events delivered of {calls} layers)")
+    return "; ".join(parts)
 
 # ------------------------------------------------------------ phase 16 --
 
@@ -2034,7 +2288,7 @@ def serve_sessions(params, cfg, traffic, profiled=False, new_tokens=32,
                             max_new_tokens=new_tokens)
         eng.submit(reqs[uid], session=session)
     torch.cuda.synchronize()
-    for k in KERNELS + (paged_quant_scatter,):
+    for k in KERNELS + FOLD_KERNELS:
         k.launches = 0
     ctx = (torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
@@ -2066,7 +2320,7 @@ def serve_sessions(params, cfg, traffic, profiled=False, new_tokens=32,
                 toks={u: list(r.out_tokens) for u, r in reqs.items()},
                 prompts={u: np.asarray(r.prompt) for u, r in reqs.items()},
                 launches={k.__name__: k.launches
-                          for k in KERNELS + (paged_quant_scatter,)})
+                          for k in KERNELS + FOLD_KERNELS})
 
 
 def prefill_dispatched(eng, req) -> bool:
@@ -2094,29 +2348,33 @@ def phase_sharing():
     profiled; the same traffic with sharing off and with an f32 pool, each
     held to the sharing run by ROADMAP C1's rule. Gates: turn 1 hits >= 7,
     COW copies >= 1, turn 2's skip rate >= 0.75, the int8/f32 pool bytes
-    0.25 + 1/(block_size * head_dim), the fold launched 80 and the packed
+    0.25 + 1/(block_size * head_dim), the fold launched 40 and the packed
     kernel 40 times a step, identical tokens in the three sharing runs."""
     cfg, params = engine_model()
     q8 = cfg.replace(kv_quant="int8")
     traffic = session_traffic(cfg)
     share = dict(prefix_sharing=True, decode_sharing=True)
     taps = []
-    runs = [serve_sessions(params, q8, traffic, profiled=rep == 2,
-                           on_engine=(lambda e: taps.append(LogitTap(e)))
-                           if rep == 2 else None, **share)
-            for rep in range(3)]
+    runs = []
+    for rep in range(3):
+        with (tagged(A, "_quant_write", WRITE_TAG) if rep == 2
+              else contextlib.nullcontext()):
+            runs.append(serve_sessions(
+                params, q8, traffic, profiled=rep == 2,
+                on_engine=(lambda e: taps.append(LogitTap(e)))
+                if rep == 2 else None, **share))
     main = dict(runs[0], tap=taps[0])
     for rep, run in enumerate(runs):
         steps, la = run["steps"], run["launches"]
         n_new = sum(len(t) for t in run["toks"].values())
         log(f"[sharing] run {rep}{' (profiled)' if rep == 2 else ''}: "
-            f"{steps} packed steps, paged_quant_scatter launches "
-            f"{la['paged_quant_scatter']}, hccs_packed_prefill launches "
+            f"{steps} packed steps, paged_quant_scatter_kv launches "
+            f"{la['paged_quant_scatter_kv']}, hccs_packed_prefill launches "
             f"{la['hccs_packed_prefill']}; {n_new} tokens in "
             f"{run['wall']:.3f}s = {n_new / run['wall']:.1f} new tok/s")
-        check(la["paged_quant_scatter"] == 2 * M_LAYERS * steps,
-              f"fold launches {la['paged_quant_scatter']} != 2 x "
-              f"{M_LAYERS} x {steps} steps")
+        check(la["paged_quant_scatter_kv"] == M_LAYERS * steps,
+              f"fold launches {la['paged_quant_scatter_kv']} != {M_LAYERS} "
+              f"x {steps} steps")
         check(la["hccs_packed_prefill"] == M_LAYERS * steps,
               f"packed launches {la['hccs_packed_prefill']} != "
               f"{M_LAYERS} x {steps} steps")
@@ -2141,6 +2399,22 @@ def phase_sharing():
                                "sharing profile")
     fold_ms, n_fold = kernel_total(prof, "paged_quant_scatter")
     busy = prof_busy_ms(prof)
+    hp, steps = host_profile(prof, WRITE_TAG), runs[2]["steps"]
+    log(f"[sharing] profiled run, per step: {hp['aten'] / steps:.1f} aten "
+        f"ops, {hp['kernels'] / steps:.1f} device kernels; "
+        f"{hp['tag_calls']} int8 writes (models/attention.py _quant_write, "
+        f"one a layer), the kernels launched inside them: " + ", ".join(
+            f"{short_name(n)} {c}" for n, c in hp["inside"].most_common())
+        + f" ({hp['matched']} of {hp['kernels']} kernels matched to their "
+        f"launch); fold {fold_ms / busy:.3f} of device busy {busy:.1f} ms; "
+        f"card {CARD}")
+    folds = sum(c for n, c in hp["inside"].items()
+                if "paged_quant_scatter" in n)
+    check(hp["tag_calls"] == M_LAYERS * steps and folds == hp["tag_calls"]
+          and sum(hp["inside"].values()) == folds,
+          f"sharing: {hp['tag_calls']} int8 writes launched {folds} folds "
+          f"and {sum(hp['inside'].values()) - folds} other kernels (a copy "
+          f"or a conversion beside the fold)")
     log(f"[sharing] fold kernels {fold_ms:.1f} ms over {n_fold} launches; "
         f"idle share of the unprofiled walls "
         f"{1 - busy / 1e3 / runs[0]['wall']:.3f}, "
@@ -2156,12 +2430,12 @@ def phase_sharing():
         f"{plain['steps']} steps in {plain['wall']:.3f}s; f32 pool: "
         f"{f32['steps']} steps in {f32['wall']:.3f}s")
     check(ratio == want, f"int8/f32 byte ratio {ratio}")
-    check(f32["launches"]["paged_quant_scatter"] == 0,
+    check(f32["launches"]["paged_quant_scatter_kv"] == 0,
           "the f32 pool launched the fold")
     for label, run in (("sharing off", plain), ("f32 pool", f32)):
         held_to_sessions(label, run, main, params, q8, cfg, share)
-    return (main["launches"]["paged_quant_scatter"],
-            per_call(n_fold, runs[2]["launches"]["paged_quant_scatter"]),
+    return (main["launches"]["paged_quant_scatter_kv"],
+            per_call(n_fold, runs[2]["launches"]["paged_quant_scatter_kv"]),
             dict(toks=main["toks"], prompts=main["prompts"], tap=main["tap"],
                  walls=[runs[0]["wall"], runs[1]["wall"]], busy_ms=busy))
 
@@ -2217,7 +2491,7 @@ def phase_grid(packed_tokens, packed_own):
     for i, p in enumerate(prompts):
         eng.submit(Request(uid=i, prompt=p.copy(), max_new_tokens=32))
     torch.cuda.synchronize()
-    for k in KERNELS + (paged_quant_scatter,):
+    for k in KERNELS + FOLD_KERNELS:
         k.launches = 0
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -2230,7 +2504,7 @@ def phase_grid(packed_tokens, packed_own):
     check(len(done) == MAX_BATCH and all(len(t) == 32 for t in toks.values()),
           "grid: not every request done")
     launched = {k.__name__: k.launches
-                for k in KERNELS + (paged_quant_scatter,)}
+                for k in KERNELS + FOLD_KERNELS}
     check(not any(launched.values()), f"grid: kernels ran {launched}")
     log(f"[grid] {eng.occupancy_steps} packed steps, wall {wall:.3f}s "
         f"(profiled), device busy {prof_busy_ms(prof):.1f} ms")
@@ -2306,10 +2580,10 @@ class ReplayProbe:
         take = self.capture and (self.captured is None or (
             ideal and not self.captured["ideal"]))
         pre = {n: layers[n].clone() for n in POOL_KEYS} if take else None
-        before = paged_quant_scatter.launches
+        before = paged_quant_scatter_kv.launches
         out = self.orig(layers, snap, blocks, fresh_mask, staged_k, staged_v,
                         replay_pos)
-        self.replay_idx.extend(range(before, paged_quant_scatter.launches))
+        self.replay_idx.extend(range(before, paged_quant_scatter_kv.launches))
         self.calls += 1
         if take:
             self.captured = dict(
@@ -2323,17 +2597,17 @@ class ReplayProbe:
 def replay_matches_plain(probe) -> str:
     """The captured verify step's restore and replay done again from the
     same pre-call pools, snapshot and staged rows with the plain fold
-    (paged_quant_scatter_ref): every pool byte and scale must equal the
+    (paged_quant_scatter_kv_ref): every pool byte and scale must equal the
     card's. Returns a description of the step."""
     cap = probe.captured
     check(cap is not None, "spec: no verify step was captured")
     layers = {n: t.clone() for n, t in cap["pre"].items()}
-    serve_paged.paged_quant_scatter = paged_quant_scatter_ref
+    serve_paged.paged_quant_scatter_kv = paged_quant_scatter_kv_ref
     try:
         with torch.inference_mode():
             probe.orig(layers, *cap["args"])
     finally:
-        serve_paged.paged_quant_scatter = paged_quant_scatter
+        serve_paged.paged_quant_scatter_kv = paged_quant_scatter_kv
     torch.cuda.synchronize()
     for n in POOL_KEYS:
         check(torch.equal(layers[n], cap["post"][n]),
@@ -2432,7 +2706,7 @@ def phase_spec():
         steps, la, st = run["steps"], run["launches"], run["stats"]
         probe, verify = run["probe"], run["verify"]
         n_verify = sum(verify.values())
-        fold = la["paged_quant_scatter"]
+        fold = la["paged_quant_scatter_kv"]
         n_new = sum(len(t) for t in run["toks"].values())
         log(f"[spec] run {rep}{' (profiled)' if rep == 2 else ''}: {steps} "
             f"packed steps ({n_verify} verify steps), wall "
@@ -2452,11 +2726,10 @@ def phase_spec():
         check(la["hccs_packed_prefill"] == M_LAYERS * steps,
               f"spec: packed launches {la['hccs_packed_prefill']} != "
               f"{M_LAYERS} x {steps} steps")
-        check(fold - probe.launches == 2 * M_LAYERS * steps,
-              f"spec: in-step fold launches {fold - probe.launches} != 2 x "
+        check(fold - probe.launches == M_LAYERS * steps,
+              f"spec: in-step fold launches {fold - probe.launches} != "
               f"{M_LAYERS} x {steps} steps")
-        check(probe.calls == n_verify
-              and probe.launches == 2 * M_LAYERS * n_verify,
+        check(probe.calls == n_verify and probe.launches == n_verify,
               f"spec: {probe.launches} replay launches over {probe.calls} "
               f"replays, {n_verify} verify steps")
         check(not la["hccs_paged_decode"] and not la["hccs_decode"],
@@ -2470,7 +2743,7 @@ def phase_spec():
     profile_summary(prof, runs[2]["wall"], "PackedRows", "spec profile")
     fold_ms, n_fold = kernel_total(prof, "paged_quant_scatter")
     in_step_ms, replay_ms = replay_fold_ms(
-        prof, runs[2]["probe"], runs[2]["launches"]["paged_quant_scatter"])
+        prof, runs[2]["probe"], runs[2]["launches"]["paged_quant_scatter_kv"])
     n_replay = runs[2]["probe"].launches
     busy = prof_busy_ms(prof)
     log(f"[spec] fold kernels {fold_ms:.1f} ms over {n_fold} launches: "
@@ -2497,8 +2770,8 @@ def phase_spec():
         f"{f32['steps']} steps in {f32['wall']:.3f}s, acceptance "
         f"{f32['stats']['acceptance_rate']:.4f}, off {f32_off['steps']} "
         f"steps in {f32_off['wall']:.3f}s; card {CARD}")
-    check(f32["launches"]["paged_quant_scatter"] == 0
-          and f32_off["launches"]["paged_quant_scatter"] == 0,
+    check(f32["launches"]["paged_quant_scatter_kv"] == 0
+          and f32_off["launches"]["paged_quant_scatter_kv"] == 0,
           "spec: the f32 pool launched the fold")
     for tag, run, ref, run_cfg in (("int8", main, off, q8),
                                    ("f32", f32, f32_off, cfg)):
@@ -2514,7 +2787,7 @@ def phase_spec():
         divergence(f"spec {tag} pool on vs off", run["toks"], ref_toks,
                    run["prompts"], ref_prompts, params, cfg,
                    own=(run["tap"].own, ref_own))
-    fold = main["launches"]["paged_quant_scatter"]
+    fold = main["launches"]["paged_quant_scatter_kv"]
     return dict(packed=main["launches"]["hccs_packed_prefill"],
                 fold_in_step=fold - main["probe"].launches,
                 fold_replay=main["probe"].launches)
@@ -2585,7 +2858,7 @@ def phase_overload():
     tap = LogitTap(eng)
     reqs = [Request(**{**r, "prompt": r["prompt"].copy()}) for r in specs]
     torch.cuda.synchronize()
-    for k in KERNELS + (paged_quant_scatter,):
+    for k in KERNELS + FOLD_KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
     eng.submit(reqs[0])
@@ -2615,7 +2888,7 @@ def phase_overload():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches
-                for k in KERNELS + (paged_quant_scatter,)}
+                for k in KERNELS + FOLD_KERNELS}
     rb = eng.robust_counters.snapshot()
     assert_drained(eng)
     reasons = collections.Counter(r.fail_reason for r in reqs if r.failed)
@@ -2708,14 +2981,14 @@ def phase_chaos():
     for name in seams:
         setattr(eng, name, counted(getattr(eng, name), "failed calls"))
     torch.cuda.synchronize()
-    for k in KERNELS + (paged_quant_scatter,):
+    for k in KERNELS + FOLD_KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
     report = monkey.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches
-                for k in KERNELS + (paged_quant_scatter,)}
+                for k in KERNELS + FOLD_KERNELS}
     rb = report["robustness"]
     every = report["finished"] + report["failed"]
     check(len(every) == report["submitted"] and all(
@@ -2732,7 +3005,7 @@ def phase_chaos():
         f"{eng.spec_steps} slot verifies; launches {launches}; invariants "
         f"held after every step, pool drained; card {CARD}")
     check(launches["hccs_packed_prefill"] > 0
-          and launches["paged_quant_scatter"] > 0, "chaos: kernels idle")
+          and launches["paged_quant_scatter_kv"] > 0, "chaos: kernels idle")
     check(not raised["inside"], "chaos: a device seam raised by itself")
     check(raised["failed calls"] == rb["device_retries"],
           f"chaos: {raised['failed calls']} failed device calls, "
@@ -2764,7 +3037,7 @@ def serve_mixed(params, cfg, prompts, profiled=False, temperature=0.0,
         eng.submit(Request(uid=i, prompt=p.copy(), max_new_tokens=32,
                            temperature=temperature))
     torch.cuda.synchronize()
-    for k in KERNELS + (paged_quant_scatter,):
+    for k in KERNELS + FOLD_KERNELS:
         k.launches = 0
     ctx = (torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
@@ -2776,7 +3049,7 @@ def serve_mixed(params, cfg, prompts, profiled=False, temperature=0.0,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches
-                for k in KERNELS + (paged_quant_scatter,)}
+                for k in KERNELS + FOLD_KERNELS}
     toks = {r.uid: list(r.out_tokens) for r in done}
     check(len(done) == len(prompts) and all(
         len(t) == 32 for t in toks.values()), "not every request done")
@@ -2803,7 +3076,7 @@ def phase_async(packed_tokens, sync_ref, sharing_ref):
     forward at the same shapes, greedy, no EOS), steps overlapped, no sync
     fallback, 40 packed launches a step; the walls and idle share against
     phase 5's. Then phase 16's sessions (int8, prefix and decode sharing)
-    with the loop on: 80 fold and 40 packed launches a step, held to phase
+    with the loop on: 40 fold and 40 packed launches a step, held to phase
     16's tokens: identical where the schedule is, near ties where the
     ninth turn-1 request (queued for a slot) is admitted a step later
     (the async loop frees a finished slot at its commit, one step late).
@@ -2857,14 +3130,14 @@ def phase_async(packed_tokens, sync_ref, sharing_ref):
     log(f"[async] sessions: {steps} packed steps "
         f"({eng.async_overlapped_steps} overlapped, "
         f"{eng.async_sync_fallbacks} sync fallbacks), fold launches "
-        f"{la['paged_quant_scatter']}, packed launches "
+        f"{la['paged_quant_scatter_kv']}, packed launches "
         f"{la['hccs_packed_prefill']}; {n_new} tokens in {sess['wall']:.3f}s"
         f" = {n_new / sess['wall']:.1f} new tok/s"
         + (f" (phase 16, sync: {sharing_ref['walls'][0]:.3f}, "
            f"{sharing_ref['walls'][1]:.3f} s)" if sharing_ref else ""))
-    check(la["paged_quant_scatter"] == 2 * M_LAYERS * steps,
-          f"async sessions: fold launches {la['paged_quant_scatter']} != "
-          f"2 x {M_LAYERS} x {steps} steps")
+    check(la["paged_quant_scatter_kv"] == M_LAYERS * steps,
+          f"async sessions: fold launches {la['paged_quant_scatter_kv']} != "
+          f"{M_LAYERS} x {steps} steps")
     check(la["hccs_packed_prefill"] == M_LAYERS * steps,
           f"async sessions: packed launches {la['hccs_packed_prefill']} != "
           f"{M_LAYERS} x {steps} steps")
@@ -2875,7 +3148,7 @@ def phase_async(packed_tokens, sync_ref, sharing_ref):
                          cfg, share)
     return dict(packed=runs[0]["launches"]["hccs_packed_prefill"],
                 sessions_packed=la["hccs_packed_prefill"],
-                sessions_fold=la["paged_quant_scatter"], busy_ms=busy)
+                sessions_fold=la["paged_quant_scatter_kv"], busy_ms=busy)
 
 
 # ------------------------------------------------------------ phase 22 --
@@ -2946,14 +3219,14 @@ def phase_telemetry(packed_tokens, busy):
     arrivals = np.cumsum(np.random.default_rng(4).exponential(
         1.0 / ARRIVAL_RATE, len(reqs)))
     torch.cuda.synchronize()
-    for k in KERNELS + (paged_quant_scatter,):
+    for k in KERNELS + FOLD_KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
     done = drive_open_loop(eng, reqs, arrivals)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     run = dict(launches={k.__name__: k.launches
-                         for k in KERNELS + (paged_quant_scatter,)},
+                         for k in KERNELS + FOLD_KERNELS},
                steps=eng.occupancy_steps)
     check_packed_launches("open loop", run)
     check(len(done) == len(reqs) and all(
@@ -3384,14 +3657,14 @@ def phase_serve_trained(trained):
     for r in reqs:
         eng.submit(r)
     torch.cuda.synchronize()
-    for k in KERNELS + (paged_quant_scatter,):
+    for k in KERNELS + FOLD_KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     run = dict(launches={k.__name__: k.launches
-                         for k in KERNELS + (paged_quant_scatter,)},
+                         for k in KERNELS + FOLD_KERNELS},
                steps=eng.occupancy_steps)
     n_new = sum(len(r.out_tokens) for r in reqs)
     log(f"[serve trained] {len(reqs)} requests ({sum(map(len, prompts))} "
@@ -3546,11 +3819,11 @@ def main(argv=None):
                 telemetry_sync=tele["sync"], telemetry_async=tele["async"],
                 open_loop=tele["open_loop"], sampling=sampling["sync"],
                 sampling_async=sampling["async_"], trained=served),
-            "paged_quant_scatter": dict(
+            "paged_quant_scatter_kv": dict(
                 spec_in_step=spec["fold_in_step"],
                 spec_replay=spec["fold_replay"],
-                overload=overload["launches"]["paged_quant_scatter"],
-                chaos=chaos["launches"]["paged_quant_scatter"],
+                overload=overload["launches"]["paged_quant_scatter_kv"],
+                chaos=chaos["launches"]["paged_quant_scatter_kv"],
                 async_sessions=asynch["sessions_fold"])}
         tm = dict(timings[max(timings)], max_abs_err=worst)
         geo = f"granite H={H} Hkv={HKV} d={D}"
@@ -3595,15 +3868,19 @@ def main(argv=None):
                          kernel_t["hccs_mha_fused"],
                          f"B=1, {geo} T={MAX_LEN}, f32, causal",
                          headers=("hccs_common.cuh",)),
-            dict(kernel_entry("paged_quant_scatter", "kv_quant.cu",
+            dict(kernel_entry("paged_quant_scatter_kv", "kv_quant.cu",
                               "src/repro/models/attention.py:178",
                               fold_launches, fold_t,
-                              f"{FOLD_ROWS[-1]} bf16 rows, Hkv={HKV} bs={BS} "
-                              f"d={D}, int8 pool (XLA in the JAX package, "
-                              f"no Pallas kernel)",
+                              f"{FOLD_ROWS[-1]} bf16 rows, K and V in one "
+                              f"launch, Hkv={HKV} bs={BS} d={D}, int8 pools "
+                              f"(XLA in the JAX package, no Pallas kernel)",
                               headers=("hccs_common.cuh",),
                               kernels_per_call=fold_per_call),
-                 slice_launches=slice_launches["paged_quant_scatter"])]}))
+                 slice_launches=slice_launches["paged_quant_scatter_kv"],
+                 shapes={what: {k: tm[k] for k in (
+                     "ms", "device_ms", "cold_ms", "plain_ms", "bound_ms",
+                     "bound_by")} for what, tm in fold_t["timing"].items()})
+        ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

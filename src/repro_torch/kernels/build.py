@@ -134,10 +134,12 @@ def load_library() -> ctypes.CDLL:
         lib.hccs_fused_launch.restype = i
         lib.hccs_fused_smem_bytes.argtypes = [i] * 4
         lib.hccs_fused_smem_bytes.restype = sz
-        lib.paged_quant_scatter_launch.argtypes = [vp] * 5 + [i] * 5 + [vp]
-        lib.paged_quant_scatter_launch.restype = i
-        lib.paged_quant_scatter_smem_bytes.argtypes = [i] * 3
-        lib.paged_quant_scatter_smem_bytes.restype = sz
+        # the fold takes its rows' strides as a host array of 10 int64
+        lib.paged_quant_scatter_kv_launch.argtypes = (
+            [vp] * 9 + [ctypes.POINTER(ctypes.c_longlong)] + [i] * 10 + [vp])
+        lib.paged_quant_scatter_kv_launch.restype = i
+        lib.paged_quant_scatter_kv_smem_bytes.argtypes = [i] * 2
+        lib.paged_quant_scatter_kv_smem_bytes.restype = sz
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -166,9 +168,13 @@ def launch(fn, entry: str, device: torch.device, *args) -> None:
     lib = load_library()
     conv = [ctypes.c_void_p(0 if a is None else a.data_ptr())
             if a is None or isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, entry)(*conv, ctypes.c_void_p(stream))
+    if device.index == torch.cuda.current_device():
+        err = getattr(lib, entry)(*conv, ctypes.c_void_p(
+            torch.cuda.current_stream().cuda_stream))
+    else:
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = getattr(lib, entry)(*conv, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err} "
                            f"({lib.cuda_error_string(err).decode()})")

@@ -39,7 +39,7 @@ from repro_torch.core.hccs import (HCCSParams, hccs_mode_inv, hccs_qat,
                                    true_div)
 from repro_torch.kernels.decode import (hccs_decode, hccs_packed_prefill,
                                         hccs_paged_decode)
-from repro_torch.kernels.kv_quant import paged_quant_scatter
+from repro_torch.kernels.kv_quant import paged_quant_scatter_kv
 from repro_torch.models.layers import apply_rope
 
 NEG_INF = -1e30
@@ -387,6 +387,20 @@ def _check_cache(cfg, hccs, cache):
             "ROADMAP.md item A3")
 
 
+def _quant_write(cache, k, v):
+    """kv_quant="int8": fold this step's K and V rows into the int8 pools,
+    in place, in one launch, after resetting the scales of the blocks
+    allocated since the last step (stale from a prior owner; COW copies are
+    not fresh: they arrive with payload and scales). A speculative verify
+    step's draft lanes fold with the block's scale clamped (provisional
+    rows, rewritten after verification). Returns (k pool, k scales, v pool,
+    v scales)."""
+    return paged_quant_scatter_kv(
+        cache["k"], cache["k_scale"], k, cache["v"], cache["v_scale"], v,
+        cache["write_pos"], draft_rows=cache.get("draft_rows"),
+        fresh_blocks=cache.get("fresh_blocks"))
+
+
 def apply_attention(p, x, cfg, hccs=None, positions=None, cache=None):
     """x: (B, T, D). Returns (out, new_cache).
 
@@ -429,21 +443,7 @@ def apply_attention(p, x, cfg, hccs=None, positions=None, cache=None):
     if cache is not None and "block_table" in cache:
         ks = vs = None
         if "k_scale" in cache:
-            # kv_quant="int8": reset the scales of blocks allocated since the
-            # last step (stale from a prior owner), then fold the rows in.
-            # COW copies are not fresh: they arrive with payload and scales.
-            ks, vs = cache["k_scale"], cache["v_scale"]
-            fresh = cache.get("fresh_blocks")
-            if fresh is not None:
-                ks[fresh.long()] = 0.0
-                vs[fresh.long()] = 0.0
-            # a speculative verify step's draft lanes fold with the block's
-            # scale clamped (provisional rows, rewritten after verification)
-            dr = cache.get("draft_rows")
-            kc, ks = paged_quant_scatter(cache["k"], ks, k,
-                                         cache["write_pos"], draft_rows=dr)
-            vc, vs = paged_quant_scatter(cache["v"], vs, v,
-                                         cache["write_pos"], draft_rows=dr)
+            kc, ks, vc, vs = _quant_write(cache, k, v)
         else:
             kc = _paged_scatter(cache["k"], k, cache["write_pos"])
             vc = _paged_scatter(cache["v"], v, cache["write_pos"])

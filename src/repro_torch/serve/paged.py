@@ -120,7 +120,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.kv_quant import paged_quant_scatter
+from repro_torch.kernels.kv_quant import paged_quant_scatter_kv
 from repro_torch.models import model as M
 from repro_torch.models.attention import kernel_on
 from repro_torch.serve import telemetry as T
@@ -500,26 +500,25 @@ def _restore_and_replay(layers, snap, blocks, fresh_mask, staged_k,
     live (the replay must see the zeroed scale a real step sees; freed
     draft blocks keep their restored stale state, as a never-drafted run
     leaves a never-allocated block), then re-fold ONLY the committed rows
-    from the staged raw KV with the fold kernel, one call per layer and
-    pool, rejected lanes steered into the trash block. Block bytes are a
-    pure function of (rows, order), so the pool ends bit-identical to a
-    step that never drafted.
+    from the staged raw KV with the fold kernel, one call for every layer
+    and both pools (JAX's vmap over layers), rejected lanes steered into the
+    trash block. Block bytes are a pure function of (rows, order), so the
+    pool ends bit-identical to a step that never drafted.
 
     layers: the per-layer pool dict; snap: _gather_block_state's copy;
     blocks: (S,) int64, padded with TRASH_BLOCK duplicates; fresh_mask: (S,)
     bool; staged_k/staged_v: (L, 1, Hkv, W, hd) f32; replay_pos: (1, W)
     int32."""
-    for name, staged in (("k", staged_k), ("v", staged_v)):
-        pool, sc = layers[name], layers[name + "_scale"]
+    for name in ("k", "v"):
         # the padding duplicates are all the trash block, gathered from one
         # state with fresh_mask False, so their values are identical and the
         # order of a duplicate-index write does not matter
-        pool[:, blocks] = snap[name]
-        sc[:, blocks] = torch.where(fresh_mask[None, :, None], 0.0,
-                                    snap[name + "_scale"])
-        for layer in range(pool.shape[0]):
-            paged_quant_scatter(pool[layer], sc[layer], staged[layer],
-                                replay_pos)
+        layers[name][:, blocks] = snap[name]
+        layers[name + "_scale"][:, blocks] = torch.where(
+            fresh_mask[None, :, None], 0.0, snap[name + "_scale"])
+    paged_quant_scatter_kv(layers["k"], layers["k_scale"], staged_k,
+                           layers["v"], layers["v_scale"], staged_v,
+                           replay_pos)
     return layers
 
 

@@ -7,9 +7,12 @@ The same numpy-seeded inputs go through both packages. Gates:
     functions and to the pinned tie values;
   * the fold: the plain version `paged_quant_scatter_ref` bit-identical to
     JAX `paged_quant_scatter` (pools and scales), to the numpy model, across
-    any step partition, with growth from zero scales and `draft_rows`; and
-    a numpy emulation of the CUDA kernel's algorithm (csrc/kv_quant.cu)
-    bit-identical to the JAX fold;
+    any step partition, with growth from zero scales and `draft_rows`; the
+    K+V plain version against two JAX folds and its layer-batched form
+    against the vmapped JAX fold; a numpy emulation of the CUDA kernel's
+    algorithm (csrc/kv_quant.cu: the map-pair scan, in one launch or in
+    slices of rows) bit-identical to the JAX fold; the wrappers' one-C-call
+    contract on fake CUDA tensors;
   * engines on the tiny config: greedy tokens, step counts, block tables and
     prefix_stats equal to the JAX engines' (token identity; no greedy token
     moved in any comparison), and the port's own identities token for
@@ -34,7 +37,10 @@ from repro.serve import PagedEngine as JPaged
 from repro.serve import Request as JRequest
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.kv_quant import (KV_QUANT_EPS, KV_QUANT_INV_QMAX,
+                                          fold_smem_bytes,
                                           paged_quant_scatter,
+                                          paged_quant_scatter_kv,
+                                          paged_quant_scatter_kv_ref,
                                           paged_quant_scatter_ref)
 from repro_torch.models import model as M
 from repro_torch.quant import int8 as pq
@@ -274,56 +280,122 @@ class TestQuantScatterFold:
         np.testing.assert_array_equal(ts, js)
 
 
-def _emulate_kernel(pool, scales, rows, pos, draft=None):
-    """csrc/kv_quant.cu's algorithm in numpy, step for step: per (block, kv
-    head) of the step, its rows in order, their candidate scales, the scalar
-    scale recurrence with its growth events, each position's last writer,
-    and every payload element computed on its own (its last write, then the
-    later events' requants)."""
+def _rc(v):
+    """round_clip of csrc/kv_quant.cu in float32."""
     f32 = np.float32
+    r = np.floor(np.abs(v).astype(f32) + f32(0.5)).astype(f32)
+    return np.clip(np.where(v < 0, -r, np.where(v > 0, r, f32(0))),
+                   -128, 127).astype(f32)
 
-    def rc(v):
-        r = np.floor(np.abs(v).astype(f32) + f32(0.5)).astype(f32)
-        return np.clip(np.where(v < 0, -r, np.where(v > 0, r, f32(0))),
-                       -128, 127).astype(f32)
+
+def _scan_pairs(pa, pb):
+    """The kernel's warp scan, lane by lane: 32 (a, b) map pairs, shuffle
+    offsets 1-16, (a1, b1) then (a2, b2) = (max(a1, a2), b1 > 0 ? max(b1,
+    a2) : b2); the identity (0, 0) on lanes without a row."""
+    pa, pb = list(pa), list(pb)
+    for o in (1, 2, 4, 8, 16):
+        qa, qb = pa[:], pb[:]
+        for lane in range(o, 32):
+            pb[lane] = (max(qb[lane - o], qa[lane]) if qb[lane - o] > 0
+                        else qb[lane])
+            pa[lane] = max(qa[lane - o], qa[lane])
+    return pa, pb
+
+
+def _emulate_scan_kernel(pool, scales, rows, pos, draft=None, fresh=None):
+    """csrc/kv_quant.cu's paged_quant_scatter_kv_kernel in numpy for one
+    pool, step for step: per kv head (a CTA) every row's candidate scale
+    (negated for a draft row); the distinct blocks; the fresh blocks (a
+    written one starts at scale 0, the others are set to 0); per block (a
+    warp) the rows in 32-lane chunks, each chunk's map pairs scanned as the
+    warp does and applied to the running scale, the growth events and
+    their ratios, each row's events-through count, each position's last
+    writer; then every payload element from its last write and the later
+    events."""
+    f32 = np.float32
     pool, scales = pool.copy(), scales.copy()
     n, hkv, bs, d = pool.shape
-    for j in range(len(pos)):
-        blk = pos[j] // bs
-        if any(pos[i] // bs == blk for i in range(j)):
-            continue                          # not the block's first row
-        ridx = [i for i in range(j, len(pos)) if pos[i] // bs == blk]
-        for kv in range(hkv):
-            last = [-1] * bs
-            s, events, sc = f32(scales[blk, kv]), [], []
-            for m, i in enumerate(ridx):
-                c = f32(f32(max(f32(np.abs(rows[i, kv]).max()),
-                                f32(KV_QUANT_EPS))) * KV_QUANT_INV_QMAX)
-                last[pos[i] - blk * bs] = m
-                s_new = s if (draft is not None and draft[i] and s > 0) \
-                    else f32(max(s, c))
-                if s_new != s:
-                    events.append((m, f32(s / s_new)))
-                sc.append(s_new)
-                s = s_new
-            payload = pool[blk, kv].astype(f32)
+    r = len(pos)
+    fresh = set() if fresh is None else {int(f) for f in fresh}
+    for kv in range(hkv):
+        cand = []
+        for i in range(r):
+            c = f32(f32(max(f32(np.abs(rows[i, kv]).max()),
+                            f32(KV_QUANT_EPS))) * KV_QUANT_INV_QMAX)
+            cand.append(-c if draft is not None and draft[i] else c)
+        blocks = list(dict.fromkeys(int(p) // bs for p in pos))
+        for f in fresh - set(blocks):
+            if 0 <= f < n:
+                scales[f, kv] = 0.0
+        for blk in blocks:
+            s_run = f32(0) if blk in fresh else scales[blk, kv]
+            ratios, thru, srow, last = [], {}, {}, [-1] * bs
+            for base in range(0, r, 32):
+                hit = [base + lane < r and pos[base + lane] // bs == blk
+                       for lane in range(32)]
+                if not any(hit):
+                    continue
+                pa = [f32(0) if not h or cand[base + lane] < 0
+                      else cand[base + lane] for lane, h in enumerate(hit)]
+                pb = [abs(cand[base + lane]) if h else f32(0)
+                      for lane, h in enumerate(hit)]
+                pa, pb = _scan_pairs(pa, pb)
+                s_i = [max(s_run, a) if s_run > 0 else b
+                       for a, b in zip(pa, pb)]
+                s_prev = [s_run] + s_i[:-1]
+                for lane in range(32):
+                    if not hit[lane]:
+                        continue
+                    i = base + lane
+                    if s_i[lane] != s_prev[lane]:
+                        ratios.append(f32(s_prev[lane] / s_i[lane]))
+                    thru[i], srow[i] = len(ratios), s_i[lane]
+                    last[pos[i] - blk * bs] = max(last[pos[i] - blk * bs], i)
+                s_run = s_i[31]
+            scales[blk, kv] = s_run
             for p in range(bs):
                 m = last[p]
-                v = (rc((rows[ridx[m], kv] / sc[m]).astype(f32)) if m >= 0
-                     else payload[p])
-                for k, ratio in events:
-                    if k > m:
-                        v = rc((v * ratio).astype(f32))
+                if m >= 0:
+                    v, k = _rc((rows[m, kv] / srow[m]).astype(f32)), thru[m]
+                else:
+                    v, k = pool[blk, kv, p].astype(f32), 0
+                for ratio in ratios[k:]:
+                    v = _rc((v * ratio).astype(f32))
                 pool[blk, kv, p] = v.astype(np.int8)
-            scales[blk, kv] = s
     return pool, scales
+
+
+def _scan_case(seed):
+    """Seeded fold inputs for the scan kernel's emulation: stale bytes,
+    zero and set scales, up to 80 rows (three 32-lane chunks) of mixed
+    magnitudes (1e-9: the eps floor) into random, sorted or trash-style
+    targets (every other row into block 0, position lane % block_size),
+    draft rows on half the seeds, fresh blocks on some."""
+    rng = np.random.default_rng(300 + seed)
+    pool = rng.integers(-128, 128, (6, 2, 4, 5)).astype(np.int8)
+    scales = np.where(rng.random((6, 2)) < 0.4, 0,
+                      rng.uniform(1e-3, 0.2, (6, 2))).astype(np.float32)
+    r = int(rng.integers(1, 81))
+    rows = (rng.normal(size=(r, 2, 5)) * rng.choice(
+        [1e-9, 0.01, 1, 40], size=(r, 1, 1))).astype(np.float32)
+    pos = rng.integers(0, 24, r).astype(np.int32)
+    if seed % 3 == 1:
+        pos = np.sort(pos)
+    elif seed % 3 == 2:
+        trash = np.arange(r) % 2 == 0
+        pos[trash] = np.arange(r)[trash] % 4
+    draft = rng.random(r) < 0.3 if seed % 2 else None
+    fresh = (rng.choice(6, 3, replace=False).astype(np.int32)
+             if seed % 4 >= 2 else None)
+    return pool, scales, rows, pos, draft, fresh
 
 
 @pytest.mark.parametrize("seed", range(8))
 def test_cuda_kernel_algorithm_matches_jax_fold(seed):
     """The CUDA kernel cannot run here: its algorithm, emulated in numpy,
-    equals the JAX fold bit for bit (collisions, trash-style repeats, fresh
-    and stale blocks, draft rows, values at the eps floor)."""
+    equals the JAX fold bit for bit (collisions, stale and zero-scale
+    blocks, sorted targets, draft rows, values at the eps floor) on up to
+    29 rows, one 32-lane chunk."""
     rng = np.random.default_rng(100 + seed)
     pool = rng.integers(-128, 128, (6, 2, 4, 5)).astype(np.int8)
     scales = np.where(rng.random((6, 2)) < 0.4, 0,
@@ -335,14 +407,275 @@ def test_cuda_kernel_algorithm_matches_jax_fold(seed):
     if seed % 2:
         pos = np.sort(pos)
     draft = rng.random(r) < 0.3 if seed % 4 == 1 else None
-    got = _emulate_kernel(pool, scales, rows, pos, draft)
-    jp, js = jax_fold(jnp.asarray(pool), jnp.asarray(scales),
-                      jnp.asarray(rows.transpose(1, 0, 2)[None]),
-                      jnp.asarray(pos[None]),
-                      draft_rows=None if draft is None
-                      else jnp.asarray(draft[None]))
+    got = _emulate_scan_kernel(pool, scales, rows, pos, draft)
+    jp, js = _jax_fold_rows(pool, scales, rows, pos, draft)
     np.testing.assert_array_equal(got[0], np.asarray(jp))
     np.testing.assert_array_equal(got[1], np.asarray(js))
+
+
+def _jax_fold_rows(pool, scales, rows, pos, draft=None):
+    """JAX paged_quant_scatter of (R, Hkv, hd) rows into one pool."""
+    return jax_fold(jnp.asarray(pool), jnp.asarray(scales),
+                    jnp.asarray(rows.transpose(1, 0, 2)[None]),
+                    jnp.asarray(pos[None]),
+                    draft_rows=None if draft is None
+                    else jnp.asarray(draft[None]))
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_scan_kernel_algorithm_matches_jax_fold(seed):
+    """The CUDA kernel cannot run here: its algorithm (the map-pair scan of
+    each block's rows over 32-lane chunks, the fresh-block reset, the
+    per-element requant), emulated in numpy, equals the JAX fold bit for
+    bit after the same reset: collisions, trash-style repeats, draft rows
+    on zero-scale and stale blocks, values at the eps floor."""
+    pool, scales, rows, pos, draft, fresh = _scan_case(seed)
+    got = _emulate_scan_kernel(pool, scales, rows, pos, draft, fresh)
+    reset = scales.copy()
+    if fresh is not None:
+        reset[fresh] = 0.0
+    jp, js = _jax_fold_rows(pool, reset, rows, pos, draft)
+    np.testing.assert_array_equal(got[0], np.asarray(jp))
+    np.testing.assert_array_equal(got[1], np.asarray(js))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_row_slices_fold_as_one_launch(seed):
+    """A write too wide for one CTA's shared memory is folded in
+    consecutive slices of rows, one launch each, the fresh blocks reset in
+    the first: the emulated kernel over the slices equals the JAX fold of
+    the whole write after the same reset."""
+    pool, scales, rows, pos, draft, fresh = _scan_case(seed + 4)
+    cut = sorted(np.random.default_rng(seed).choice(
+        np.arange(1, len(pos) + 1), min(2, len(pos)), replace=False))
+    got = (pool, scales)
+    for a, b in zip([0, *cut], [*cut, len(pos)]):
+        got = _emulate_scan_kernel(
+            *got, rows[a:b], pos[a:b], None if draft is None else draft[a:b],
+            fresh if a == 0 else None)
+    reset = scales.copy()
+    if fresh is not None:
+        reset[fresh] = 0.0
+    jp, js = _jax_fold_rows(pool, reset, rows, pos, draft)
+    np.testing.assert_array_equal(got[0], np.asarray(jp))
+    np.testing.assert_array_equal(got[1], np.asarray(js))
+
+
+@pytest.mark.parametrize("draft", [False, True])
+def test_scan_pairs_compose_as_the_serial_chain(draft):
+    """The map pairs under any split into chunks give the serial chain's
+    scales: 70 rows into one block from a set scale and from scale 0 (a
+    draft row then sets it), against the JAX fold's serial loop."""
+    rng = np.random.default_rng(7)
+    rows = (rng.normal(size=(70, 1, 3))
+            * rng.choice([0.01, 1, 9], size=(70, 1, 1))).astype(np.float32)
+    pos = (np.arange(70) % 4).astype(np.int32)
+    dr = rng.random(70) < 0.5 if draft else None
+    pool = np.zeros((1, 1, 4, 3), np.int8)
+    for s0 in (0.0, 0.02):
+        scales = np.full((1, 1), s0, np.float32)
+        got = _emulate_scan_kernel(pool, scales, rows, pos, dr)
+        want = _jax_fold_rows(pool, scales, rows, pos, dr)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_kv_ref_matches_two_jax_folds(rng):
+    """paged_quant_scatter_kv_ref (fresh-block reset, draft rows, distinct
+    K and V rows) against JAX paged_quant_scatter on K, then on V, after
+    the same reset."""
+    pool = rng.integers(-128, 128, (2, 5, 2, 4, 6)).astype(np.int8)
+    scales = np.where(rng.random((2, 5, 2)) < 0.4, 0, rng.uniform(
+        1e-3, 0.1, (2, 5, 2))).astype(np.float32)
+    rows = (rng.normal(size=(2, 2, 2, 7, 6)) * 3).astype(np.float32)
+    wp = rng.integers(0, 20, (2, 7)).astype(np.int32)
+    draft = rng.random((2, 7)) < 0.3
+    fresh = np.array([3, 0, 3], np.int32)
+    t = [torch.tensor(a) for a in (pool, scales)]
+    out = paged_quant_scatter_kv_ref(
+        t[0][0], t[1][0], torch.tensor(rows[0]), t[0][1], t[1][1],
+        torch.tensor(rows[1]), torch.tensor(wp), torch.tensor(draft),
+        torch.tensor(fresh))
+    assert out[0] is not None and out[0].data_ptr() == t[0][0].data_ptr()
+    for q in range(2):
+        reset = scales[q].copy()
+        reset[fresh] = 0.0
+        jp, js = jax_fold(jnp.asarray(pool[q]), jnp.asarray(reset),
+                          jnp.asarray(rows[q]), jnp.asarray(wp),
+                          draft_rows=jnp.asarray(draft))
+        np.testing.assert_array_equal(t[0][q].numpy(), np.asarray(jp))
+        np.testing.assert_array_equal(t[1][q].numpy(), np.asarray(js))
+
+
+def test_layered_kv_ref_matches_vmapped_jax_fold(rng):
+    """The layer-batched plain version (pools (L, N, Hkv, bs, hd), rows (L,
+    B, Hkv, t, hd), one write_pos) against jax.vmap(paged_quant_scatter)
+    over layers, as the JAX engine's replay runs it."""
+    L = 3
+    pools = [rng.integers(-128, 128, (L, 4, 2, 4, 5)).astype(np.int8)
+             for _ in range(2)]
+    scales = [np.where(rng.random((L, 4, 2)) < 0.3, 0, rng.uniform(
+        1e-3, 0.1, (L, 4, 2))).astype(np.float32) for _ in range(2)]
+    rows = [(rng.normal(size=(L, 1, 2, 9, 5))
+             * rng.choice([0.01, 1, 20], size=(L, 1, 1, 9, 1))
+             ).astype(np.float32) for _ in range(2)]
+    wp = rng.integers(0, 16, (1, 9)).astype(np.int32)
+    tp = [torch.tensor(p) for p in pools]
+    ts = [torch.tensor(s) for s in scales]
+    paged_quant_scatter_kv(tp[0], ts[0], torch.tensor(rows[0]), tp[1],
+                           ts[1], torch.tensor(rows[1]), torch.tensor(wp))
+    assert paged_quant_scatter_kv.launches == 0
+    fold = jax.vmap(jax_fold, in_axes=(0, 0, 0, None))
+    for q in range(2):
+        jp, js = fold(jnp.asarray(pools[q]), jnp.asarray(scales[q]),
+                      jnp.asarray(rows[q]), jnp.asarray(wp))
+        np.testing.assert_array_equal(tp[q].numpy(), np.asarray(jp))
+        np.testing.assert_array_equal(ts[q].numpy(), np.asarray(js))
+
+
+def test_fold_smem_bytes_formula():
+    """44 B a row, 8 B a hash slot (a power of two >= 2 rows, at least
+    32), 4 B per position for each of the 16 warps."""
+    assert fold_smem_bytes(1, 32) == 44 + 8 * 32 + 64 * 32
+    assert fold_smem_bytes(16, 4) == 44 * 16 + 8 * 32 + 64 * 4
+    assert fold_smem_bytes(17, 4) == 44 * 17 + 8 * 64 + 64 * 4
+    assert fold_smem_bytes(256, 32) == 44 * 256 + 8 * 512 + 64 * 32
+
+
+def _record_fold_launches(monkeypatch):
+    """Replace the `launch` kernels/kv_quant.py imports from build with a
+    recorder that counts the launch as build.launch does."""
+    from repro_torch.kernels import kv_quant
+    calls = []
+
+    def record(fn, entry, device, *args):
+        calls.append((fn, entry, args))
+        fn.launches += 1
+
+    monkeypatch.setattr(kv_quant.paged_quant_scatter_kv, "launches",
+                        kv_quant.paged_quant_scatter_kv.launches)
+    monkeypatch.setattr(kv_quant, "launch", record)
+    return calls
+
+
+@pytest.mark.parametrize("layers", [0, 3])
+@pytest.mark.parametrize("verify", [False, True])
+def test_kv_wrapper_makes_one_c_call_with_the_rows_strides(
+        layers, verify, monkeypatch):
+    """On CUDA tensors (fake) paged_quant_scatter_kv makes one C call for K
+    and V (and, given pools with a layer axis, for every layer): the rows
+    go as the caller's tensors, K a contiguous (B, Hkv, t, hd) tensor and
+    V the transposed projection, no copy, with their strides; bool draft
+    rows, int32 write targets and fresh blocks as they are; one launch
+    counted."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import kv_quant
+    calls = _record_fold_launches(monkeypatch)
+    before = kv_quant.paged_quant_scatter_kv.launches
+    lead = (layers,) if layers else ()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        cuda = (lambda shape, dt=torch.float32: torch.empty(
+            shape, dtype=dt, device="cuda"))
+        kp, vp = cuda((*lead, 9, 2, 4, 8), torch.int8), cuda(
+            (*lead, 9, 2, 4, 8), torch.int8)
+        ks, vs = cuda((*lead, 9, 2)), cuda((*lead, 9, 2))
+        k = cuda((*lead, 1, 2, 6, 8), torch.bfloat16)
+        v = cuda((*lead, 1, 6, 2, 8), torch.bfloat16).transpose(-3, -2)
+        wp = cuda((1, 6), torch.int32)
+        dr = cuda((1, 6), torch.bool) if verify else None
+        fresh = cuda((5,), torch.int32) if verify else None
+        out = kv_quant.paged_quant_scatter_kv(kp, ks, k, vp, vs, v, wp,
+                                              draft_rows=dr,
+                                              fresh_blocks=fresh)
+    assert out == (kp, ks, vp, vs)
+    (fn, entry, args), = calls
+    assert fn is kv_quant.paged_quant_scatter_kv
+    assert entry == "paged_quant_scatter_kv_launch"
+    assert args[:6] == (kp, ks, k, vp, vs, v)
+    assert args[6] is wp and args[7] is dr and args[8] is fresh
+    lk = k.stride() if layers else (0, *k.stride())
+    lv = v.stride() if layers else (0, *v.stride())
+    assert list(args[9]) == [*lk, *lv]
+    assert args[10:] == (max(layers, 1), 2, 9, 2, 4, 8, 1, 6,
+                         5 if verify else 0, 1)
+    assert kv_quant.paged_quant_scatter_kv.launches == before + 1
+
+
+def test_one_pool_wrapper_and_conversions(monkeypatch):
+    """paged_quant_scatter makes the same C call with one pool (no V, zero
+    strides after K's), counted on paged_quant_scatter_kv; draft rows of
+    another dtype and fresh blocks of int64 are converted, the only copies
+    a wrapper makes; a write wider than one launch's shared memory is still
+    one C call (the C entry folds it in slices); a block too large for one
+    row's shared memory raises before any call."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import kv_quant
+    calls = _record_fold_launches(monkeypatch)
+    before = kv_quant.paged_quant_scatter_kv.launches
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        cuda = (lambda shape, dt=torch.float32: torch.empty(
+            shape, dtype=dt, device="cuda"))
+        pool, sc = cuda((9, 2, 4, 8), torch.int8), cuda((9, 2))
+        rows, wp = cuda((2, 2, 3, 8)), cuda((2, 3), torch.int32)
+        kv_quant.paged_quant_scatter(pool, sc, rows, wp,
+                                     draft_rows=cuda((2, 3), torch.int32))
+        (fn, _, args), = calls
+        assert fn is kv_quant.paged_quant_scatter_kv
+        assert args[:6] == (pool, sc, rows, None, None, None)
+        assert args[7].dtype == torch.uint8 and args[8] is None
+        assert list(args[9]) == [0, *rows.stride(), 0, 0, 0, 0, 0]
+        assert args[10:12] == (1, 1)
+        kv_quant.paged_quant_scatter_kv(
+            pool, sc, rows, pool, sc, rows, wp,
+            fresh_blocks=cuda((3,), torch.int64))
+        assert calls[1][2][8].dtype == torch.int32
+        wide = kv_quant.MAX_SMEM_BYTES // 44
+        assert kv_quant.fold_smem_bytes(wide, 4) > kv_quant.MAX_SMEM_BYTES
+        kv_quant.paged_quant_scatter(pool, sc, cuda((1, 2, wide, 8)),
+                                     cuda((1, wide), torch.int32))
+        assert calls[2][2][16:18] == (1, wide)
+        bs = kv_quant.MAX_SMEM_BYTES // (4 * kv_quant.FOLD_WARPS)
+        with pytest.raises(ValueError, match="shared memory"):
+            kv_quant.paged_quant_scatter(
+                cuda((2, 2, bs, 4), torch.int8), cuda((2, 2)),
+                cuda((1, 2, 1, 4)), cuda((1, 1), torch.int32))
+    assert len(calls) == 3
+    assert kv_quant.paged_quant_scatter_kv.launches == before + 3
+
+
+@pytest.mark.parametrize("name", ["paged_quant_scatter_kv",
+                                  "paged_quant_scatter"])
+def test_fold_wrappers_raise_on_cuda_when_the_build_fails(name,
+                                                          monkeypatch):
+    """On a CUDA tensor a fold wrapper launches its kernel or raises: a
+    failed build raises, counts no launch and runs no plain version."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import build, kv_quant
+    wrapper = getattr(kv_quant, name)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def no_fallback(*a, **kw):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(build, "load_library", no_nvcc)
+    for ref in ("paged_quant_scatter_ref", "paged_quant_scatter_kv_ref"):
+        monkeypatch.setattr(kv_quant, ref, no_fallback)
+    before = kv_quant.paged_quant_scatter_kv.launches
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        pool = torch.empty((5, 2, 4, 8), dtype=torch.int8, device="cuda")
+        sc = torch.empty((5, 2), device="cuda")
+        rows = torch.empty((1, 2, 3, 8), device="cuda")
+        wp = torch.empty((1, 3), dtype=torch.int32, device="cuda")
+        args = ((pool, sc, rows, pool, sc, rows, wp)
+                if name == "paged_quant_scatter_kv" else (pool, sc, rows, wp))
+        with pytest.raises(RuntimeError, match="nvcc"):
+            wrapper(*args)
+    assert kv_quant.paged_quant_scatter_kv.launches == before
 
 
 def test_fold_wrapper_checks_and_counts_no_cpu_launch():
@@ -351,7 +684,7 @@ def test_fold_wrapper_checks_and_counts_no_cpu_launch():
     kv = torch.ones((1, 2, 3, 5))
     wp = torch.tensor([[0, 1, 2]], dtype=torch.int32)
     paged_quant_scatter(pool, scales, kv.bfloat16(), wp)
-    assert paged_quant_scatter.launches == 0
+    assert paged_quant_scatter_kv.launches == 0
     with pytest.raises(ValueError, match="int8"):
         paged_quant_scatter(pool.float(), scales, kv, wp)
     with pytest.raises(ValueError, match="scales"):

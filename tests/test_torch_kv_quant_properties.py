@@ -6,7 +6,9 @@ tests/test_kv_quant_properties.py, fuzzed with hypothesis.
     and with the JAX package's paged_quant_scatter on the same rows;
   * partition independence: any ordered split of the rows into write
     groups folds to the same pool bytes and scales;
-  * scales grow monotonically and always cover the rows written so far.
+  * scales grow monotonically and always cover the rows written so far;
+  * the CUDA kernel's algorithm, emulated in numpy, and the K+V plain
+    version equal the JAX fold with draft rows and fresh blocks.
 """
 from conftest import require_hypothesis
 
@@ -112,3 +114,60 @@ def test_scales_monotone_and_cover_written_rows(case):
         amax_so_far[blk] = np.maximum(amax_so_far[blk], np.abs(row).max(-1))
         assert (amax_so_far[blk] <= 127.0 * cur[blk] * (1 + 1e-6)).all()
         prev = cur
+
+
+@st.composite
+def scan_case(draw):
+    """Up to 70 rows (three 32-lane chunks) into any positions, collisions
+    and out-of-order targets included, each row a draft row or not, from
+    zero or set scales, some blocks listed fresh."""
+    t = draw(st.integers(1, 70))
+    mags = draw(st.lists(st.sampled_from([1e-9, 0.01, 1.0, 40.0]),
+                         min_size=t, max_size=t))
+    seed = draw(st.integers(0, 2 ** 31 - 1))
+    rng = np.random.default_rng(seed)
+    rows = (rng.normal(size=(t, HKV, HD))
+            * np.asarray(mags)[:, None, None]).astype(np.float32)
+    pos = np.asarray(draw(st.lists(st.integers(0, N * BS - 1), min_size=t,
+                                   max_size=t)), np.int32)
+    draft = np.asarray(draw(st.lists(st.booleans(), min_size=t,
+                                     max_size=t)))
+    scales = np.asarray(draw(st.lists(
+        st.sampled_from([0.0, 1e-3, 0.05]), min_size=N * HKV,
+        max_size=N * HKV)), np.float32).reshape(N, HKV)
+    fresh = np.asarray(draw(st.lists(st.integers(0, N - 1), max_size=3)),
+                       np.int32)
+    pool = rng.integers(-128, 128, (N, HKV, BS, HD)).astype(np.int8)
+    return pool, scales, rows, pos, draft, fresh
+
+
+@given(scan_case())
+@settings(max_examples=30, deadline=None)
+def test_scan_kernel_emulation_matches_jax_fold(case):
+    """The CUDA kernel's algorithm (tests/test_torch_kv_quant.py
+    _emulate_scan_kernel: the map-pair scan, the fresh reset, the
+    per-element requant) equals the JAX fold after the same reset, and the
+    port's K+V plain version equals it on the same rows as K and V."""
+    from test_torch_kv_quant import _emulate_scan_kernel
+
+    from repro_torch.kernels.kv_quant import paged_quant_scatter_kv
+    pool, scales, rows, pos, draft, fresh = case
+    got = _emulate_scan_kernel(pool, scales, rows, pos, draft, fresh)
+    reset = scales.copy()
+    reset[fresh] = 0.0
+    jp, js = jax_fold(jnp.asarray(pool), jnp.asarray(reset),
+                      jnp.asarray(rows.transpose(1, 0, 2)[None]),
+                      jnp.asarray(pos[None]),
+                      draft_rows=jnp.asarray(draft[None]))
+    np.testing.assert_array_equal(got[0], np.asarray(jp))
+    np.testing.assert_array_equal(got[1], np.asarray(js))
+    tp = [torch.tensor(pool) for _ in range(2)]
+    ts = [torch.tensor(scales) for _ in range(2)]
+    new_kv = torch.tensor(rows.transpose(1, 0, 2)[None])
+    paged_quant_scatter_kv(tp[0], ts[0], new_kv, tp[1], ts[1], new_kv,
+                           torch.tensor(pos[None]),
+                           draft_rows=torch.tensor(draft[None]),
+                           fresh_blocks=torch.tensor(fresh))
+    for p, s in zip(tp, ts):
+        np.testing.assert_array_equal(p.numpy(), np.asarray(jp))
+        np.testing.assert_array_equal(s.numpy(), np.asarray(js))
