@@ -4,12 +4,15 @@
     python3 chip_smoke.py                 # every phase, one CUDA card
     python3 chip_smoke.py --phases 1,2,3,6,7,11,12,13   # the kernel checks
     python3 chip_smoke.py --phases 1,2,24,25,26,27       # calibrate, train
+    python3 chip_smoke.py --phases 1,2,28,29,30          # MoE, SSM, encoder
 
 Builds the CUDA kernels from the sources in this checkout, holds every
 kernel against its plain PyTorch version on the card, drives the port's
 serving paths — greedy serving of granite-3-2b at full width (40 layers,
 bf16 weights from a seed) through the packed and the lockstep PagedEngine,
-the ContinuousEngine and the wave ServeEngine — and its standalone kernel
+the ContinuousEngine and the wave ServeEngine, and of the MoE, SSM and
+hybrid families; the encoder and embedding-input families' training — and
+its standalone kernel
 entry point `repro_torch.kernels` at granite's full attention width and the
 paper's Table III shapes, and checks that each path really ran its kernels.
 Phases, in order:
@@ -137,7 +140,26 @@ Phases, in order:
  27 serve       the trained, calibrated model serves 4 requests x 16 new
                 tokens through the packed PagedEngine (40 packed launches
                 a step)
- 28 report      one JSON line per the kernel table
+ 28 moe         granite-moe-1b-a400m at full width and depth (24 layers,
+                32 experts top 8, capacity 1.25, bf16, seed 0) on phase
+                5's traffic: the packed PagedEngine (twice, then profiled:
+                busy, idle share, the share of busy inside apply_moe),
+                the lockstep PagedEngine and the ContinuousEngine (twice
+                each), 24 launches of the path's kernel a step, identical
+                tokens run to run; drop-free (capacity 8.0) on phase 10's
+                one wave, packed against wave by the near-tie rule
+ 29 ssm         mamba2-1.3b and hymba-1.5b at full width and depth through
+                the wave ServeEngine (4 x 256 prompt tokens, 16 new, twice;
+                no HCCS kernel: hymba's window blocks them); served tokens
+                held to the teacher-forced forward by the near-tie rule,
+                prefill + decode against the forward, layer 0's chunked
+                SSD against its recurrent step
+ 30 encoder     bert-small calibrated per head on hccs_rows (counted), then
+                12 QAT cls_loss steps (finite, falling, theta frozen);
+                qwen2-vl-2b (M-RoPE over an image grid) and musicgen-large
+                (embedding inputs) at full width cut to 4 layers: one
+                forward and one train step each
+ 31 report      one JSON line per the kernel table
 
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero before it. `--phases` runs a subset (for bring-up).
@@ -173,7 +195,9 @@ from repro_torch.core.calibrate import (calibrate_heads,  # noqa: E402
                                         collect_attention_logits)
 from repro_torch.core.constraints import (default_params,  # noqa: E402
                                           feasible_grid, validate_params)
-from repro_torch.data import LMStream, LMStreamConfig  # noqa: E402
+from repro_torch.data import (ClsTask, ClsTaskConfig,  # noqa: E402
+                              LMStream, LMStreamConfig,
+                              make_embedding_batch)
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.attention import (fused_plan,  # noqa: E402
                                            fused_smem_bytes, hccs_mha_fused,
@@ -195,6 +219,8 @@ from repro_torch.kernels.softmax_bf16 import (softmax_bf16,  # noqa: E402
                                               softmax_bf16_ref)
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import moe as moe_module  # noqa: E402
+from repro_torch.models import ssm as ssm_module  # noqa: E402
 from repro_torch.models.attention import (  # noqa: E402
     _blockwise_attention, capture_attention_logits)
 from repro_torch.optim import adamw  # noqa: E402
@@ -217,6 +243,9 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12                # H100 SXM, f32 outside the tensor cores
 # granite-3-2b attention geometry and the engine's smoke configuration
 H, HKV, D, BS = 32, 8, 64, 32
+# granite-moe-1b-a400m's heads (phase 28): a GQA group of 2 where granite
+# has 4, held to the plain versions in phases 3, 6 and 7
+MOE_HEADS = (16, 8)
 MAX_BATCH, MAX_LEN = 8, 2048
 NBLK = MAX_LEN // BS
 WIDTHS = (8, 64, 128, 256)       # the engine's ladder at max_batch 8
@@ -446,12 +475,15 @@ def phase_build():
 
 # ---------------------------------------------------------------- phase 3 --
 
-def make_case(width: int, pool_dtype, exact: bool, seed: int, bs: int = BS):
-    """Granite-shaped kernel inputs on the card: 8 slots with frontiers from
-    1 to 2048 in a shuffled pool of `bs`-key blocks, one packed step of
-    width `width` laid out by the engine's own scheduler (prefill chunks +
-    decode lanes + pads), one sentinel entry inside a live frontier and
-    sentinels past every frontier."""
+def make_case(width: int, pool_dtype, exact: bool, seed: int, bs: int = BS,
+              heads: tuple[int, int] = (H, HKV)):
+    """Granite-shaped kernel inputs on the card (`heads` = query heads, KV
+    heads): 8 slots with frontiers from 1 to 2048 in a shuffled pool of
+    `bs`-key blocks, one packed step of width `width` laid out by the
+    engine's own scheduler (prefill chunks + decode lanes + pads), one
+    sentinel entry inside a live frontier and sentinels past every
+    frontier."""
+    h, hkv = heads
     rng = np.random.default_rng(seed)
     fronts = np.array([2048, 1024, 777, 1500, 33, 100, 511, 1])
     remaining = {8: [0] * 8, 64: [50] + [0] * 7,
@@ -473,19 +505,19 @@ def make_case(width: int, pool_dtype, exact: bool, seed: int, bs: int = BS):
         table[s, :nb] = perm[c:c + nb]
         c += nb
     table[3, 5] = -1                          # a sentinel inside a frontier
-    shape = (n_blocks, HKV, bs, D)
+    shape = (n_blocks, hkv, bs, D)
     if exact:                                 # multiples of 2^-3: exact f32
-        q = rng.integers(-8, 9, (width, H, D)) / 8.0
+        q = rng.integers(-8, 9, (width, h, D)) / 8.0
         k = rng.integers(-8, 9, shape) / 8.0
         v = rng.integers(-8, 9, shape) / 8.0
-        scale = rng.uniform(0.007, 0.013, H)
+        scale = rng.uniform(0.007, 0.013, h)
     else:
-        q = rng.normal(0, 1, (width, H, D))
+        q = rng.normal(0, 1, (width, h, D))
         k = rng.normal(0, 1, shape)
         v = rng.normal(0, 1, shape)
-        scale = rng.uniform(0.005, 0.02, H)
-    theta = np.stack([rng.integers(120, 200, H), rng.integers(0, 2, H),
-                      rng.integers(16, 100, H)], -1)     # s = B - S*d > 0
+        scale = rng.uniform(0.005, 0.02, h)
+    theta = np.stack([rng.integers(120, 200, h), rng.integers(0, 2, h),
+                      rng.integers(16, 100, h)], -1)     # s = B - S*d > 0
     dev = "cuda"
     ks = vs = None
     if pool_dtype == torch.int8:
@@ -493,8 +525,8 @@ def make_case(width: int, pool_dtype, exact: bool, seed: int, bs: int = BS):
         # power-of-two scales so the dequantized values stay exact
         kq = np.clip(np.round(k * 8), -127, 127)
         vq = np.clip(np.round(v * 8), -127, 127)
-        sc = (np.full((n_blocks, HKV), 0.125) if exact
-              else rng.uniform(0.05, 0.2, (n_blocks, HKV)))
+        sc = (np.full((n_blocks, hkv), 0.125) if exact
+              else rng.uniform(0.05, 0.2, (n_blocks, hkv)))
         kp = torch.tensor(kq, dtype=torch.int8, device=dev)
         vp = torch.tensor(vq, dtype=torch.int8, device=dev)
         ks = torch.tensor(sc, dtype=torch.float32, device=dev)
@@ -545,13 +577,17 @@ def phase_kernel():
     rows = []
     timings = {}
     worst = 0.0
-    shapes = [(w, BS, d) for w in WIDTHS
-              for d in (torch.float32, torch.bfloat16, torch.int8)]
-    shapes += [(WIDE_BLOCKS[0], WIDE_BLOCKS[1], torch.float32)]
-    for width, bs, pool_dtype in shapes:
+    dtypes = (torch.float32, torch.bfloat16, torch.int8)
+    shapes = [(w, BS, d, (H, HKV)) for w in WIDTHS for d in dtypes]
+    shapes += [(WIDE_BLOCKS[0], WIDE_BLOCKS[1], torch.float32, (H, HKV))]
+    shapes += [(w, BS, d, MOE_HEADS) for w in (WIDTHS[0], WIDTHS[-1])
+               for d in dtypes]
+    for width, bs, pool_dtype, heads in shapes:
         for exact in (True, False):
             case = make_case(width, pool_dtype, exact,
-                             seed=width * 7 + int(exact), bs=bs)
+                             seed=width * 7 + int(exact)
+                             + (heads != (H, HKV)) * 1000, bs=bs,
+                             heads=heads)
             for mode in ("wide", "i16_div", "i16_clb"):
                 for static_max in (False, True):
                     kw = dict(mode=mode, static_max=static_max)
@@ -579,27 +615,27 @@ def phase_kernel():
                     rows.append((width, bs,
                                  str(pool_dtype).split(".")[-1],
                                  mode, static_max, exact, flips, n_live,
-                                 max_err, err_clean))
+                                 max_err, err_clean, heads))
+                    at = f"width {width} bs {bs} heads {heads}"
                     pads = got[case["slot_ids"] < 0]
                     check(bool((pads == 0).all()),
-                          f"pad lanes not zero at width {width} bs {bs}")
+                          f"pad lanes not zero at {at}")
                     if exact:
                         check(flips == 0 and (max_err == 0.0
                                               or rel <= 1e-6),
-                              f"exact case differs: width {width} bs {bs} "
+                              f"exact case differs: {at} "
                               f"{pool_dtype} {mode} static={static_max}"
                               f" flips={flips} max_err={max_err}")
                     else:
                         check(flips <= RANDOM_FLIP_FRACTION * n_live,
-                              f"{flips} bin flips of {n_live} at width "
-                              f"{width} bs {bs} {pool_dtype} {mode}")
+                              f"{flips} bin flips of {n_live} at "
+                              f"{at} {pool_dtype} {mode}")
                         check(err_clean <= RANDOM_MAX_ERR_NO_FLIP,
                               f"max |d| {err_clean} on rows without "
-                              f"flips, width {width} bs {bs} {pool_dtype} "
-                              f"{mode}")
+                              f"flips, {at} {pool_dtype} {mode}")
                     if (pool_dtype == torch.float32 and mode == "wide"
                             and not static_max and not exact
-                            and bs == BS):
+                            and bs == BS and heads == (H, HKV)):
                         tm = kernel_times(
                             lambda: hccs_packed_prefill(**case, **kw),
                             lambda: hccs_packed_prefill_ref(**case,
@@ -610,10 +646,11 @@ def phase_kernel():
                             bytes=nbytes, flops=flops,
                             max_abs_err=max_err)
     log("[kernel] width bs pool mode static exact flips/live max|d| "
-        "max|d|(rows w/o flips)")
+        "max|d|(rows w/o flips) heads/kv-heads")
     for r in rows:
         log(f"[kernel] {r[0]:4d} {r[1]:3d} {r[2]:8s} {r[3]:7s} {int(r[4])} "
-            f"{int(r[5])} {r[6]}/{r[7]} {r[8]:.3e} {r[9]:.3e}")
+            f"{int(r[5])} {r[6]}/{r[7]} {r[8]:.3e} {r[9]:.3e} "
+            f"{r[10][0]}/{r[10][1]}")
     for w, tm in timings.items():
         # each token reads its slot's live K and V rows: what the kernel
         # moves through L2 when no tile is shared between a slot's tokens
@@ -837,20 +874,22 @@ SPLIT_FRONTS = (SPLIT_KEYS - 1, SPLIT_KEYS, SPLIT_KEYS + 1, 2 * SPLIT_KEYS,
 
 
 def kv_values(rng, q_shape, kv_shape, exact: bool):
-    """q, k, v, per-head scales and theta. Exact inputs are multiples of
-    2^-3 (every dot product and s*v sum is exact in f32, in any order)."""
+    """q, k, v, per-head scales and theta (the heads are q_shape[1]).
+    Exact inputs are multiples of 2^-3 (every dot product and s*v sum is
+    exact in f32, in any order)."""
+    h = q_shape[1]
     if exact:
         q = rng.integers(-8, 9, q_shape) / 8.0
         k = rng.integers(-8, 9, kv_shape) / 8.0
         v = rng.integers(-8, 9, kv_shape) / 8.0
-        scale = rng.uniform(0.007, 0.013, H)
+        scale = rng.uniform(0.007, 0.013, h)
     else:
         q = rng.normal(0, 1, q_shape)
         k = rng.normal(0, 1, kv_shape)
         v = rng.normal(0, 1, kv_shape)
-        scale = rng.uniform(0.005, 0.02, H)
-    theta = np.stack([rng.integers(120, 200, H), rng.integers(0, 2, H),
-                      rng.integers(16, 100, H)], -1)     # s = B - S*d > 0
+        scale = rng.uniform(0.005, 0.02, h)
+    theta = np.stack([rng.integers(120, 200, h), rng.integers(0, 2, h),
+                      rng.integers(16, 100, h)], -1)     # s = B - S*d > 0
     dev = "cuda"
     return (torch.tensor(q, dtype=torch.float32, device=dev), k, v,
             torch.tensor(scale, dtype=torch.float32, device=dev),
@@ -858,23 +897,26 @@ def kv_values(rng, q_shape, kv_shape, exact: bool):
 
 
 def decode_case(kind: str, kv_dtype, exact: bool, seed: int,
-                fronts=DECODE_FRONTS, tmax: int = MAX_LEN):
-    """Kernel inputs of one decode step at granite's shapes: a paged pool
-    (shuffled blocks, a sentinel inside a frontier, sentinels past every
-    frontier, unowned blocks) or a (B, Hkv, tmax, d) arena whose rows past
-    each frontier hold stale values."""
+                fronts=DECODE_FRONTS, tmax: int = MAX_LEN,
+                heads: tuple[int, int] = (H, HKV)):
+    """Kernel inputs of one decode step at granite's shapes (`heads` =
+    query heads, KV heads): a paged pool (shuffled blocks, a sentinel
+    inside a frontier, sentinels past every frontier, unowned blocks) or a
+    (B, Hkv, tmax, d) arena whose rows past each frontier hold stale
+    values."""
+    h, hkv = heads
     rng = np.random.default_rng(seed)
     b = len(fronts)
     lengths = torch.tensor(fronts, dtype=torch.int32, device="cuda")
     if kind == "arena":
-        q, k, v, scale, theta = kv_values(rng, (b, H, D), (b, HKV, tmax, D),
+        q, k, v, scale, theta = kv_values(rng, (b, h, D), (b, hkv, tmax, D),
                                           exact)
         to = (lambda a: torch.tensor(a, dtype=torch.float32,
                                      device="cuda").to(kv_dtype))
         return dict(q=q, k=to(k), v=to(v), lengths=lengths, scale=scale,
                     theta=theta)
     n_blocks = 1 + int(sum(-(-f // BS) for f in fronts)) + 4
-    q, k, v, scale, theta = kv_values(rng, (b, H, D), (n_blocks, HKV, BS, D),
+    q, k, v, scale, theta = kv_values(rng, (b, h, D), (n_blocks, hkv, BS, D),
                                       exact)
     perm = rng.permutation(np.arange(1, n_blocks))
     table = np.full((b, NBLK), -1, np.int32)
@@ -888,8 +930,8 @@ def decode_case(kind: str, kv_dtype, exact: bool, seed: int,
                 lengths=lengths, scale=scale, theta=theta, k_scales=None,
                 v_scales=None)
     if kv_dtype == torch.int8:
-        sc = (np.full((n_blocks, HKV), 0.125) if exact
-              else rng.uniform(0.05, 0.2, (n_blocks, HKV)))
+        sc = (np.full((n_blocks, hkv), 0.125) if exact
+              else rng.uniform(0.05, 0.2, (n_blocks, hkv)))
         case.update(
             k_pool=torch.tensor(np.clip(np.round(k * 8), -127, 127),
                                 dtype=torch.int8, device="cuda"),
@@ -940,7 +982,8 @@ def phase_decode_kernel(kind: str):
                                      c["lengths"], c["scale"],
                                      c["k_scales"]))
         # the engine's pool, and frontiers at the split boundaries
-        shapes = [(DECODE_FRONTS, MAX_LEN), (SPLIT_FRONTS, MAX_LEN)]
+        shapes = [(DECODE_FRONTS, MAX_LEN, (H, HKV)),
+                  (SPLIT_FRONTS, MAX_LEN, (H, HKV))]
     else:
         fn, ref, tag = hccs_decode, hccs_decode_ref, "arena"
         dtypes = (torch.float32, torch.bfloat16)
@@ -949,16 +992,20 @@ def phase_decode_kernel(kind: str):
         # the engine's arena (2048 rows), one whose length is no multiple
         # of the kernel's split, filled to its last row, and frontiers at
         # the split boundaries
-        shapes = [(DECODE_FRONTS, MAX_LEN),
-                  ((MAX_LEN - 1,) + DECODE_FRONTS[1:], MAX_LEN - 1),
-                  (SPLIT_FRONTS, MAX_LEN)]
+        shapes = [(DECODE_FRONTS, MAX_LEN, (H, HKV)),
+                  ((MAX_LEN - 1,) + DECODE_FRONTS[1:], MAX_LEN - 1, (H, HKV)),
+                  (SPLIT_FRONTS, MAX_LEN, (H, HKV))]
+    # granite-moe's group of 2: the engine's frontiers and the split
+    # boundaries
+    shapes += [(DECODE_FRONTS, MAX_LEN, MOE_HEADS),
+               (SPLIT_FRONTS, MAX_LEN, MOE_HEADS)]
     rows, timing, worst = [], None, 0.0
-    for fronts, tmax in shapes:
+    for fronts, tmax, heads in shapes:
         for kv_dtype in (dtypes if tmax == MAX_LEN else (torch.float32,)):
             for exact in (True, False):
                 case = decode_case(kind, kv_dtype, exact,
                                    seed=tmax + 11 * len(rows) + int(exact),
-                                   fronts=fronts, tmax=tmax)
+                                   fronts=fronts, tmax=tmax, heads=heads)
                 b = case["q"].shape[0]
                 qi, valid = qint(case)
                 live = valid[:, None, :].expand_as(qi)
@@ -983,12 +1030,13 @@ def phase_decode_kernel(kind: str):
                                      else "decode",
                                      str(kv_dtype).split(".")[-1],
                                      mode, static_max, exact, flips, n_live,
-                                     max_err, err_clean))
+                                     max_err, err_clean, heads))
                         empty = [i for i in range(b) if fronts[i] == 0]
                         check(bool((got[empty] == 0).all()),
                               f"{tag}: a row of length 0 is not zero")
-                        what = (f"{tag} tmax {tmax} fronts {fronts} "
-                                f"{kv_dtype} {mode} static={static_max}")
+                        what = (f"{tag} tmax {tmax} fronts {fronts} heads "
+                                f"{heads} {kv_dtype} {mode} "
+                                f"static={static_max}")
                         if exact:
                             check(flips == 0 and max_err == 0.0,
                                   f"exact case differs: {what} flips="
@@ -1000,6 +1048,7 @@ def phase_decode_kernel(kind: str):
                                   f"max |d| {err_clean} on rows without "
                                   f"flips: {what}")
                         if (fronts == DECODE_FRONTS and tmax == MAX_LEN
+                                and heads == (H, HKV)
                                 and kv_dtype == torch.float32
                                 and mode == "wide" and not static_max
                                 and not exact):
@@ -1010,10 +1059,11 @@ def phase_decode_kernel(kind: str):
                             timing = dict(tm, bound_ms=bound, bound_by=by,
                                           bytes=nbytes, flops=flops)
     log(f"[{tag}] tmax fronts kv mode static exact flips/live max|d| "
-        f"max|d|(rows w/o flips)")
+        f"max|d|(rows w/o flips) heads/kv-heads")
     for r in rows:
         log(f"[{tag}] {r[0]:4d} {r[1]} {r[2]:8s} {r[3]:7s} {int(r[4])} "
-            f"{int(r[5])} {r[6]}/{r[7]} {r[8]:.3e} {r[9]:.3e}")
+            f"{int(r[5])} {r[6]}/{r[7]} {r[8]:.3e} {r[9]:.3e} "
+            f"{r[10][0]}/{r[10][1]}")
     log(f"[{tag}] timing B=8, fronts {DECODE_FRONTS}: {times_text(timing)}")
     timing["max_abs_err"] = worst
     return timing
@@ -1274,27 +1324,34 @@ def divergence(label, toks, ref, prompts, ref_prompts, params, cfg,
     return len(gaps), worst
 
 
-def phase_engine_path(label: str, make, prompts, kernel, steps_of, tap):
-    """Drive one serving path three times on the same requests (32 new
-    tokens each), the third under torch.profiler and `tap(eng)` (the
-    path's own logits): every request done,
-    identical tokens in every run, and the path's kernel launched 40 times
-    per decode step (once per layer) and the other kernels never. Returns
-    (tokens, launches, (kernels on the card, wrapper calls) of the profiled
-    run, own logits of the profiled run)."""
-    runs, profiled, own = [], (None, 0), None
-    for rep in range(3):
+def phase_engine_path(label: str, make, prompts, kernel, steps_of, tap,
+                      layers: int | None = None, vocab: int | None = None,
+                      reps: int = 3, profile: bool = True):
+    """Drive one serving path `reps` times on the same requests (32 new
+    tokens each), the last under `tap(eng)` (the path's own logits; None:
+    no tap) and, with `profile`, under torch.profiler: every request done,
+    identical tokens in every run, and the path's kernel launched `layers`
+    (granite-3-2b's 40 by default) times per decode step (once per layer)
+    and the other kernels never. Returns (tokens, launches, (kernels on
+    the card, wrapper calls, profiler) of the profiled run, own logits of
+    the tapped run)."""
+    layers = layers or M_LAYERS
+    vocab = vocab or VOCAB
+    runs, profiled, own = [], (None, 0, None), None
+    for rep in range(reps):
+        last = rep == reps - 1
         eng = make()
         for i, p in enumerate(prompts):
             eng.submit(Request(uid=i, prompt=p.copy(), max_new_tokens=32))
         torch.cuda.synchronize()
         for k in KERNELS:                      # count the path's run only
             k.launches = 0
+        profiled_rep = last and profile
         ctx = (torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) if rep == 2
+            torch.profiler.ProfilerActivity.CUDA]) if profiled_rep
             else contextlib.nullcontext())
-        with (tap(eng) if rep == 2 else contextlib.nullcontext()) as tp, \
+        with (tap(eng) if last and tap else contextlib.nullcontext()) as tp, \
                 ctx as prof:
             t0 = time.perf_counter()
             done = eng.run()
@@ -1306,13 +1363,13 @@ def phase_engine_path(label: str, make, prompts, kernel, steps_of, tap):
         if prof is not None:
             profiled = (profile_summary(
                 prof, wall, KERNEL_SYMBOLS[kernel.__name__],
-                f"{label} profile"), launches)
+                f"{label} profile"), launches, prof)
         others = {k.__name__: k.launches for k in KERNELS if k is not kernel}
         steps = steps_of(eng)
         toks = {r.uid: list(r.out_tokens) for r in done}
         n_new = sum(len(t) for t in toks.values())
         n_prompt = sum(len(p) for p in prompts)
-        log(f"[{label}] run {rep}{' (profiled)' if rep == 2 else ''}: "
+        log(f"[{label}] run {rep}{' (profiled)' if profiled_rep else ''}: "
             f"{getattr(eng, 'occupancy_steps', steps)} steps "
             f"({steps} decode steps), {kernel.__name__} launches "
             f"{launches}, other kernels {others}; {n_new} tokens "
@@ -1321,13 +1378,13 @@ def phase_engine_path(label: str, make, prompts, kernel, steps_of, tap):
         check(len(done) == len(prompts) and all(
             len(t) == 32 for t in toks.values()),
             f"{label}: not every request done")
-        check(launches > 0 and launches == M_LAYERS * steps,
+        check(launches > 0 and launches == layers * steps,
               f"{label}: {kernel.__name__} launches {launches} != "
-              f"{M_LAYERS} x {steps} decode steps")
+              f"{layers} x {steps} decode steps")
         check(not any(others.values()), f"{label}: other kernels ran "
               f"{others}")
         for t in toks.values():
-            check(all(0 <= x < VOCAB for x in t), f"{label}: token off "
+            check(all(0 <= x < vocab for x in t), f"{label}: token off "
                   f"vocab")
         runs.append((toks, launches))
     check(all(r[0] == runs[0][0] for r in runs), f"{label}: the runs disagree")
@@ -2333,6 +2390,62 @@ def prefill_dispatched(eng, req) -> bool:
         if r is req:
             return eng._prompt_pos[s] >= len(eng._feeds[s])
     return False
+
+
+def span_kernels(prof, tag: str) -> list:
+    """(name, device ms) of each kernel (copies and fills included)
+    launched inside the `tag` ranges (record_function) of a profiled run,
+    matched to its runtime call by correlation id."""
+    ranges, launch_at, kern = [], {}, []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if str(e.device_type()).endswith("CUDA"):
+            if not (e.is_user_annotation() or name == tag):
+                kern.append((e.correlation_id(), name, e.duration_ns()))
+        elif name == tag:
+            ranges.append((e.start_ns(), e.end_ns()))
+        elif name.startswith(("cudaLaunch", "cuLaunch", "cudaMemcpy",
+                              "cudaMemset")):
+            launch_at[e.correlation_id()] = e.start_ns()
+    ranges.sort()
+    starts = [a for a, _ in ranges]
+    out = []
+    for corr, name, dur in kern:
+        t = launch_at.get(corr)
+        if t is None:
+            continue
+        i = bisect.bisect_right(starts, t) - 1
+        if i >= 0 and t <= ranges[i][1]:
+            out.append((name, dur / 1e6))
+    return out
+
+
+def is_gemm(name: str) -> bool:
+    """A cuBLAS / CUTLASS matrix-product kernel, by its name (cuBLAS 12.8
+    names its Hopper kernels nvjet_*)."""
+    return any(k in name.lower() for k in ("gemm", "xmma", "cutlass",
+                                           "nvjet"))
+
+
+def moe_split(prof, busy: float) -> dict:
+    """The device time launched inside models/moe.py apply_moe ("moe"),
+    split into the router and queue ranks (`route`, "moe_route"), the
+    experts' products (the matrix-product kernels of apply_moe outside
+    route) and dispatch and combine (the rest: gathers, masks, the gate
+    product and the sum), each in ms and as a share of device busy."""
+    moe = span_kernels(prof, "moe")
+    route = sum(d for _, d in span_kernels(prof, "moe_route"))
+    total = sum(d for _, d in moe)
+    gemm = sum(d for n, d in moe if is_gemm(n))
+    route_gemm = sum(d for n, d in span_kernels(prof, "moe_route")
+                     if is_gemm(n))
+    experts = gemm - route_gemm
+    parts = dict(moe=total, router=route, experts=experts,
+                 dispatch_combine=total - route - experts)
+    log("[moe profile] device time inside apply_moe: " + ", ".join(
+        f"{k} {v:.1f} ms ({v / busy:.3f} of busy)" for k, v in parts.items())
+        + f"; {len(moe)} kernels; device busy {busy:.1f} ms")
+    return parts
 
 
 def kernel_total(prof, symbol: str) -> tuple[float, int]:
@@ -3680,9 +3793,368 @@ def phase_serve_trained(trained):
     return run["launches"]["hccs_packed_prefill"]
 
 
+# ------------------------------------------------------------ phase 28 --
+
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_DROP_FREE = 8.0             # tests/test_arch_smoke.py's drop-free capacity
+
+
+def moe_model():
+    """granite-moe-1b-a400m at full width and depth (24 layers, d 1024, 16
+    query heads over 8 KV heads of 64, 32 experts top 8, capacity 1.25),
+    bf16 weights from seed 0, the fused kernels on."""
+    cfg = get_config(MOE_ARCH).replace(decode_kernel="fused",
+                                       cache_layout="paged")
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.head_dim, cfg.num_experts, cfg.experts_per_token)
+          == (24, 1024, 16, 8, 64, 32, 8), f"{MOE_ARCH} geometry changed")
+    return cfg, M.init_params(cfg, seed=0, device="cuda")
+
+
+def phase_moe():
+    """MoE serving at full width: phase 5's mixed traffic through the
+    packed PagedEngine (twice, then profiled: device busy, idle share, and
+    the share of busy launched inside models/moe.py apply_moe: router,
+    dispatch, experts and combine), the lockstep PagedEngine and the
+    ContinuousEngine (twice each; every path's kernel launched once a layer
+    a step, identical tokens run to run). Capacity drops make a request's
+    tokens depend on its batch (ROADMAP C3), so these paths are not held to
+    each other; a drop-free run (capacity 8.0) of phase 10's one wave on
+    the packed and the wave engines is, by the near-tie rule. Returns the
+    launches of each path."""
+    cfg, params = moe_model()
+    L, V = cfg.num_layers, cfg.vocab_size
+    arena_cfg = cfg.replace(cache_layout="slot")
+    prompts = smoke_prompts(cfg)
+    out = {}
+    # the MoE layer's spans, read in the profiled (last) run
+    with tagged(moe_module, "apply_moe", "moe"), \
+            tagged(moe_module, "route", "moe_route"):
+        _, n, prof, _ = phase_engine_path(
+            "moe packed", lambda: PagedEngine(
+                params, cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                block_size=BS, device="cuda"),
+            prompts, hccs_packed_prefill, lambda e: e.occupancy_steps, None,
+            layers=L, vocab=V)
+    out["packed"], out["packed_per_call"] = n, per_call(*prof[:2])
+    busy = prof_busy_ms(prof[2]) if prof[2] is not None else 0.0
+    if busy:
+        moe_split(prof[2], busy)
+    _, out["lockstep"], _, _ = phase_engine_path(
+        "moe lockstep", lambda: PagedEngine(
+            params, cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
+            block_size=BS, packed=False, device="cuda"),
+        prompts, hccs_paged_decode, lambda e: e.decode_steps, None,
+        layers=L, vocab=V, reps=2, profile=False)
+    _, out["continuous"], _, _ = phase_engine_path(
+        "moe continuous", lambda: ContinuousEngine(
+            params, arena_cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
+            device="cuda"),
+        prompts, hccs_decode, lambda e: e.occupancy_steps, None,
+        layers=L, vocab=V, reps=2, profile=False)
+    # drop-free: routing no longer depends on the batch
+    free = cfg.replace(moe_capacity_factor=MOE_DROP_FREE)
+    rng = np.random.default_rng(1)
+    wave_prompts = [rng.integers(0, V, 512).astype(np.int32)
+                    for _ in range(MAX_BATCH)]
+    ref, n, _, ref_own = phase_engine_path(
+        "moe drop-free packed", lambda: PagedEngine(
+            params, free, max_batch=MAX_BATCH, max_len=MAX_LEN,
+            block_size=BS, device="cuda"),
+        wave_prompts, hccs_packed_prefill, lambda e: e.occupancy_steps,
+        LogitTap, layers=L, vocab=V, reps=1, profile=False)
+    out["drop_free_packed"] = n
+    toks, n, _, own = phase_engine_path(
+        "moe drop-free wave", lambda: ServeEngine(
+            params, free.replace(cache_layout="slot"), max_batch=MAX_BATCH,
+            max_len=MAX_LEN, device="cuda"),
+        wave_prompts, hccs_decode, lambda e: e.decode_steps,
+        lambda eng: SampleTap(), layers=L, vocab=V, reps=2, profile=False)
+    out["drop_free_wave"] = n
+    by_uid = dict(enumerate(wave_prompts))
+    divergence("moe drop-free wave", toks, ref, by_uid, by_uid, params, free,
+               own=(own, ref_own))
+    return out
+
+
+# ------------------------------------------------------------ phase 29 --
+
+SSM_ARCHS = ("mamba2-1.3b", "hymba-1.5b")
+SSM_BATCH, SSM_PROMPT, SSM_NEW = 4, 256, 16
+SSM_SCAN_T = 64                 # tokens of the chunked-vs-recurrent check
+# The numeric checks run on the same weights in f32: with bf16 weights one
+# rounding that differs between the chunked and the recurrent SSD (or
+# between row counts of a projection) grows through the random-weight
+# layers to logit differences of order 1 (on the card: mamba2 2.29 at the
+# decode row, 54 of 64 served tokens not the forward's argmax; hymba
+# 1.17). The JAX package grows such a difference alike with depth
+# (tests/test_torch_families_serve.py, the bf16 tests), so bf16 is served
+# here for identity run to run only.
+# Gates, set from the first f32 run on an H100 80GB HBM3 at 700 W (PERF.md
+# section 6), about 4x the largest measurement: prefill + decode
+# against the forward 0.0250 (mamba2; hymba 0.0013), chunked against
+# recurrent SSD 1.43e-4 in |y| (hymba 2.1e-5), final states 1.26e-6
+# relative.
+SSM_DECODE_ATOL = 0.1           # |logit| prefill + decode against forward
+SSD_SCAN_ATOL = 6e-4            # |y| chunked against recurrent, layer 0
+SSD_STATE_RTOL = 5e-6           # final state, relative to its largest
+
+
+def ssm_serve(params, cfg, prompts, label):
+    """The wave ServeEngine on `prompts` (SSM_NEW new tokens each): tokens
+    and wall; no HCCS kernel may launch."""
+    eng = ServeEngine(params, cfg, max_batch=len(prompts),
+                      max_len=SSM_PROMPT + SSM_NEW + 1, device="cuda")
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p.copy(), max_new_tokens=SSM_NEW))
+    for k in KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = {r.uid: list(r.out_tokens) for r in done}
+    n_new = sum(map(len, toks.values()))
+    log(f"[{label}] {eng.decode_steps} decode steps, {n_new} tokens in "
+        f"{wall:.3f}s = {n_new / wall:.1f} new tok/s; HCCS kernel launches "
+        f"{ {k.__name__: k.launches for k in KERNELS} }")
+    check(len(done) == len(prompts) and all(
+        len(t) == SSM_NEW for t in toks.values()),
+        f"{label}: not every request done")
+    check(not any(k.launches for k in KERNELS), f"{label}: an HCCS kernel "
+          f"ran")
+    return toks, wall
+
+
+def ssm_against_forward(params, cfg, prompts, toks, label):
+    """Served tokens against the teacher-forced forward (each the forward's
+    argmax or a near tie of it) and prefill + one decode step against the
+    forward. Returns the largest |dlogit|."""
+    w, hc = params["weights"], params["hccs"]
+    seq = torch.tensor(np.stack([np.concatenate(
+        [prompts[u], np.asarray(toks[u][:-1], np.int32)])
+        for u in range(len(prompts))]), device="cuda")
+    t = SSM_PROMPT
+    with torch.inference_mode():
+        x, _, _ = M.forward(w, hc, {"tokens": seq}, cfg)
+        full = M.logits_from_hidden(w, x, cfg).float()
+        gen = full[:, t - 1:]                               # (B, NEW, V)
+        served = torch.tensor([toks[u] for u in range(len(prompts))],
+                              device="cuda")
+        gap = (gen.max(-1).values - torch.gather(
+            gen, -1, served[..., None])[..., 0])
+        lg_p, cache = M.prefill(w, hc, {"tokens": seq[:, :t - 1]}, cfg,
+                                max_len=t)
+        lg_d, _ = M.decode_step(w, hc, seq[:, t - 1:t], cache, cfg)
+    d_pre = float((lg_p.float() - full[:, t - 2]).abs().max())
+    d_dec = float((lg_d.float() - full[:, t - 1]).abs().max())
+    log(f"[{label}] served tokens against the teacher-forced forward: "
+        f"{int((gap == 0).sum())} of {gap.numel()} its argmax, largest gap "
+        f"{float(gap.max()):.4f}; prefill + decode against the forward: "
+        f"max |dlogit| {d_pre:.5f} (prefill row), {d_dec:.5f} (decode "
+        f"row), logits up to "
+        f"{float(full[..., :cfg.vocab_size].abs().max()):.2f} (gates "
+        f"{NEAR_TIE_GAP}, {SSM_DECODE_ATOL})")
+    check(float(gap.max()) <= NEAR_TIE_GAP, f"{label}: a served token is "
+          f"no near tie of the forward's argmax")
+    check(max(d_pre, d_dec) <= SSM_DECODE_ATOL, f"{label}: prefill + "
+          f"decode differs from the forward by {max(d_pre, d_dec)}")
+    return max(d_pre, d_dec)
+
+
+def phase_ssm():
+    """mamba2-1.3b and hymba-1.5b at full width and depth (weights from
+    seed 0) through the wave ServeEngine, 4 requests of 256 prompt tokens
+    and 16 new each. bf16: twice, identical tokens, no HCCS kernel launched
+    (mamba2 has no attention; hymba's window blocks the kernels and it runs
+    the STE attention). The same weights in f32: every served token is the
+    teacher-forced forward's argmax or a near tie of it, prefill + one
+    decode step equals the forward, and layer 0's chunked SSD equals its
+    recurrent step at full width (64 tokens). Returns the bf16 walls."""
+    walls = {}
+    for arch in SSM_ARCHS:
+        cfg = get_config(arch)
+        params = M.init_params(cfg, seed=0, device="cuda")
+        rng = np.random.default_rng(2)
+        prompts = [rng.integers(0, cfg.vocab_size, SSM_PROMPT).astype(
+            np.int32) for _ in range(SSM_BATCH)]
+        runs = []
+        for rep in range(2):
+            toks, wall = ssm_serve(params, cfg, prompts,
+                                   f"{arch} wave bf16 run {rep}")
+            runs.append(toks)
+            walls.setdefault(arch, []).append(wall)
+        check(runs[0] == runs[1], f"{arch}: the runs disagree")
+        cfg32 = cfg.replace(dtype="float32")
+        params = {"hccs": params["hccs"], "weights": M.unflatten_tree(
+            {k: v.float() for k, v in
+             M.flatten_tree(params["weights"]).items()})}
+        toks, _ = ssm_serve(params, cfg32, prompts, f"{arch} wave f32")
+        ssm_against_forward(params, cfg32, prompts, toks, f"{arch} f32")
+        lp = M._layer(params["weights"]["layers"], 0)["ssm"]
+        xs = torch.randn((2, SSM_SCAN_T, cfg.d_model), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(3))
+        with torch.inference_mode():
+            y, st = ssm_module.apply_ssd(lp, xs, cfg32)
+            state = torch.zeros_like(st)
+            ys = []
+            for i in range(SSM_SCAN_T):
+                y_i, state = ssm_module.apply_ssd_step(lp, xs[:, i:i + 1],
+                                                       cfg32, state)
+                ys.append(y_i)
+            y_rec = torch.cat(ys, 1)
+        dy = float((y - y_rec).abs().max())
+        ds = float((st - state).abs().max() / state.abs().max())
+        log(f"[{arch}] chunked SSD (chunk {cfg.ssm_chunk}) against "
+            f"{SSM_SCAN_T} recurrent steps at {cfg.ssm_heads} heads x "
+            f"{cfg.ssm_head_dim} x state {cfg.ssm_state}, f32: max |dy| "
+            f"{dy:.2e} (|y| up to {float(y.abs().max()):.3f}; gate "
+            f"{SSD_SCAN_ATOL}), final state relative {ds:.2e} (gate "
+            f"{SSD_STATE_RTOL})")
+        check(dy <= SSD_SCAN_ATOL and ds <= SSD_STATE_RTOL,
+              f"{arch}: chunked and recurrent SSD disagree")
+        del params, lp
+        torch.cuda.empty_cache()
+    return walls
+
+
+# ------------------------------------------------------------ phase 30 --
+
+ENC_ARCH = "bert-small"
+ENC_BATCH, ENC_SEQ = 16, 128
+ENC_CAL_BATCHES = 2
+ENC_STEPS, ENC_LR = 12, 1e-3
+EMB_ARCHS = ("qwen2-vl-2b", "musicgen-large")
+EMB_LAYERS = 4                  # depth cut: full width, 4 layers
+EMB_BATCH, EMB_SEQ = 2, 256
+EMB_GRID = 8                    # an 8 x 8 image patch grid leads the input
+
+
+def mrope_positions(batch: int, seq: int, grid: int) -> np.ndarray:
+    """(3, B, T) M-RoPE (t, h, w) ids: a grid x grid image (t 0, h and w
+    its row and column), then text whose three ids all advance from the
+    image's largest id + 1, as qwen2-vl lays them out."""
+    n_img = grid * grid
+    i = np.arange(n_img)
+    img = np.stack([np.zeros(n_img, np.int64), i // grid, i % grid])
+    txt = np.arange(seq - n_img) + grid
+    pos = np.concatenate([img, np.stack([txt] * 3)], axis=1)
+    return np.broadcast_to(pos[:, None], (3, batch, seq)).astype(np.int32)
+
+
+def phase_encoder():
+    """bert-small (the paper's own model) calibrated at its full size: with
+    softmax attention it captures its logits on 2 classification batches of
+    16 x 128, 64 rows a head, and calibrate_heads(per_head, i16_div) picks
+    theta through hccs_rows (counted); then QAT with theta frozen, 12
+    cls_loss steps of 16 x 128 (the default loss of a classification
+    model): finite losses that fall, theta unchanged. Then qwen2-vl-2b
+    (embedding inputs, M-RoPE over an image grid and text) and
+    musicgen-large (embedding inputs, learned-free decoder) at full width,
+    cut to 4 layers: one forward and one train step each. Returns the
+    hccs_rows launches."""
+    cfg = get_config(ENC_ARCH)
+    task = ClsTask(ClsTaskConfig(vocab_size=cfg.vocab_size, seq_len=ENC_SEQ,
+                                 num_classes=cfg.num_classes))
+    batch_at = (lambda step: {k: torch.from_numpy(v).to("cuda") for k, v in
+                              task.batch_at(step, ENC_BATCH).items()})
+    soft = cfg.replace(attention_prob="softmax")
+    params = M.init_params(soft, seed=0, device="cuda")
+    captured = []
+    for step in range(ENC_CAL_BATCHES):
+        with torch.no_grad(), capture_attention_logits() as cap:
+            M.forward(params["weights"], {}, {"tokens": batch_at(
+                100 + step)["tokens"]}, soft)
+        captured.append(torch.stack(cap).transpose(1, 2))
+    rows = collect_attention_logits(captured, max_rows_per_head=CAL_ROWS)
+    scale = np.abs(rows).max(axis=(2, 3)) / 127.0
+    hccs_rows.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    theta, kl = calibrate_heads(rows, scale, ENC_SEQ, "per_head", CAL_MODE,
+                                device="cuda")
+    torch.cuda.synchronize()
+    launches = hccs_rows.launches
+    log(f"[encoder] {ENC_ARCH}: rows {rows.shape}, per-head calibration in "
+        f"{time.perf_counter() - t0:.3f}s, hccs_rows launches {launches}; "
+        f"KL {kl.min():.4f}-{kl.max():.4f} (mean {kl.mean():.4f})")
+    check(launches > 0, "encoder: hccs_rows never launched")
+    hccs = {"B": theta.B, "S": theta.S, "D": theta.D,
+            "scale": torch.tensor(scale, dtype=torch.float32, device="cuda")}
+    before = {k: v.clone() for k, v in hccs.items()}
+    tcfg = TrainConfig(learning_rate=ENC_LR, warmup_steps=1,
+                       total_steps=ENC_STEPS)
+    state = train_state_from_params({"weights": params["weights"],
+                                     "hccs": hccs}, tcfg)
+    step_fn = make_train_step(cfg, tcfg)
+    losses, accs = [], []
+    t0 = time.perf_counter()
+    for step in range(ENC_STEPS):
+        state, m = step_fn(state, batch_at(step))
+        losses.append(float(m["loss"]))
+        accs.append(float(m["acc"]))
+    torch.cuda.synchronize()
+    log(f"[encoder] QAT {ENC_STEPS} cls_loss steps in "
+        f"{time.perf_counter() - t0:.3f}s: loss "
+        + ", ".join(f"{v:.4f}" for v in losses) + "; accuracy "
+        + ", ".join(f"{v:.2f}" for v in accs))
+    check(all(np.isfinite(losses)), "encoder: a loss is not finite")
+    check(np.mean(losses[-3:]) < np.mean(losses[:3]),
+          "encoder: the QAT loss did not fall")
+    check(all(torch.equal(state["params"]["hccs"][k], v)
+              for k, v in before.items()), "encoder: theta moved")
+    del state, params, captured
+    torch.cuda.empty_cache()
+    for arch in EMB_ARCHS:
+        ecfg = get_config(arch).replace(num_layers=EMB_LAYERS)
+        eparams = M.init_params(ecfg, seed=0, device="cuda")
+        b = make_embedding_batch(np.random.default_rng(4), EMB_BATCH,
+                                 EMB_SEQ, ecfg.d_model, ecfg.vocab_size)
+        if ecfg.rope == "mrope":
+            b["mrope_positions"] = mrope_positions(EMB_BATCH, EMB_SEQ,
+                                                   EMB_GRID)
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to("cuda")
+                 for k, v in b.items()}
+        with torch.inference_mode():
+            x, _, _ = M.forward(eparams["weights"], eparams["hccs"], batch,
+                                ecfg)
+            logits = M.logits_from_hidden(eparams["weights"], x, ecfg)
+            note = ""
+            if ecfg.rope == "mrope":
+                plain = {k: v for k, v in batch.items()
+                         if k != "mrope_positions"}
+                x1, _, _ = M.forward(eparams["weights"], eparams["hccs"],
+                                     plain, ecfg)
+                note = (f"; without the image grid's position streams the "
+                        f"hidden state moves by up to "
+                        f"{float((x1 - x).abs().max()):.3f}")
+                check(not torch.equal(x1, x), f"{arch}: M-RoPE streams "
+                      f"change nothing")
+        check(x.shape == (EMB_BATCH, EMB_SEQ, ecfg.d_model) and
+              logits.shape[-1] == ecfg.padded_vocab and
+              bool(torch.isfinite(x).all()), f"{arch}: forward")
+        tcfg = TrainConfig(warmup_steps=1, total_steps=2)
+        state = train_state_from_params(eparams, tcfg)
+        t0 = time.perf_counter()
+        state, m = make_train_step(ecfg, tcfg)(state, batch)
+        torch.cuda.synchronize()
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        log(f"[embeddings] {arch} at full width, {EMB_LAYERS} of "
+            f"{get_config(arch).num_layers} layers: forward finite, "
+            f"{EMB_BATCH} x {EMB_SEQ} embeddings; one train step in "
+            f"{time.perf_counter() - t0:.3f}s, loss {loss:.4f}, grad norm "
+            f"{gn:.4f}{note}")
+        check(np.isfinite(loss) and np.isfinite(gn) and gn > 0,
+              f"{arch}: train step")
+        del state, eparams
+        torch.cuda.empty_cache()
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, tm, shape,
                  library_ms=None, headers=(), kernels_per_call=None):
-    """One kernel of phase 28's line. `launches` counts wrapper calls on
+    """One kernel of phase 31's line. `launches` counts wrapper calls on
     the main path; `kernels_per_call` is the kernels on the card per
     wrapper call in the path's profiled run (None where not profiled).
     `device_ms` / `cold_ms`: device-only time with K/V warm in L2 / with
@@ -3702,7 +4174,7 @@ def kernel_entry(name, source, replaces, launches, tm, shape,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default=",".join(str(p) for p in range(1, 29)),
+                    default=",".join(str(p) for p in range(1, 32)),
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -3802,13 +4274,24 @@ def main(argv=None):
         check(trained is not None, "phase 27 needs phase 25's weights")
         served = phase_serve_trained(trained)
         mark(27)
+    moe = ssm_walls = enc_launches = None
     if 28 in phases:
+        moe = phase_moe()
+        mark(28)
+    if 29 in phases:
+        ssm_walls = phase_ssm()
+        mark(29)
+    if 30 in phases:
+        enc_launches = phase_encoder()
+        mark(30)
+    if 31 in phases:
         check(launches and timings and len(decode_timings) == 2
               and len(path_launches) == 2 and {11, 12, 13, 17} <= phases
               and table3_launches and fold_t and fold_launches and spec
               and overload and chaos and asynch and tele and sampling
-              and cal and ckpt and served,
-              "phase 28 needs phases 3 and 5 to 27")
+              and cal and ckpt and served and moe and ssm_walls
+              and enc_launches,
+              "phase 31 needs phases 3 and 5 to 30")
         slice_launches = {
             "hccs_packed_prefill": dict(
                 spec=spec["packed"],
@@ -3818,7 +4301,12 @@ def main(argv=None):
                 async_sessions=asynch["sessions_packed"],
                 telemetry_sync=tele["sync"], telemetry_async=tele["async"],
                 open_loop=tele["open_loop"], sampling=sampling["sync"],
-                sampling_async=sampling["async_"], trained=served),
+                sampling_async=sampling["async_"], trained=served,
+                moe=moe["packed"], moe_drop_free=moe["drop_free_packed"]),
+            "hccs_paged_decode": dict(moe=moe["lockstep"]),
+            "hccs_decode": dict(
+                moe_continuous=moe["continuous"],
+                moe_drop_free_wave=moe["drop_free_wave"]),
             "paged_quant_scatter_kv": dict(
                 spec_in_step=spec["fold_in_step"],
                 spec_replay=spec["fold_replay"],
@@ -3835,27 +4323,31 @@ def main(argv=None):
                               f"f32 pool, mode wide", headers=split_headers,
                               kernels_per_call=packed_per_call),
                  slice_launches=slice_launches["hccs_packed_prefill"]),
-            kernel_entry("hccs_paged_decode", "hccs_paged.cu",
-                         "src/repro/kernels/decode.py:316",
-                         path_launches["hccs_paged_decode"],
-                         decode_timings["paged"],
-                         f"B=8, {geo} bs={BS}, f32 pool, mode wide",
-                         headers=split_headers,
-                         kernels_per_call=path_per_call["hccs_paged_decode"]),
-            kernel_entry("hccs_decode", "hccs_arena.cu",
-                         "src/repro/kernels/decode.py:254",
-                         path_launches["hccs_decode"],
-                         decode_timings["arena"],
-                         f"B=8, {geo} Tmax={MAX_LEN}, f32 arena, mode "
-                         f"wide", headers=split_headers,
-                         kernels_per_call=path_per_call["hccs_decode"]),
+            dict(kernel_entry("hccs_paged_decode", "hccs_paged.cu",
+                              "src/repro/kernels/decode.py:316",
+                              path_launches["hccs_paged_decode"],
+                              decode_timings["paged"],
+                              f"B=8, {geo} bs={BS}, f32 pool, mode wide",
+                              headers=split_headers,
+                              kernels_per_call=path_per_call[
+                                  "hccs_paged_decode"]),
+                 slice_launches=slice_launches["hccs_paged_decode"]),
+            dict(kernel_entry("hccs_decode", "hccs_arena.cu",
+                              "src/repro/kernels/decode.py:254",
+                              path_launches["hccs_decode"],
+                              decode_timings["arena"],
+                              f"B=8, {geo} Tmax={MAX_LEN}, f32 arena, mode "
+                              f"wide", headers=split_headers,
+                              kernels_per_call=path_per_call["hccs_decode"]),
+                 slice_launches=slice_launches["hccs_decode"]),
             dict(kernel_entry("hccs_rows", "hccs_rows.cu",
                               "src/repro/kernels/hccs.py:79",
                               table3_launches["hccs_rows"],
                               kernel_t["hccs_rows"],
                               f"{G_ROWS} x {G_COLS} int8, per-head theta, "
                               f"i16_div"),
-                 slice_launches=dict(calibration=cal["launches"])),
+                 slice_launches=dict(calibration=cal["launches"],
+                                     encoder_calibration=enc_launches)),
             kernel_entry("softmax_bf16", "softmax_bf16.cu",
                          "src/repro/kernels/softmax_bf16.py:32",
                          table3_launches["softmax_bf16"],

@@ -211,6 +211,11 @@ def hccs_qat(x_fp: torch.Tensor, scale, params: HCCSParams,
     return p
 
 
+def softmax_fp(x: torch.Tensor) -> torch.Tensor:
+    """Reference float softmax (the paper's float32 baseline)."""
+    return torch.softmax(x, dim=-1)
+
+
 def hccs_static_max_qat(x_fp: torch.Tensor, scale, params: HCCSParams,
                         mask: torch.Tensor | None = None) -> torch.Tensor:
     """STATIC-max HCCS: distances against the int8 ceiling 127 instead of
@@ -225,3 +230,15 @@ def hccs_static_max_qat(x_fp: torch.Tensor, scale, params: HCCSParams,
         s = torch.where(mask, s, _f32(0.0, s))
     Z = torch.maximum(s.sum(dim=-1, keepdim=True), _f32(1.0, s))
     return s / Z
+
+
+def hccs_attention_prob_fn(params: HCCSParams, scale, mode: str = "i16_div",
+                           hard: bool = True):
+    """Factory: returns prob_fn(logits) -> probs, pluggable into attention.
+
+    The returned function takes float logits (after q.k / sqrt(d)) and
+    applies fake-quant + HCCS with the STE (`hccs_qat`), so it serves QAT
+    training and bit-faithful inference simulation alike."""
+    def prob_fn(logits: torch.Tensor) -> torch.Tensor:
+        return hccs_qat(logits, scale, params, mode=mode, hard=hard)
+    return prob_fn

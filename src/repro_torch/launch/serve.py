@@ -7,6 +7,17 @@ engines, on the card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
         --reduced --device cpu --scheduler continuous   # the CPU
 
+`--arch` takes every token-input arch of the registry, as the JAX launcher
+does: MoE models (granite-moe-1b-a400m, qwen3-moe-235b-a22b) on every
+engine; the SSM and hybrid models (mamba2-1.3b, hymba-1.5b) on the wave and
+continuous engines (the paged engine refuses them, as JAX's does); the
+embedding-input archs (musicgen-large, qwen2-vl-2b) are refused.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-1b-a400m --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
+        --reduced --device cpu --scheduler wave
+
 Multi-turn chat (each request is a session; follow-up turns reuse the
 prior turns' KV, prompt and generated, through decode-block sharing), on
 int8 paged KV:
@@ -217,6 +228,9 @@ def main(argv=None):
 
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     cfg = cfg.replace(decode_kernel=args.decode_kernel)
+    if cfg.input_mode == "embeddings":
+        raise SystemExit(f"{args.arch} takes embedding inputs; the serve demo "
+                         "targets token models")
     params = M.init_params(cfg, seed=0, device=args.device)
     # a session's history grows every turn: the cache must hold all of them
     max_len = args.turns * (args.prompt_len + args.new_tokens) + 1

@@ -9,8 +9,11 @@ the synthetic token stream on one device.
 --reduced uses the smoke-scale config; without it the full config is used.
 The JAX launcher's TPU overlap flags have no counterpart. The device is
 CUDA unless --device names another; without a card the launcher raises.
-Embedding-input models (audio / VLM stubs) are not ported yet (ROADMAP.md
-item A10).
+Embedding-input models (the audio / VLM stubs) train on seeded random
+embeddings (`make_embedding_batch`, seed 1000 + step), as in the JAX
+launcher. A classification model (the BERT encoders, `cls_loss`) is
+refused: the JAX launcher feeds it the LM stream, which carries no
+`cls_labels`, so it cannot train one either.
 """
 from __future__ import annotations
 
@@ -35,20 +38,22 @@ def main(argv=None):
                          "PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
 
+    import numpy as np
     import torch
 
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.configs.base import TrainConfig
-    from repro_torch.data import LMStream, LMStreamConfig
+    from repro_torch.data import LMStream, LMStreamConfig, \
+        make_embedding_batch
     from repro_torch.device import resolve_device
     from repro_torch.train import make_train_state, make_train_step, \
         train_loop
 
     device = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
-    if cfg.input_mode == "embeddings":
-        raise NotImplementedError(
-            "embedding-input models are not ported yet: ROADMAP.md item A10")
+    if cfg.num_classes:
+        ap.error(f"{args.arch} is a classification model: the launcher "
+                 f"trains on the LM stream, which has no cls_labels")
     if args.prob and cfg.num_heads:
         cfg = cfg.replace(attention_prob=args.prob)
     tcfg = TrainConfig(total_steps=args.steps, learning_rate=args.lr,
@@ -57,14 +62,21 @@ def main(argv=None):
 
     state = make_train_state(tcfg.seed, cfg, tcfg, device=device)
     step = make_train_step(cfg, tcfg)
-    stream = LMStream(LMStreamConfig(vocab_size=cfg.vocab_size,
-                                     seq_len=args.seq,
-                                     global_batch=args.batch,
-                                     seed=tcfg.seed))
+    if cfg.input_mode == "embeddings":
+        def batch_np(s):
+            return make_embedding_batch(np.random.default_rng(1000 + s),
+                                        args.batch, args.seq, cfg.d_model,
+                                        cfg.vocab_size)
+    else:
+        stream = LMStream(LMStreamConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=args.seq,
+                                         global_batch=args.batch,
+                                         seed=tcfg.seed))
+        batch_np = stream.batch_at
 
     def batch_fn(s):
         return {k: torch.from_numpy(v).to(device)
-                for k, v in stream.batch_at(s).items()}
+                for k, v in batch_np(s).items()}
 
     state, history = train_loop(
         state, step, batch_fn, total_steps=args.steps,

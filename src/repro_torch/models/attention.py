@@ -22,8 +22,10 @@ paths write nothing in place, so autograd can differentiate them; inside
 `capture_attention_logits()` every dense-attention call appends its f32
 logits (B, H, Tq, Tk), as the JAX package's eager capture does.
 
+Positions rotate by RoPE, or by M-RoPE over (3, B, T) position streams
+(`mrope_positions`; without them every stream is the token position).
 Not ported yet, and refused (NotImplementedError naming the ROADMAP.md
-item): hot buffers and the segment merge (A3) and M-RoPE (A3).
+item): hot buffers and the segment merge (A3).
 
 One departure from the JAX package: the dense path returns the query's
 dtype, as its blockwise path and the kernels do. The JAX dense path returns
@@ -40,7 +42,7 @@ from repro_torch.core.hccs import (HCCSParams, hccs_mode_inv, hccs_qat,
 from repro_torch.kernels.decode import (hccs_decode, hccs_packed_prefill,
                                         hccs_paged_decode)
 from repro_torch.kernels.kv_quant import paged_quant_scatter_kv
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_mrope, apply_rope
 
 NEG_INF = -1e30
 
@@ -375,13 +377,8 @@ def _theta(hccs):
     return torch.stack([hccs["B"], hccs["S"], hccs["D"]], dim=-1)
 
 
-def _check_cache(cfg, hccs, cache):
-    if cfg.rope not in ("rope", "none"):
-        raise NotImplementedError(
-            f"rope={cfg.rope!r} is not ported yet: ROADMAP.md item A3")
-    if cache is None:
-        return
-    if "hot_k" in cache:
+def _check_cache(cache):
+    if cache is not None and "hot_k" in cache:
         raise NotImplementedError(
             "hot buffers and the segment merge are not ported yet: "
             "ROADMAP.md item A3")
@@ -401,7 +398,8 @@ def _quant_write(cache, k, v):
         fresh_blocks=cache.get("fresh_blocks"))
 
 
-def apply_attention(p, x, cfg, hccs=None, positions=None, cache=None):
+def apply_attention(p, x, cfg, hccs=None, positions=None, cache=None,
+                    mrope_positions=None):
     """x: (B, T, D). Returns (out, new_cache).
 
     cache: None (self-attention over x), a slot arena {"k", "v":
@@ -421,7 +419,7 @@ def apply_attention(p, x, cfg, hccs=None, positions=None, cache=None):
     k/v (and scales). The engine guarantees `write_pos` never targets a
     block with refcount > 1 (copy-on-write runs on the host before the
     step), so shared blocks stay immutable."""
-    _check_cache(cfg, hccs, cache)
+    _check_cache(cache)
     b, t, d = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(b, t, h, hd).transpose(1, 2)
@@ -437,6 +435,12 @@ def apply_attention(p, x, cfg, hccs=None, positions=None, cache=None):
     if cfg.rope == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope == "mrope":
+        p3 = mrope_positions
+        if p3 is None:
+            p3 = positions[None].expand((3,) + tuple(positions.shape))
+        q = apply_mrope(q, p3, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, p3, cfg.rope_theta, cfg.mrope_sections)
 
     new_cache = None
     k_len = None

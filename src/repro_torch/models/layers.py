@@ -2,8 +2,7 @@
 the padded-vocab LM head — the port of `repro/models/layers.py`.
 
 Parameters are plain dicts of tensors in the JAX package's layout: weight
-matrices are (in, out) and applied as `x @ W`. Multimodal RoPE (M-RoPE) is
-not ported yet (ROADMAP.md item A3).
+matrices are (in, out) and applied as `x @ W`.
 """
 from __future__ import annotations
 
@@ -46,6 +45,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     cos, sin = rope_angles(positions, d, theta)        # (B, T, d/2)
     cos = cos[:, None]
     sin = sin[:, None]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl): positions3 (3, B, T) = (t, h, w) ids.
+
+    The head-dim halves are split into `sections` (summing to d/2); each
+    section rotates with its own positional stream."""
+    d = x.shape[-1]
+    half = d // 2
+    assert sum(sections) == half, (sections, half)
+    exps = torch.arange(half, dtype=torch.float32, device=x.device) / half
+    freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=x.device), exps)
+    # per-frequency-slot section id -> which positional stream drives it
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(sections, device=x.device))               # (half,)
+    pos_sel = positions3.float()[sec_id]                       # (half, B, T)
+    ang = pos_sel.movedim(0, -1) * freq                        # (B, T, half)
+    cos = torch.cos(ang)[:, None]
+    sin = torch.sin(ang)[:, None]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
     return out.to(x.dtype)

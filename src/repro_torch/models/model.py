@@ -2,19 +2,22 @@
 The port of `repro/models/model.py`.
 
 Params layout (the JAX package's, as plain dicts of tensors):
-    {"weights": {"embed": {"table"}, "layers": <stacked (L, ...) block
-     dicts>, "final_norm": {...}, "lm_head"?: (D, V_pad)},
-     "hccs": {"B", "S", "D", "scale": (L, H)}}
+    {"weights": {"embed": {"table"}, "pos_embed"?: (P, D), "layers":
+     <stacked (L, ...) block dicts>, "final_norm": {...}, "lm_head"?:
+     (D, V_pad), "cls_head"?: (D, C)},
+     "hccs": {"B", "S", "D", "scale": (L, H)} | {}}
 
 The JAX model scans the stacked layers with lax.scan; here a Python loop
 hands layer i its slice of every (L, ...) leaf, views into the stacked
-tensors. Without a cache (training) each block runs under
-torch.utils.checkpoint when cfg.remat is "dots" or "full" and autograd is
-on: the JAX scan's remat unit, recomputed whole (memory changes, numbers
-do not). `hccs` is detached, as the JAX forward stops its gradient: theta
-and the logit scales stay frozen during QAT. Learned position embeddings,
-classification heads, MoE aux losses and embedding inputs are not ported
-yet (ROADMAP.md items A3, A10).
+tensors, and sums the layers' aux losses (the MoE load balance). Without a
+cache (training) each block runs under torch.utils.checkpoint when
+cfg.remat is "dots" or "full" and autograd is on: the JAX scan's remat
+unit, recomputed whole (memory changes, numbers do not). `hccs` is
+detached, as the JAX forward stops its gradient: theta and the logit
+scales stay frozen during QAT. Inputs are token ids or, for the
+embedding-input families (audio, VLM), precomputed embeddings; learned
+position embeddings (`rope="learned"`, the encoders) are added to them,
+and M-RoPE models take (3, B, T) position streams.
 """
 from __future__ import annotations
 
@@ -37,17 +40,7 @@ PAGED_EXTRAS = ("block_table", "write_pos", "kv_len", "slot_ids",
                 "stage_rows", "draft_rows")
 
 
-def _check_supported(cfg):
-    blocks.check_family(cfg)
-    if cfg.rope == "learned" or cfg.num_classes or \
-            cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            "learned position embeddings, classification heads and "
-            "embedding inputs are not ported yet: ROADMAP.md items A3, A10")
-
-
 def _init(cfg, gen, device, hccs_n_ref: int):
-    _check_supported(cfg)
     dt = DTYPES[cfg.dtype]
     L, d = cfg.num_layers, cfg.d_model
     weights = {
@@ -56,9 +49,17 @@ def _init(cfg, gen, device, hccs_n_ref: int):
         "layers": blocks.init_block(gen, cfg, dt, device, L),
         "final_norm": blocks.init_norm(cfg, dt, device),
     }
+    if cfg.rope == "learned":
+        weights["pos_embed"] = torch.randn(
+            (cfg.max_position, d), generator=gen, dtype=dt,
+            device=device) * 0.02
     if not cfg.tie_embeddings:
         weights["lm_head"] = torch.randn(
             (d, cfg.padded_vocab), generator=gen, dtype=dt,
+            device=device) * d ** -0.5
+    if cfg.num_classes:
+        weights["cls_head"] = torch.randn(
+            (d, cfg.num_classes), generator=gen, dtype=dt,
             device=device) * d ** -0.5
     hccs = {}
     if cfg.attention_prob == "hccs" and cfg.num_heads > 0:
@@ -146,34 +147,45 @@ def _layer(tree, i):
 
 def _block_caller(cfg):
     """apply_block without a cache, under torch.utils.checkpoint when
-    cfg.remat asks for it and autograd is recording."""
-    def call(lp, x, hc, positions):
-        return blocks.apply_block(lp, x, cfg, hc, None, None, positions)[0]
+    cfg.remat asks for it and autograd is recording. Returns (x, aux)."""
+    def call(lp, x, hc, positions, mrope_positions):
+        x, _, aux = blocks.apply_block(lp, x, cfg, hc, None, None,
+                                       positions, mrope_positions)
+        return x, aux
 
     if cfg.remat in ("dots", "full") and torch.is_grad_enabled():
         return lambda *a: checkpoint(call, *a, use_reentrant=False)
     return call
 
 
-def forward(weights, hccs, batch, cfg, cache=None):
-    """batch: {"tokens": (B, T)} with optional "positions" (B, T).
+def _embed(weights, batch, cfg):
+    if cfg.input_mode == "embeddings" and "embeddings" in batch:
+        return batch["embeddings"].to(DTYPES[cfg.dtype])
+    return embed_tokens(weights["embed"], batch["tokens"], cfg)
+
+
+def forward(weights, hccs, batch, cfg, cache=None, decode: bool = False):
+    """batch: {"tokens": (B, T)} or {"embeddings": (B, T, D)} (the
+    embedding-input families), with optional "positions" (B, T) and
+    "mrope_positions" (3, B, T).
 
     cache None: the training / calibration forward (positions default to
     arange(T); nothing is written; returns (hidden, None, aux)). Otherwise
-    cache: the model cache {"layers": {"k", "v": (L, ...)}, "length"} — a
-    slot arena (L, B, Hkv, Tmax, hd) with a scalar or (B,) `length`, or the
-    paged pools (L, N, Hkv, bs, hd) (int8 pools with "k_scale"/"v_scale"
-    (L, N, Hkv) beside them) plus the step's PAGED_EXTRAS (the
-    lockstep step adds a (B,) `length`; the packed step passes explicit
-    positions and no length). Default positions are length + arange(T).
-    Layer i's K/V (and scales) are written into its slices in place.
-    Returns (hidden, cache, aux) like the JAX forward (aux is 0: no MoE);
-    the returned cache's length is advanced by T. With `stage_rows` in the
-    cache, the returned layers also hold every layer's raw new rows as f32
-    `staged_k` / `staged_v` (L, B, Hkv, T, hd), in a new dict beside the
-    pools."""
-    _check_supported(cfg)
-    x = embed_tokens(weights["embed"], batch["tokens"], cfg)
+    cache: the model cache {"layers": {"k", "v": (L, ...), "ssm"?}, "length"}
+    — a slot arena (L, B, Hkv, Tmax, hd) with a scalar or (B,) `length`
+    (the SSM and hybrid families add the (L, B, nh, N, P) f32 SSD state), or
+    the paged pools (L, N, Hkv, bs, hd) (int8 pools with "k_scale"/"v_scale"
+    (L, N, Hkv) beside them) plus the step's PAGED_EXTRAS (the lockstep step
+    adds a (B,) `length`; the packed step passes explicit positions and no
+    length). Default positions are length + arange(T). Layer i's K/V (and
+    scales, and SSD state) are written into its slices in place. `decode`
+    runs the SSD's one-token recurrent step (decode_step sets it). Returns
+    (hidden, cache, aux) like the JAX forward, aux the sum of the layers'
+    MoE load-balance losses (0 without MoE); the returned cache's length is
+    advanced by T. With `stage_rows` in the cache, the returned layers also
+    hold every layer's raw new rows as f32 `staged_k` / `staged_v`
+    (L, B, Hkv, T, hd), in a new dict beside the pools."""
+    x = _embed(weights, batch, cfg)
     b, t = x.shape[:2]
     length = cache.get("length") if cache is not None else None
     positions = batch.get("positions")
@@ -184,22 +196,32 @@ def forward(weights, hccs, batch, cfg, cache=None):
         positions = (torch.atleast_1d(base)[:, None]
                      + torch.arange(t, device=x.device)[None, :]
                      ).expand(b, t)
+    if cfg.rope == "learned":
+        x = x + weights["pos_embed"][positions.long()]
+    mrope_positions = batch.get("mrope_positions")
     hccs = {k: v.detach() for k, v in hccs.items()}   # theta frozen (QAT)
+    aux = 0.0                   # a tensor once a MoE block adds its loss
     if cache is None:
         call = _block_caller(cfg)
         for i in range(cfg.num_layers):
-            x = call(_layer(weights["layers"], i), x,
-                     {k: v[i] for k, v in hccs.items()} or None, positions)
+            x, aux_l = call(_layer(weights["layers"], i), x,
+                            {k: v[i] for k, v in hccs.items()} or None,
+                            positions, mrope_positions)
+            aux = aux + aux_l
         x = apply_norm(weights["final_norm"], x, cfg)
-        return x, None, torch.zeros((), device=x.device)
+        return x, None, _aux_tensor(aux, x.device)
     extras = {k: cache[k] for k in PAGED_EXTRAS if k in cache}
     staged = {"staged_k": [], "staged_v": []}
     for i in range(cfg.num_layers):
         lc = {name: leaf[i] for name, leaf in cache["layers"].items()}
         lc.update(extras)
-        x, lnew = blocks.apply_block(_layer(weights["layers"], i), x, cfg,
-                                     {k: v[i] for k, v in hccs.items()}
-                                     or None, lc, length, positions)
+        x, lnew, aux_l = blocks.apply_block(
+            _layer(weights["layers"], i), x, cfg,
+            {k: v[i] for k, v in hccs.items()} or None, lc, length,
+            positions, mrope_positions, decode=decode)
+        aux = aux + aux_l
+        if "ssm" in lnew:
+            cache["layers"]["ssm"][i].copy_(lnew["ssm"])
         if "stage_rows" in cache:
             for name, rows in staged.items():
                 rows.append(lnew[name])
@@ -210,7 +232,13 @@ def forward(weights, hccs, batch, cfg, cache=None):
             name: torch.stack(rows) for name, rows in staged.items()})
     if length is not None:
         new_cache["length"] = length + t
-    return x, new_cache, torch.zeros((), device=x.device)
+    return x, new_cache, _aux_tensor(aux, x.device)
+
+
+def _aux_tensor(aux, device):
+    if isinstance(aux, torch.Tensor):
+        return aux
+    return torch.zeros((), dtype=torch.float32, device=device)
 
 
 def logits_from_hidden(weights, x, cfg):
@@ -234,13 +262,28 @@ def lm_loss(weights, hccs, batch, cfg):
     return loss, {"lm_loss": loss, "aux_loss": aux}
 
 
+def cls_loss(weights, hccs, batch, cfg):
+    """Sequence classification via first-token pooling (BERT-style).
+    batch needs "cls_labels" (B,)."""
+    x, _, aux = forward(weights, hccs, batch, cfg)
+    pooled = x[:, 0]
+    logits = (pooled @ weights["cls_head"]).float()
+    labels = batch["cls_labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[:, None])[:, 0]
+    loss = torch.mean(logz - gold)
+    acc = torch.mean((torch.argmax(logits, -1) == labels).float())
+    return loss, {"cls_loss": loss, "acc": acc, "aux_loss": aux}
+
+
 def init_cache(cfg, batch_size: int, max_len: int, cache_dtype=None,
                per_slot_lengths: bool = False, device=None):
-    """Zero slot-arena cache {"layers": {"k", "v": (L, B, Hkv, len_c, hd)},
-    "length"}. per_slot_lengths=True makes `length` a (batch,) vector (the
-    continuous engine's per-slot frontiers). cache_dtype=None resolves to
-    cfg.cache_dtype. The device defaults to CUDA and raises without a
-    card."""
+    """Zero slot-arena cache {"layers": {"k", "v": (L, B, Hkv, len_c, hd),
+    "ssm"?: (L, B, nh, N, P) f32}, "length"} (K/V for the attention
+    families, the SSD state for ssm and hybrid). per_slot_lengths=True
+    makes `length` a (batch,) vector (the continuous engine's per-slot
+    frontiers). cache_dtype=None resolves to cfg.cache_dtype. The device
+    defaults to CUDA and raises without a card."""
     if cfg.hot_buffer > 0:
         raise NotImplementedError(
             "hot buffers are not ported yet: ROADMAP.md item A3")
@@ -256,20 +299,22 @@ def init_cache(cfg, batch_size: int, max_len: int, cache_dtype=None,
 
 
 def prefill(weights, hccs, batch, cfg, max_len: int, cache_dtype=None):
-    """Run the prompt (batch["tokens"] (B, T)) through the model into a
-    fresh cache on the tokens' device. Returns (last-token logits (B, V),
-    cache)."""
-    b, t = batch["tokens"].shape
-    cache = init_cache(cfg, b, max_len, cache_dtype,
-                       device=batch["tokens"].device)
+    """Run the prompt (batch["tokens"] (B, T), or "embeddings" (B, T, D))
+    through the model into a fresh cache on the inputs' device. Returns
+    (last-token logits (B, V), cache)."""
+    inp = batch["tokens"] if "tokens" in batch else batch["embeddings"]
+    b, t = inp.shape[:2]
+    cache = init_cache(cfg, b, max_len, cache_dtype, device=inp.device)
     x, cache, _ = forward(weights, hccs, batch, cfg, cache)
     logits = logits_from_hidden(weights, x[:, -1:], cfg)
     return logits[:, 0], cache
 
 
-def decode_step(weights, hccs, tokens, cache, cfg):
-    """One-token decode. tokens: (B, 1). Returns (logits (B, V),
-    new_cache)."""
-    x, cache, _ = forward(weights, hccs, {"tokens": tokens}, cfg, cache)
+def decode_step(weights, hccs, tokens, cache, cfg, embeddings=None):
+    """One-token decode. tokens: (B, 1) (or embeddings (B, 1, D)). The SSD
+    takes its recurrent step. Returns (logits (B, V), new_cache)."""
+    batch = ({"embeddings": embeddings} if embeddings is not None
+             else {"tokens": tokens})
+    x, cache, _ = forward(weights, hccs, batch, cfg, cache, decode=True)
     logits = logits_from_hidden(weights, x, cfg)
     return logits[:, 0], cache

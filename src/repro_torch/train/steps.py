@@ -50,23 +50,17 @@ def make_train_state(seed: int, cfg, tcfg, device=None):
 
 
 def _loss_fn(cfg, loss_fn):
-    if loss_fn is not None:
-        return loss_fn
-    if cfg.num_classes:
-        raise NotImplementedError(
-            "classification heads (cls_loss) are not ported yet: ROADMAP.md "
-            "item A10")
-    return M.lm_loss
+    """The given loss, else cls_loss for a classification head and
+    lm_loss otherwise (the JAX package's default)."""
+    return loss_fn or (M.cls_loss if cfg.num_classes else M.lm_loss)
 
 
 def make_train_step(cfg, tcfg, loss_fn: Callable | None = None):
     """Returns train_step(state, batch) -> (state, metrics): metrics holds
     the loss function's keys plus loss, lr and grad_norm (0-d tensors on
-    the device), as the JAX step's."""
+    the device), as the JAX step's. A MoE model's loss adds
+    tcfg.moe_aux_weight times the load-balance aux loss."""
     loss_fn = _loss_fn(cfg, loss_fn)
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "MoE (and its aux loss) is not ported yet: ROADMAP.md item A10")
 
     def train_step(state, batch):
         params = state["params"]
@@ -79,7 +73,12 @@ def make_train_step(cfg, tcfg, loss_fn: Callable | None = None):
         with torch.enable_grad():
             loss, metrics = loss_fn(M.unflatten_tree(leaves),
                                     params["hccs"], batch, cfg)
-            grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+            if cfg.is_moe:
+                loss = loss + tcfg.moe_aux_weight * metrics["aux_loss"]
+            # a leaf the loss does not reach (the token table of an
+            # embedding-input model) gets a zero gradient, as under JAX
+            grads = torch.autograd.grad(loss, [leaves[k] for k in names],
+                                        materialize_grads=True)
         grads = M.unflatten_tree(dict(zip(names, grads)))
         rng, sub = prng.split(state["rng"])
         new_state = dict(state, rng=torch.tensor(rng, dtype=torch.uint32))

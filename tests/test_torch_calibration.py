@@ -287,3 +287,43 @@ def test_captured_logits_match_jax_eager_capture():
         np.testing.assert_allclose(got.numpy(), ref, atol=CAPTURE_ATOL)
     # unmasked: the last key's logit is captured for the first query too
     assert np.all(cap[0][:, :, 0, -1].numpy() != 0)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "hymba-1.5b"])
+def test_capture_and_calibration_on_moe_and_hybrid_models(arch):
+    """The capture and the per-head calibration on a MoE model and on the
+    hybrid (attention beside SSD heads, a sliding window) against the JAX
+    package's eager capture on the same weights: every layer's logits
+    within CAPTURE_ATOL, then the same rows through both packages'
+    collect_attention_logits and calibrate_heads pick the same theta."""
+    from repro.configs import reduced_config as jax_reduced_config
+    jcfg = jax_reduced_config(arch).replace(attention_prob="softmax")
+    cfg = ModelConfig(**dataclasses.asdict(jcfg))
+    np_params = jax.tree.map(np.asarray,
+                             JM.init_params(jax.random.PRNGKey(0), jcfg))
+    params = M.params_from_jax(np_params, cfg, device=CPU)
+    toks = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    x = jax_embed_tokens(np_params["weights"]["embed"], jnp.asarray(toks),
+                         jcfg)
+    pos = jnp.broadcast_to(jnp.arange(16)[None], toks.shape)
+    want = []
+    for l in range(jcfg.num_layers):
+        lp = jax.tree.map(lambda a: a[l], np_params["weights"]["layers"])
+        with JA.capture_attention_logits() as cap:
+            x, _, _ = JB.apply_block(lp, x, jcfg, hccs=None, positions=pos)
+        want.append(np.asarray(cap[0]))
+    with torch.no_grad(), A.capture_attention_logits() as cap:
+        M.forward(params["weights"], params["hccs"],
+                  {"tokens": torch.from_numpy(toks)}, cfg)
+    assert len(cap) == cfg.num_layers
+    for got, ref in zip(cap, want):
+        np.testing.assert_allclose(got.numpy(), ref, atol=CAPTURE_ATOL)
+    rows = collect_attention_logits([torch.stack(cap)], 16, seed=1)
+    jrows = JC.collect_attention_logits([np.stack(want)], 16, seed=1)
+    scale = np.abs(jrows).max(axis=(2, 3)) / 127.0
+    got, _ = calibrate_heads(rows, scale, 16, device=CPU)
+    ref, _ = JC.calibrate_heads(jrows, scale, 16)
+    for name in ("B", "S", "D"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(ref, name)))

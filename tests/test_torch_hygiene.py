@@ -82,8 +82,8 @@ def test_every_port_module_imports_without_jax():
 # slices land; a module ported or added on either side must update it.
 UNPORTED = [
     "configs/shapes.py", "launch/dryrun.py", "launch/inspect_hlo.py",
-    "launch/mesh.py", "launch/roofline.py", "models/moe.py", "models/ssm.py",
-    "parallel/__init__.py", "parallel/sharding.py"]
+    "launch/mesh.py", "launch/roofline.py", "parallel/__init__.py",
+    "parallel/sharding.py"]
 
 
 def test_unported_modules_are_the_recorded_list():
@@ -92,6 +92,86 @@ def test_unported_modules_are_the_recorded_list():
     missing = sorted(p.relative_to(ref).as_posix() for p in ref.rglob("*.py")
                      if not (port / p.relative_to(ref)).is_file())
     assert missing == UNPORTED
+
+
+def test_core_exports_every_public_name_of_the_jax_core():
+    """`repro_torch.core` exports what `repro.core` does: the HCCS names
+    and the calibrate, constraints and qat submodules."""
+    import repro.core as jax_core
+    import repro_torch.core as port_core
+    public = {n for n in dir(jax_core) if not n.startswith("_")}
+    assert len(public) >= 14
+    assert public <= {n for n in dir(port_core) if not n.startswith("_")}
+    from repro_torch.core import (  # noqa: F401
+        hccs_attention_prob_fn, hccs_probs, softmax_fp)
+    for sub in ("calibrate", "constraints", "qat", "hccs"):
+        assert getattr(port_core, sub).__name__ == f"repro_torch.core.{sub}"
+
+
+@pytest.mark.parametrize("mode", ["i16_div", "i8_div", "i16_clb", "i8_clb",
+                                  "wide"])
+@pytest.mark.parametrize("hard", [True, False])
+def test_hccs_attention_prob_fn_and_its_gradient_match_jax(mode, hard):
+    """The factory's STE probability function against JAX's: outputs equal
+    and the gradient of a weighted sum through the STE within 2.3e-8
+    (measured; gate 1e-6) on float logits with per-head scales, and
+    softmax_fp against jax.nn.softmax.
+
+    One reference-side exception (ROADMAP.md section C3): XLA:CPU's exp2 is
+    inexact at some integers (exp2(13.) is 8192.004), so in the i8_clb
+    mode JAX's rho = floor(255 * 2^15 / 2^k) is 1019 where it is 1020 for
+    8192 <= Z < 16384. Rows at such a k are counted; there the port's
+    gradient is JAX's times the two rhos' ratio, and its output equals the
+    exact formula."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import hccs as JH
+    from repro_torch.core import HCCSParams, hccs_attention_prob_fn, \
+        softmax_fp
+    from repro_torch.core.constraints import default_params
+    rng = np.random.default_rng(3)
+    x = rng.normal(0, 2, (2, 3, 5, 16)).astype(np.float32)
+    w = rng.normal(0, 1, x.shape).astype(np.float32)
+    B, S, D = (np.full((3, 1, 1), v, np.int32) for v in default_params(16))
+    scale = np.asarray([0.05, 0.08, 0.11], np.float32)[:, None, None]
+    jfn = JH.hccs_attention_prob_fn(
+        JH.HCCSParams(B=jnp.asarray(B), S=jnp.asarray(S), D=jnp.asarray(D)),
+        jnp.asarray(scale), mode=mode, hard=hard)
+    fn = hccs_attention_prob_fn(
+        HCCSParams(B=torch.from_numpy(B), S=torch.from_numpy(S),
+                   D=torch.from_numpy(D)), torch.from_numpy(scale),
+        mode=mode, hard=hard)
+    jout, jgrad = jax.value_and_grad(
+        lambda a: jnp.sum(jfn(a) * w))(jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    out = torch.sum(fn(xt) * torch.from_numpy(w))
+    out.backward()
+    got, want = fn(torch.from_numpy(x)).numpy(), np.asarray(
+        jfn(jnp.asarray(x)))
+    grad, jgrad = xt.grad.numpy(), np.asarray(jgrad)
+    # the rows whose leading bit k XLA's exp2 misses
+    q = np.clip(np.round(x / scale), -128, 127)
+    sc = B - S * np.minimum(q.max(-1, keepdims=True) - q, D)
+    k = np.floor(np.log2(np.maximum(sc.sum(-1, keepdims=True), 1.0)))
+    pow2 = np.asarray(jnp.exp2(jnp.asarray(k, jnp.float32)))
+    rho = np.floor(255 * 2 ** 15 / np.exp2(k))
+    ratio = rho / np.floor(np.float32(255 * 2 ** 15) / pow2)
+    odd = (ratio != 1) & (mode == "i8_clb" and hard)
+    assert odd.sum() <= 19                      # measured: 19 of 30 rows
+    if odd.any():
+        exact = (np.minimum(np.floor(sc * rho / 2 ** 15), 255) / 255
+                 ).astype(np.float32)
+        np.testing.assert_array_equal(np.where(odd, got, 0),
+                                      np.where(odd, exact, 0))
+        jgrad = np.where(odd, jgrad * ratio, jgrad)
+    np.testing.assert_array_equal(np.where(odd, 0, got),
+                                  np.where(odd, 0, want))
+    np.testing.assert_allclose(float(out.detach()), float(jout), rtol=2e-6)
+    np.testing.assert_allclose(grad, jgrad, atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(softmax_fp(torch.from_numpy(x)).numpy(),
+                               np.asarray(JH.softmax_fp(jnp.asarray(x))),
+                               rtol=1e-6, atol=1e-7)   # measured 2.6e-7
 
 
 def _cfg(**kw):
@@ -225,9 +305,10 @@ def test_unported_request_and_launcher_options_raise():
         port_serve.main(["--arch", "granite-3-2b", "--reduced", "--device",
                          "cpu", "--scheduler", "wave", "--step-layout",
                          "lockstep"])
+    # every family of the registry builds; hot buffers remain refused
+    M.init_params(port_registry.reduced_config("mamba2-1.3b"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
-        M.init_params(port_registry.reduced_config("mamba2-1.3b"),
-                      device="cpu")
+        M.init_cache(cfg.replace(hot_buffer=8), 2, 32, device="cpu")
 
 
 @pytest.mark.parametrize("key", ["stage_rows", "draft_rows"])
@@ -313,6 +394,8 @@ def test_launcher_serves_every_scheduler_on_cpu(scheduler, capsys):
     ["--arrival-rate", "2", "--turns", "2"],
     ["--arrival-rate", "-1"],
     ["--chaos", "0", "--arrival-rate", "2"],
+    ["--arch", "qwen2-vl-2b"],
+    ["--arch", "musicgen-large", "--scheduler", "wave"],
 ])
 def test_launcher_refuses_what_the_jax_launcher_refuses(flags):
     with pytest.raises(SystemExit):

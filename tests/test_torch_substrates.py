@@ -1,8 +1,11 @@
 """The port's training substrates (repro_torch/checkpoint, optim, data,
-train/loop.py) — twins of TestCheckpoint, TestOptim, TestData and
+train/loop.py) and its MoE and SSD layers (models/moe.py, models/ssm.py) —
+twins of TestCheckpoint, TestMoE, TestSSD, TestOptim, TestData and
 TestTrainLoop in tests/test_substrates.py — and their parity with the JAX
 package: one AdamW step, the compression noise and its threefry streams,
-the synthetic batches, and checkpoints loaded across packages.
+the synthetic batches, checkpoints loaded across packages, MoE routing
+(expert ids, keep masks, slots, output, aux) and the SSD's chunked and
+recurrent forms with their gradients.
 """
 import dataclasses
 import os
@@ -19,6 +22,8 @@ from repro.checkpoint.manager import config_hash as jax_config_hash
 from repro.configs.base import ModelConfig as JaxModelConfig
 from repro.configs.base import TrainConfig as JaxTrainConfig
 from repro.data import synthetic as JD
+from repro.models import moe as JMoE
+from repro.models import ssm as JSSM
 from repro.optim import adamw as jax_adamw
 from repro.optim import compression as jax_compression
 from repro.train import make_train_state as jax_make_train_state
@@ -27,6 +32,8 @@ from repro_torch.checkpoint.manager import config_hash
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.data import synthetic as D
 from repro_torch.models import model as M
+from repro_torch.models import moe as MoE
+from repro_torch.models import ssm as SSM
 from repro_torch.optim import adamw, compression
 from repro_torch.serve import prng
 from repro_torch.train import (make_train_state, train_loop,
@@ -195,6 +202,291 @@ class TestCheckpoint:
                 for k in a.files:
                     assert a[k].dtype.itemsize == b[k].dtype.itemsize
                     assert a[k].tobytes() == b[k].tobytes(), k
+
+
+# ------------------------------------------------------------------ MoE ---
+
+# MoE against JAX on the same weights (f32): router probabilities within
+# 3.0e-7 (softmax router; the HCCS router's are equal), outputs within
+# 6.0e-7 and aux losses within 1.2e-7, measured on the cases below; the
+# gates are 5x that. Expert ids, keep masks and slots were equal in every
+# case (0 flips among 128-1024 routed entries, 19-120 rows with tied
+# probabilities under the HCCS router): an id may differ only where the
+# port's gap between consecutive top-(k+1) probabilities is below
+# ROUTE_EPS (30x the probability drift), and such tokens are counted; a
+# group with none compares its keep mask and slots bit for bit.
+MOE_OUT_ATOL = 3e-6
+MOE_AUX_RTOL = 6e-7
+ROUTE_EPS = 1e-5
+
+
+def _torch_tree(tree):
+    return jax.tree.map(lambda a: torch.from_numpy(np.array(a)), tree)
+
+
+def _jax_route(p, x, cfg):
+    """The JAX module's routing steps (repro/models/moe.py:74-107), which
+    apply_moe keeps internal: expert ids (G, M, K), keep mask and slots
+    (G, M*K), and router probabilities."""
+    b, t, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    G = JMoE._num_groups(cfg, b * t)
+    m = b * t // G
+    cap = max(int(m * k / e * cfg.moe_capacity_factor), 1)
+    logits = x.reshape(G, m, d).astype(jnp.float32) @ p["router"]
+    probs = JMoE._router_probs(p, logits, cfg)
+    _, idx = jax.lax.top_k(probs, k)
+    flat = idx.reshape(G, m * k)
+    order = jnp.argsort(flat, axis=1, stable=True)
+    sorted_e = jnp.take_along_axis(flat, order, axis=1)
+    counts = jnp.zeros((G, e), jnp.int32).at[
+        jnp.arange(G)[:, None], flat].add(1)
+    starts = jnp.cumsum(counts, axis=1) - counts
+    pos_sorted = (jnp.arange(m * k)[None] -
+                  jnp.take_along_axis(starts, sorted_e, axis=1))
+    pos = jnp.take_along_axis(pos_sorted, jnp.argsort(order, axis=1),
+                              axis=1)
+    return (np.asarray(idx), np.asarray(pos < cap),
+            np.asarray(jnp.minimum(pos, cap - 1)), np.asarray(probs))
+
+
+def _moe_case(**kw):
+    cfg, jcfg = tiny(family="moe", **kw)
+    p = JMoE.init_moe(jax.random.PRNGKey(0), jcfg)
+    return cfg, jcfg, p, _torch_tree(p)
+
+
+class TestMoE:
+    def test_dispatch_combine_identity_single_expert(self):
+        """E=1, K=1, ample capacity: MoE == plain FFN on every token."""
+        cfg, jcfg, jp, p = _moe_case(num_experts=1, experts_per_token=1,
+                                     moe_capacity_factor=2.0)
+        x = torch.from_numpy(np.random.default_rng(0).normal(
+            0, 1, (2, 8, 64)).astype(np.float32))
+        out, aux = MoE.apply_moe(p, x, cfg)
+        w = p["experts"]
+        xf = x.reshape(-1, 64)
+        h = torch.nn.functional.silu(xf @ w["w_gate"][0]) * (
+            xf @ w["w_in"][0])
+        want = (h @ w["w_out"][0]).reshape(2, 8, 64)
+        np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=2e-4,
+                                   atol=1e-5)
+        jout, jaux = JMoE.apply_moe(jp, jnp.asarray(x.numpy()), jcfg)
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout),
+                                   atol=MOE_OUT_ATOL)
+        np.testing.assert_allclose(float(aux), float(jaux),
+                                   rtol=MOE_AUX_RTOL)
+
+    def test_capacity_drops_overflow(self):
+        cfg, jcfg, jp, p = _moe_case(num_experts=4, experts_per_token=1,
+                                     moe_capacity_factor=0.25)
+        x = np.random.default_rng(0).normal(0, 1, (2, 16, 64)).astype(
+            np.float32)
+        out, aux = MoE.apply_moe(p, torch.from_numpy(x), cfg)
+        assert bool(torch.isfinite(out).all())
+        # the dropped tokens' outputs are zero, as in JAX
+        r = MoE.route(p, torch.from_numpy(x), cfg)
+        dropped = ~r["keep"].reshape(-1)
+        assert dropped.any()
+        assert (out.reshape(-1, 64)[dropped] == 0).all()
+        jout, _ = JMoE.apply_moe(jp, jnp.asarray(x), jcfg)
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout),
+                                   atol=MOE_OUT_ATOL)
+
+    def test_hccs_router_ordering_matches_quantized_logits(self):
+        """HCCS preserves the order of the quantized logits exactly (ties in
+        the int8 grid are ties in HCCS too), so expert selection equals
+        softmax-on-quantized-logits selection up to in-tie permutation."""
+        from repro_torch.core.constraints import default_params
+        from repro_torch.core.hccs import HCCSParams, hccs_qat
+        rng = np.random.default_rng(2)
+        logits = torch.from_numpy(rng.normal(0, 2, (32, 16)).astype(
+            np.float32))
+        scale = 0.05
+        B, S, D = default_params(16)
+        p = HCCSParams(B=torch.tensor(B, dtype=torch.int32),
+                       S=torch.tensor(S, dtype=torch.int32),
+                       D=torch.tensor(D, dtype=torch.int32))
+        probs_h = hccs_qat(logits, scale, p, "i16_div").numpy()
+        q = np.clip(np.round(logits.numpy() / scale), -128, 127)
+        for row_p, row_q in zip(probs_h, q):
+            # strictly larger quantized logit => prob >= (monotone)
+            order = np.argsort(row_q, kind="stable")
+            assert (np.diff(row_p[order]) >= -1e-9).all()
+            # equal quantized logits => exactly equal probs (ties preserved)
+            for val in np.unique(row_q):
+                ps = row_p[row_q == val]
+                assert np.allclose(ps, ps[0], atol=1e-9)
+
+    def test_top_k_puts_the_lower_index_first_on_ties(self):
+        """jax.lax.top_k's order on tied rows, which the HCCS router makes
+        common."""
+        rows = np.array([[0.25, 0.5, 0.25, 0.5, 0.0],
+                         [0.1, 0.1, 0.1, 0.1, 0.1],
+                         [0.0, 0.3, 0.3, 0.4, 0.0]], np.float32)
+        vals, idx = MoE.top_k(torch.from_numpy(rows), 3)
+        jvals, jidx = jax.lax.top_k(jnp.asarray(rows), 3)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+        np.testing.assert_array_equal(vals.numpy(), np.asarray(jvals))
+
+    @pytest.mark.parametrize("kw", [
+        dict(num_experts=8, experts_per_token=2),
+        dict(num_experts=8, experts_per_token=2, moe_capacity_factor=0.5),
+        dict(num_experts=8, experts_per_token=2, hccs_router=True),
+        dict(num_experts=16, experts_per_token=4, hccs_router=True,
+             hccs_mode="i16_div", moe_capacity_factor=0.75, moe_groups=2),
+        dict(num_experts=32, experts_per_token=8, hccs_router=True),
+    ], ids=["softmax", "drops", "hccs-router", "hccs-groups-drops",
+            "hccs-32e-top8"])
+    def test_apply_moe_matches_jax(self, kw):
+        """Routing (ids, keep mask, slots), output and aux against JAX on
+        the same weights, tied HCCS-router rows and capacity drops
+        included."""
+        cfg, jcfg, jp, p = _moe_case(**kw)
+        x = np.random.default_rng(0).normal(0, 1, (4, 32, 64)).astype(
+            np.float32)
+        with torch.no_grad():
+            out, aux = MoE.apply_moe(p, torch.from_numpy(x), cfg)
+            r = MoE.route(p, torch.from_numpy(x), cfg)
+        jout, jaux = JMoE.apply_moe(jp, jnp.asarray(x), jcfg)
+        jidx, jkeep, jslot, jprobs = _jax_route(jp, jnp.asarray(x), jcfg)
+        k = cfg.experts_per_token
+        probs = r["probs"].numpy()
+        np.testing.assert_allclose(probs, jprobs, atol=MOE_OUT_ATOL)
+        top = -np.sort(-probs, axis=-1)[..., :k + 1]
+        gaps = -np.diff(top, axis=-1)
+        near = ((gaps > 0) & (gaps < ROUTE_EPS)).any(-1)     # (G, M)
+        flips = (r["idx"].numpy() != jidx).any(-1)
+        assert not (flips & ~near).any(), "an expert id flipped at a margin"
+        assert flips.sum() == 0, f"{flips.sum()} near-tie flips"
+        np.testing.assert_array_equal(r["keep"].numpy(), jkeep)
+        np.testing.assert_array_equal(r["slot"].numpy(), jslot)
+        assert not jkeep.all()                  # capacity drops ran
+        if cfg.hccs_router:                     # and tied rows
+            assert (gaps == 0).any()
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout),
+                                   atol=MOE_OUT_ATOL)
+        np.testing.assert_allclose(float(aux), float(jaux),
+                                   rtol=MOE_AUX_RTOL)
+
+
+# ------------------------------------------------------------------ SSD ---
+
+# SSD against JAX on the same weights (f32, A_log and dt_bias drawn so the
+# decays differ per head): outputs and final states within 1.4e-6 at chunk
+# 4-5 (gate 1e-5), 4.4e-5 at chunk 256 (values up to ~1e2; gate 2e-4);
+# the recurrent step within 1.5e-6; input gradients within 4.3e-6 (gate
+# 2e-5). At chunk 64 both packages' gradients are NaN in the same entries:
+# above the causal diagonal exp(seg) overflows to inf and the masked
+# branch's zero cotangent times inf is NaN (repro/models/ssm.py:89-92).
+SSD_ATOL = {4: 1e-5, 5: 1e-5, 64: 1e-4, 256: 2e-4}
+SSD_GRAD_ATOL = 2e-5
+
+
+def _ssd_case(T, **kw):
+    cfg, jcfg = tiny(family="ssm", num_heads=0, num_kv_heads=0, d_ff=0,
+                     ssm_state=8, ssm_head_dim=16, **kw)
+    p = JSSM.init_ssm(jax.random.PRNGKey(0), jcfg)
+    p = dict(p, A_log=jnp.asarray(np.random.default_rng(3).normal(
+        0, 0.5, p["A_log"].shape), jnp.float32),
+        dt_bias=jnp.asarray(np.random.default_rng(4).normal(
+            0, 0.5, p["dt_bias"].shape), jnp.float32))
+    x = np.random.default_rng(0).normal(0, 1, (2, T, 64)).astype(np.float32)
+    return cfg, jcfg, p, _torch_tree(p), x
+
+
+class TestSSD:
+    def test_chunked_matches_recurrent(self):
+        """The chunked SSD (training path) == step-by-step recurrence."""
+        cfg, _ = tiny(family="ssm", num_heads=0, num_kv_heads=0, d_ff=0,
+                      ssm_state=8, ssm_head_dim=16, ssm_chunk=4)
+        p = SSM.init_ssm(torch.Generator().manual_seed(0), cfg,
+                         torch.float32, "cpu", 1)
+        p = {k: v[0] for k, v in p.items()}
+        x = torch.from_numpy(np.random.default_rng(0).normal(
+            0, 1, (2, 12, 64)).astype(np.float32))
+        y_chunked, state_final = SSM.apply_ssd(p, x, cfg)
+        state = torch.zeros((2, cfg.ssm_heads, cfg.ssm_state,
+                             cfg.ssm_head_dim))
+        ys = []
+        for t in range(12):
+            y_t, state = SSM.apply_ssd_step(p, x[:, t:t + 1], cfg, state)
+            ys.append(y_t)
+        y_rec = torch.cat(ys, dim=1)
+        np.testing.assert_allclose(y_chunked.numpy(), y_rec.numpy(),
+                                   atol=2e-4)
+        np.testing.assert_allclose(state_final.numpy(), state.numpy(),
+                                   atol=2e-4)
+
+    @pytest.mark.slow
+    def test_chunk_size_invariance(self):
+        cfg4, _ = tiny(family="ssm", num_heads=0, num_kv_heads=0, d_ff=0,
+                       ssm_state=8, ssm_head_dim=16, ssm_chunk=4)
+        cfg6 = cfg4.replace(ssm_chunk=6)
+        p = SSM.init_ssm(torch.Generator().manual_seed(0), cfg4,
+                         torch.float32, "cpu", 1)
+        p = {k: v[0] for k, v in p.items()}
+        x = torch.from_numpy(np.random.default_rng(1).normal(
+            0, 1, (1, 24, 64)).astype(np.float32))
+        y4, s4 = SSM.apply_ssd(p, x, cfg4)
+        y6, s6 = SSM.apply_ssd(p, x, cfg6)
+        np.testing.assert_allclose(y4.numpy(), y6.numpy(), atol=2e-4)
+        np.testing.assert_allclose(s4.numpy(), s6.numpy(), atol=2e-4)
+
+    @pytest.mark.parametrize("T,kw", [
+        (12, dict(ssm_chunk=4)), (13, dict(ssm_chunk=5, ssm_groups=2)),
+        (256, dict(ssm_chunk=256))], ids=["chunk4", "chunk5-groups2",
+                                          "chunk256"])
+    def test_apply_ssd_and_step_match_jax(self, T, kw):
+        """apply_ssd from a given state (a ragged last chunk, two B/C
+        groups) and apply_ssd_step against JAX's."""
+        cfg, jcfg, jp, p, x = _ssd_case(T, **kw)
+        st0 = np.random.default_rng(1).normal(
+            0, 1, (2, cfg.ssm_heads, 8, 16)).astype(np.float32)
+        atol = SSD_ATOL[kw["ssm_chunk"]]
+        with torch.no_grad():
+            y, st = SSM.apply_ssd(p, torch.from_numpy(x), cfg,
+                                  torch.from_numpy(st0))
+            ys, sts = SSM.apply_ssd_step(p, torch.from_numpy(x[:, :1]), cfg,
+                                         torch.from_numpy(st0))
+        jy, jst = JSSM.apply_ssd(jp, jnp.asarray(x), jcfg, jnp.asarray(st0))
+        jys, jsts = JSSM.apply_ssd_step(jp, jnp.asarray(x[:, :1]), jcfg,
+                                        jnp.asarray(st0))
+        assert st.dtype == sts.dtype == torch.float32
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=atol)
+        np.testing.assert_allclose(st.numpy(), np.asarray(jst), atol=atol)
+        np.testing.assert_allclose(ys.numpy(), np.asarray(jys), atol=1e-5)
+        np.testing.assert_allclose(sts.numpy(), np.asarray(jsts), atol=1e-5)
+
+    @pytest.mark.parametrize("T,chunk", [(12, 4), (64, 64)])
+    def test_gradients_as_finite_as_jax(self, T, chunk):
+        """Gradients of sum(apply_ssd) in x and in A_log: equal to JAX's
+        where JAX's are finite, NaN exactly where JAX's are (the masked
+        exp's overflow at chunk 64)."""
+        cfg, jcfg, jp, p, x = _ssd_case(T, ssm_chunk=chunk)
+        jg = jax.grad(lambda p_, x_: JSSM.apply_ssd(p_, x_, jcfg)[0].sum(),
+                      argnums=(0, 1))(jp, jnp.asarray(x))
+        pt = {k: v.clone().requires_grad_() for k, v in p.items()}
+        xt = torch.from_numpy(x).requires_grad_()
+        SSM.apply_ssd(pt, xt, cfg)[0].sum().backward()
+        for got, want in ((xt.grad.numpy(), np.asarray(jg[1])),
+                          (pt["A_log"].grad.numpy(),
+                           np.asarray(jg[0]["A_log"]))):
+            np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+            ok = ~np.isnan(want)
+            np.testing.assert_allclose(got[ok], want[ok],
+                                       atol=SSD_GRAD_ATOL, rtol=1e-5)
+        assert np.isnan(np.asarray(jg[1])).any() == (chunk == 64)
+
+    def test_softplus_is_jax_softplus(self):
+        """jax.nn.softplus, logaddexp(x, 0) with no threshold (torch's
+        F.softplus has one): equal within one f32 ulp (measured: one of
+        these ten values an ulp apart, the frameworks' log1p/exp)."""
+        x = np.array([-30.0, -1.0, 0.0, 1e-3, 5.0, 19.99, 20.0, 20.01, 35.0,
+                      90.0], np.float32)
+        got = SSM.softplus(torch.from_numpy(x)).numpy()
+        np.testing.assert_allclose(got, np.asarray(jax.nn.softplus(
+            jnp.asarray(x))), rtol=2.0 ** -23, atol=0)
 
 
 # ------------------------------------------------------- optim/compress ---

@@ -300,6 +300,13 @@ def test_train_launcher_runs_and_resumes_on_cpu(capsys):
                                "2", "--seq", "8", "--prob", "softmax",
                                "--grad-compression", "int8"])
     assert len(hist) == 2
-    with pytest.raises(NotImplementedError, match="A10"):
-        port_train.main(["--arch", "musicgen-large", "--reduced", "--device",
-                         "cpu", "--steps", "1"])
+    # embedding-input models train on seeded embeddings; a classification
+    # model is refused (the LM stream has no cls_labels, as in JAX)
+    for arch in ("musicgen-large", "qwen2-vl-2b"):
+        _, hist = port_train.main(["--arch", arch, "--reduced", "--device",
+                                   "cpu", "--steps", "2", "--batch", "2",
+                                   "--seq", "8"])
+        assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
+    with pytest.raises(SystemExit):
+        port_train.main(["--arch", "bert-tiny", "--device", "cpu",
+                         "--steps", "1"])
