@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases 1,2,3,6,7,11,12,13   # the kernel checks
     python3 chip_smoke.py --phases 1,2,24,25,26,27       # calibrate, train
     python3 chip_smoke.py --phases 1,2,28,29,30          # MoE, SSM, encoder
+    python3 chip_smoke.py --phases 1,31,32,33   # hot buffer, mesh, dry-run
 
 Builds the CUDA kernels from the sources in this checkout, holds every
 kernel against its plain PyTorch version on the card, drives the port's
@@ -159,7 +160,20 @@ Phases, in order:
                 qwen2-vl-2b (M-RoPE over an image grid) and musicgen-large
                 (embedding inputs) at full width cut to 4 layers: one
                 forward and one train step each
- 31 report      one JSON line per the kernel table
+ 31 hot         granite-3-2b at full width on the wave ServeEngine, 8 x 512
+                prompt tokens and 32 new, with a 32-row hot buffer and
+                without it (both the STE attention, no kernel launched),
+                held to each other by the near-tie rule
+ 32 mesh        a one-card (1, 1) DeviceMesh, NCCL at world size 1 (store
+                on localhost): granite's bf16 weights distributed under
+                DEFAULT_RULES, one prefill and 8 decode steps of 4 x 128
+                tokens as DTensors; tokens equal to the unsharded run's,
+                the largest logit difference printed
+ 33 dryrun      the dry-run of granite-3-2b x decode_32k on the (16, 16)
+                mesh over a fake process group, on the host, without and
+                with a 32-row hot buffer: roofline terms beside the card's
+                name and power limit
+ 34 report      one JSON line per the kernel table
 
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero before it. `--phases` runs a subset (for bring-up).
@@ -172,6 +186,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -4152,9 +4167,217 @@ def phase_encoder():
     return launches
 
 
+# ------------------------------------------------------- phases 31-33 --
+
+HOT_ROWS = 32                   # phase 31's hot buffer: every decoded row
+MESH_BATCH, MESH_PROMPT, MESH_STEPS = 4, 128, 8     # phase 32
+DRYRUN_CELL = ("granite-3-2b", "decode_32k")        # phase 33
+
+
+def phase_hot():
+    """Phase 31: granite-3-2b at full width and depth on the wave
+    ServeEngine, 8 requests of 512 prompt tokens and 32 new, with a
+    32-row hot buffer (decoded rows appended there, the prompt and hot
+    segments merged against a shared max) and without it (run twice, the
+    first warming the card up), both on the STE attention (hot buffers
+    block the kernels): no kernel launched, every
+    request done, the hot run held to the classic one by the near-tie rule
+    in the model's and both runs' own logits (SampleTap). Returns the two
+    walls."""
+    cfg, params = engine_model()
+    ref_cfg = cfg.replace(cache_layout="slot", decode_kernel="none")
+    hot_cfg = ref_cfg.replace(hot_buffer=HOT_ROWS)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, 512).astype(np.int32)
+               for _ in range(MAX_BATCH)]
+    runs = {}
+    # the first run also warms the card up: classic twice, the second kept
+    for label, c in (("warm-up", ref_cfg), ("classic", ref_cfg),
+                     ("hot", hot_cfg)):
+        eng = ServeEngine(params, c, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                          device="cuda")
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p.copy(), max_new_tokens=32))
+        for k in KERNELS:
+            k.launches = 0
+        torch.cuda.synchronize()
+        with SampleTap() as tap:
+            t0 = time.perf_counter()
+            done = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        toks = {r.uid: list(r.out_tokens) for r in done}
+        launched = {k.__name__: k.launches for k in KERNELS}
+        cache = M.init_cache(c, MAX_BATCH, MAX_LEN, device="meta")
+        log(f"[hot] {label}: {eng.decode_steps} decode steps in "
+            f"{wall:.3f}s, kernels {launched}, KV bytes "
+            f"{serve_engine.kv_cache_bytes(cache)}")
+        check(len(done) == MAX_BATCH and all(
+            len(t) == 32 and all(0 <= x < VOCAB for x in t)
+            for t in toks.values()), f"hot {label}: not every request done")
+        check(not any(launched.values()), f"hot {label}: a kernel ran on "
+              f"the STE path")
+        runs[label] = (toks, tap.own, wall)
+    by_uid = dict(enumerate(prompts))
+    divergence("hot", runs["hot"][0], runs["classic"][0], by_uid, by_uid,
+               params, ref_cfg, own=(runs["hot"][1], runs["classic"][1]))
+    return {label: runs[label][2] for label in ("classic", "hot")}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_mesh():
+    """Phase 32: a (1, 1) DeviceMesh over ("data", "model") on the card,
+    NCCL at world size 1 with its store on localhost. granite-3-2b's bf16
+    weights (seed 0) distributed under DEFAULT_RULES, the cache and the
+    prompts under the dry-run's layouts, then one prefill and 8 greedy
+    decode steps of 4 x 128 prompt tokens under use_rules (the model's
+    constrain calls redistribute); the same weights unsharded give the
+    reference. Tokens must be equal; the largest logit difference is
+    printed."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.dryrun import _batch_shardings, _cache_shardings
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.parallel import sharding as SH
+    cfg = get_config("granite-3-2b").replace(decode_kernel="none",
+                                             cache_layout="slot")
+    params = M.init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(4)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (
+        MESH_BATCH, MESH_PROMPT)), dtype=torch.int32, device="cuda")
+    max_len = MESH_PROMPT + MESH_STEPS + 1
+
+    def serve(w, hccs, batch_of, cache, gather):
+        out, logits = [], []
+        with torch.no_grad():
+            lg, cache = M.prefill(w, hccs, batch_of(toks), cfg,
+                                  max_len=max_len, cache=cache)
+            for step in range(MESH_STEPS + 1):
+                lg = gather(lg).float()
+                logits.append(lg)
+                nxt = torch.argmax(lg, -1)[:, None].to(torch.int32)
+                out.append(nxt[:, 0].tolist())
+                if step < MESH_STEPS:
+                    lg, cache = M.decode_step(w, hccs, batch_of(nxt)[
+                        "tokens"], cache, cfg)
+        return out, logits
+
+    t0 = time.perf_counter()
+    ref, ref_logits = serve(params["weights"], params["hccs"],
+                            lambda t: {"tokens": t},
+                            M.init_cache(cfg, MESH_BATCH, max_len,
+                                         device="cuda"), lambda x: x)
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh(data=1, model=1)
+        check(mesh.device_type == "cuda" and tuple(mesh.mesh.shape) == (
+            1, 1), f"mesh {mesh}")
+        with SH.use_rules(mesh), implicit_replication():
+            shard = SH.named_sharding_tree(params["weights"], mesh)
+            flat_sh = M.flatten_tree(shard)
+            w = M.unflatten_tree({
+                k: distribute_tensor(v, mesh, list(flat_sh[k].placements))
+                for k, v in M.flatten_tree(params["weights"]).items()})
+            hccs = {k: distribute_tensor(v, mesh, [Replicate()] * 2)
+                    for k, v in params["hccs"].items()}
+            cache0 = M.init_cache(cfg, MESH_BATCH, max_len, device="cuda")
+            csh = _cache_shardings(cache0, mesh, True)
+            cache = {"layers": {k: distribute_tensor(
+                v, mesh, csh["layers"][k]) for k, v in
+                cache0["layers"].items()},
+                "length": distribute_tensor(cache0["length"], mesh,
+                                            csh["length"])}
+            spec = _batch_shardings({"tokens": toks}, mesh, True)["tokens"]
+            sharded_specs = {k: str(flat_sh[k].placements) for k in (
+                "layers.attn.wq", "embed.table", "layers.mlp.w_out")}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, logits = serve(w, hccs, lambda t: {
+                "tokens": distribute_tensor(t, mesh, spec)}, cache,
+                lambda x: x.full_tensor())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            kinds = {type(w["layers"]["attn"]["wq"]).__name__,
+                     type(cache["layers"]["k"]).__name__}
+    finally:
+        dist.destroy_process_group()
+    diff = max(float((a - b).abs().max()) for a, b in zip(logits,
+                                                          ref_logits))
+    log(f"[mesh] {CARD}: (1, 1) mesh over (data, model), NCCL world 1; "
+        f"placements {sharded_specs}; leaves {sorted(kinds)}; prefill + "
+        f"{MESH_STEPS} decode steps of {MESH_BATCH} x {MESH_PROMPT} in "
+        f"{wall:.3f}s sharded, {ref_wall:.3f}s unsharded; tokens "
+        f"{'equal' if got == ref else 'DIFFER'}; largest logit difference "
+        f"{diff:.3e}")
+    check(kinds == {"DTensor"}, f"mesh: leaves not distributed: {kinds}")
+    check(got == ref, "mesh: the sharded run's tokens differ from the "
+          "unsharded run's")
+    return dict(wall=wall, ref_wall=ref_wall, max_logit_diff=diff)
+
+
+def phase_dryrun():
+    """Phase 33: the dry-run of granite-3-2b x decode_32k on the (16, 16)
+    mesh over a fake process group of 256 ranks, on the host (two
+    subprocesses side by side that cannot see the card), without and with
+    a 32-row hot buffer; their roofline terms beside the card's name and
+    power limit."""
+    arch, shape = DRYRUN_CELL
+    out = Path(__file__).resolve().parent / "build" / "smoke_dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    env = {k: v for k, v in os.environ.items() if k != "REPRO_MESH"}
+    env.update(CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    recs = {}
+    t0 = time.perf_counter()
+    # the two cells run side by side, one process each
+    procs = {tag: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "pod", "--out", str(out)] + extra,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for tag, extra in (("", []), ("hot", [
+            "--hot-buffer", str(HOT_ROWS), "--tag", "hot"]))}
+    for tag, proc in procs.items():
+        try:
+            _, err = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"dry-run {tag or 'classic'} failed: "
+              f"{err[-1500:]}")
+        name = f"{arch}_{shape}_pod{'_' + tag if tag else ''}.json"
+        rec = json.loads((out / name).read_text())
+        check(rec["ok"] and rec["chips"] == 256 and rec["mesh_shape"] == [
+            16, 16] and rec["flops_per_dev"] > 0, f"dry-run record {rec}")
+        rf = rec["roofline"]
+        log(f"[dryrun] {CARD}: {arch} x {shape} x (16, 16), hot buffer "
+            f"{rec['hot_buffer']}, {rec['num_layers']} layers, done "
+            f"{wall:.1f}s after the start on the host: FLOPs/dev {rec['flops_per_dev']:.4e}, bytes/dev "
+            f"{rec['bytes_per_dev']:.4e}, collective bytes/dev "
+            f"{rec['collectives']['total_bytes']:.4e}; compute "
+            f"{rf['compute_s']:.4e}s, memory {rf['memory_s']:.4e}s, "
+            f"collective {rf['collective_s']:.4e}s, dominant "
+            f"{rf['dominant']}, bound {rf['step_s_lower_bound']:.4e}s; "
+            f"useful FLOPs {rec['useful_flops_ratio']:.4f}; memory "
+            f"{rec['memory']}")
+        recs[tag or "classic"] = rec
+    shutil.rmtree(out, ignore_errors=True)
+    return recs
+
+
 def kernel_entry(name, source, replaces, launches, tm, shape,
                  library_ms=None, headers=(), kernels_per_call=None):
-    """One kernel of phase 31's line. `launches` counts wrapper calls on
+    """One kernel of phase 34's line. `launches` counts wrapper calls on
     the main path; `kernels_per_call` is the kernels on the card per
     wrapper call in the path's profiled run (None where not profiled).
     `device_ms` / `cold_ms`: device-only time with K/V warm in L2 / with
@@ -4174,7 +4397,7 @@ def kernel_entry(name, source, replaces, launches, tm, shape,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default=",".join(str(p) for p in range(1, 32)),
+                    default=",".join(str(p) for p in range(1, 35)),
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -4285,13 +4508,22 @@ def main(argv=None):
         enc_launches = phase_encoder()
         mark(30)
     if 31 in phases:
+        phase_hot()
+        mark(31)
+    if 32 in phases:
+        phase_mesh()
+        mark(32)
+    if 33 in phases:
+        phase_dryrun()
+        mark(33)
+    if 34 in phases:
         check(launches and timings and len(decode_timings) == 2
               and len(path_launches) == 2 and {11, 12, 13, 17} <= phases
               and table3_launches and fold_t and fold_launches and spec
               and overload and chaos and asynch and tele and sampling
               and cal and ckpt and served and moe and ssm_walls
               and enc_launches,
-              "phase 31 needs phases 3 and 5 to 30")
+              "phase 34 needs phases 3 and 5 to 30")
         slice_launches = {
             "hccs_packed_prefill": dict(
                 spec=spec["packed"],

@@ -13,10 +13,14 @@ loop; `ContinuousEngine`; the wave `ServeEngine`), the public kernel API
 per-head calibration (`core/calibrate.py` on the `hccs_rows` kernel),
 quantization-aware training with theta frozen (`core/qat.py`, `train/`,
 `optim/`, `data/`), checkpoints in the JAX package's layout
-(`checkpoint/`) and the training launcher (`launch/train.py`). The SSM
-and hybrid families serve on the wave and continuous engines, as in the
-JAX package. Everything else (hot buffers, multi-device) raises
-NotImplementedError naming the ROADMAP.md item that ports it.
+(`checkpoint/`, restored sharded onto a mesh too) and the training
+launcher (`launch/train.py`). The SSM and hybrid families serve on the
+wave and continuous engines, and hot buffers on the wave engine, as in the
+JAX package. The multi-device layer maps logical axes onto a
+`DeviceMesh` (`parallel/`, `launch/mesh.py`) and dry-runs any cell on meta
+DTensors with an H100 roofline (`launch/dryrun.py`, `launch/roofline.py`,
+`launch/inspect_hlo.py`). Every module of the JAX package has its
+counterpart here.
 
 Entry points (`models.model.init_params`, the engines, `train`'s
 `make_train_state`, calibration, `launch/serve.py`, `launch/train.py`) run

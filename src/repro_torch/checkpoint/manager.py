@@ -16,8 +16,9 @@ ml_dtypes. The rng key is a uint32 leaf in both packages.
 
 Writes are atomic (tmp dir + rename) so a preemption mid-save never
 corrupts LATEST, and `save_async` runs serialization off the training
-thread (the leaves are copied to the host before it starts). Placement on
-a new mesh (`shardings`) is not ported yet (ROADMAP.md item A11).
+thread (the leaves are copied to the host before it starts). `restore`
+with `shardings` places each leaf on a mesh as a DTensor: every rank
+slices its own shard out of the array it read, so no collective runs.
 """
 from __future__ import annotations
 
@@ -32,21 +33,27 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.parallel.sharding import NamedSharding, contiguous_strides
+
 BF16_WORDS = np.dtype("V2")
 
 
-def _flatten(tree, prefix: str = "") -> dict:
+def _flatten(tree, prefix: str = "", is_leaf=None) -> dict:
     """Flat {keystr: leaf} of nested dicts and dataclasses, in JAX's
-    order (dict keys sorted, dataclass fields declared)."""
+    order (dict keys sorted, dataclass fields declared); `is_leaf(x)`
+    stops the walk at x."""
+    if is_leaf is not None and is_leaf(tree):
+        return {prefix: tree}
     if isinstance(tree, dict):
         out = {}
         for k in sorted(tree):
-            out.update(_flatten(tree[k], f"{prefix}[{k!r}]"))
+            out.update(_flatten(tree[k], f"{prefix}[{k!r}]", is_leaf))
         return out
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         out = {}
         for f in dataclasses.fields(tree):
-            out.update(_flatten(getattr(tree, f.name), f"{prefix}.{f.name}"))
+            out.update(_flatten(getattr(tree, f.name), f"{prefix}.{f.name}",
+                                is_leaf))
         return out
     return {} if tree is None else {prefix: tree}
 
@@ -85,6 +92,30 @@ def from_numpy(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"checkpoint leaf {tuple(t.shape)} {t.dtype} does "
                          f"not fit {tuple(like.shape)} {like.dtype}")
     return t.to(like.device)
+
+
+def _shard(a: np.ndarray, like, sharding):
+    """This rank's DTensor of array `a` under `sharding` (a NamedSharding):
+    the local shard is sliced out of `a` on the host and moved to the
+    mesh's device type, so no collective runs."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, placements = sharding.mesh, list(sharding.placements)
+    if tuple(a.shape) != tuple(like.shape):
+        raise ValueError(f"checkpoint leaf {tuple(a.shape)} does not fit "
+                         f"{tuple(like.shape)}")
+    shape, offset = compute_local_shape_and_global_offset(
+        a.shape, mesh, placements)
+    local = a[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    dev = mesh.device_type
+    if dev == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    t = from_numpy(np.ascontiguousarray(local),
+                   torch.empty(shape, dtype=like.dtype, device=dev))
+    return DTensor.from_local(t, mesh, placements, run_check=False,
+                              shape=torch.Size(a.shape),
+                              stride=contiguous_strides(a.shape))
 
 
 def config_hash(cfg) -> str:
@@ -165,12 +196,12 @@ class CheckpointManager:
 
     def restore(self, template, step: int | None = None, shardings=None,
                 cfg=None):
-        """Restore into `template`'s structure, each leaf on its template
-        leaf's device with its dtype. Returns (tree, manifest)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring onto a mesh (shardings) is not ported yet: "
-                "ROADMAP.md item A11")
+        """Restore into `template`'s structure, each leaf with its template
+        leaf's dtype. shardings: None (each leaf on its template leaf's
+        device), or a tree of the template's structure whose leaves are
+        `parallel.sharding.NamedSharding`s (a DTensor on that mesh, on the
+        mesh's device type) or None (that leaf as without shardings), for
+        elastic placement on a new mesh. Returns (tree, manifest)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.dir}")
@@ -180,8 +211,13 @@ class CheckpointManager:
         if cfg is not None and manifest.get("config_hash") not in (
                 None, config_hash(cfg)):
             raise ValueError("checkpoint/config mismatch (config_hash differs)")
+        place = ({} if shardings is None else _flatten(
+            shardings, is_leaf=lambda x: isinstance(x, NamedSharding)))
         with np.load(os.path.join(self.dir, name, "arrays.npz")) as data:
             want = _flatten(template)
-            flat = {k: from_numpy(data[k.replace("/", "|")], like)
-                    for k, like in want.items()}
+            flat = {}
+            for k, like in want.items():
+                arr = data[k.replace("/", "|")]
+                flat[k] = (_shard(arr, like, place[k]) if place.get(k)
+                           is not None else from_numpy(arr, like))
         return _unflatten_into(template, flat), manifest

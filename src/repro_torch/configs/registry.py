@@ -1,11 +1,15 @@
-"""Architecture registry: arch id -> ModelConfig, plus the CPU-smoke
-reduction. The JAX registry's dry-run helpers (`input_specs`, `iter_cells`)
-build jax.ShapeDtypeStructs and are not part of the port."""
+"""Architecture registry: arch id -> ModelConfig, the CPU-smoke reduction,
+and the dry-run's inputs: `input_specs` gives meta-device tensors (shapes and
+dtypes, no storage), the port's counterpart of jax.ShapeDtypeStruct, and
+`iter_cells` walks the (arch x shape) grid."""
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.configs.shapes import SHAPES, shape_applicable
 
 _ARCH_MODULES = {
     "granite-3-2b": "granite_3_2b",
@@ -58,3 +62,39 @@ def reduced_config(arch: str) -> ModelConfig:
     if cfg.window:
         kw.update(window=16)
     return cfg.replace(**kw)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Meta-tensor inputs for one (arch x shape) cell.
+
+    train shapes -> the whole train-step batch (tokens or embeddings, and
+    labels); prefill -> the prompt batch; decode -> a one-token batch (the
+    launcher builds the cache from model.init_cache on the meta device)."""
+    b = shape.global_batch
+    t = shape.seq_len if shape.kind != "decode" else 1
+
+    def tok(shape_):
+        return torch.empty(shape_, dtype=torch.int32, device="meta")
+
+    batch: dict = {}
+    if cfg.input_mode == "embeddings":
+        batch["embeddings"] = torch.empty((b, t, cfg.d_model),
+                                          dtype=getattr(torch, cfg.dtype),
+                                          device="meta")
+    else:
+        batch["tokens"] = tok((b, t))
+    if shape.kind == "train":
+        batch["labels"] = tok((b, t))
+    if cfg.rope == "mrope":
+        batch["mrope_positions"] = tok((3, b, t))
+    return batch
+
+
+def iter_cells(include_skipped: bool = False):
+    """Yield (arch, shape, applicable) for the 40-cell grid."""
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            ok = shape_applicable(cfg, shape)
+            if ok or include_skipped:
+                yield arch, shape, ok

@@ -24,8 +24,13 @@ logits (B, H, Tq, Tk), as the JAX package's eager capture does.
 
 Positions rotate by RoPE, or by M-RoPE over (3, B, T) position streams
 (`mrope_positions`; without them every stream is the token position).
-Not ported yet, and refused (NotImplementedError naming the ROADMAP.md
-item): hot buffers and the segment merge (A3).
+
+With cfg.hot_buffer > 0 a slot-arena cache also carries `hot_k` / `hot_v`
+and the layer's `hot_len`: a step of at most 8 tokens appends there and
+attends to the main (prompt) and hot segments, each segment's partial sums
+taken against one shared max and merged (`_merge_segments`; HCCS scores
+are clipped-linear, so the partial sums add exactly). Hot buffers block the
+decode kernel, so this path is always the STE attention.
 
 One departure from the JAX package: the dense path returns the query's
 dtype, as its blockwise path and the kernels do. The JAX dense path returns
@@ -43,6 +48,8 @@ from repro_torch.kernels.decode import (hccs_decode, hccs_packed_prefill,
                                         hccs_paged_decode)
 from repro_torch.kernels.kv_quant import paged_quant_scatter_kv
 from repro_torch.models.layers import apply_mrope, apply_rope
+from repro_torch.parallel.sharding import (constrain, einsum, is_dtensor,
+                                           unflatten)
 
 NEG_INF = -1e30
 
@@ -139,7 +146,7 @@ def kv_store_geometry(cfg, max_len: int) -> tuple[int, int]:
 def _einsum(eq, a, b):
     """einsum under JAX's type promotion (bf16 x f32 runs in f32)."""
     dt = torch.promote_types(a.dtype, b.dtype)
-    return torch.einsum(eq, a.to(dt), b.to(dt))
+    return einsum(eq, a.to(dt), b.to(dt))
 
 
 def _project_out(out, p, b, t):
@@ -149,7 +156,7 @@ def _project_out(out, p, b, t):
         out = out.transpose(1, 2).reshape(b, t, -1)
     wo = p["wo"]
     dt = torch.promote_types(out.dtype, wo.dtype)
-    return out.to(dt) @ wo.to(dt)
+    return constrain(out.to(dt) @ wo.to(dt), "batch", "seq_act", "embed")
 
 
 def _slot_scatter(cache_kv, new_kv, lengths):
@@ -160,9 +167,20 @@ def _slot_scatter(cache_kv, new_kv, lengths):
     b, _, tmax, _ = cache_kv.shape
     t = new_kv.shape[2]
     start = torch.clamp(lengths.to(torch.int64).expand(b), 0, tmax - t)
-    pos = start[:, None] + torch.arange(t, device=cache_kv.device)
-    rows = torch.arange(b, device=cache_kv.device)[:, None]
-    cache_kv[rows, :, pos] = new_kv.transpose(1, 2).to(cache_kv.dtype)
+    if is_dtensor(cache_kv):
+        # a DTensor cache (the dry-run's, a mesh's): DTensor has no
+        # in-place scatter into a sharded sequence dim, so each new row is
+        # selected into place over the whole cache, a read and write of
+        # every local shard and no collective
+        seq = torch.arange(tmax, device=cache_kv.device)[None, None, :, None]
+        upd = new_kv.to(cache_kv.dtype)
+        for j in range(t):
+            hit = seq == (start + j)[:, None, None, None]
+            cache_kv.copy_(torch.where(hit, upd[:, :, j:j + 1], cache_kv))
+    else:
+        pos = start[:, None] + torch.arange(t, device=cache_kv.device)
+        rows = torch.arange(b, device=cache_kv.device)[:, None]
+        cache_kv[rows, :, pos] = new_kv.transpose(1, 2).to(cache_kv.dtype)
     return cache_kv
 
 
@@ -224,7 +242,7 @@ def _dense_attention(q, k, v, valid, cfg, hccs):
     b, h, tq, hd = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     g = h // hkv
-    qg = q.reshape(b, hkv, g, tq, hd)
+    qg = unflatten(q, 1, (hkv, g))
     logits = _einsum("bkgqd,bktd->bkgqt", qg, k).float()
     logits = (logits / _sqrt_hd(hd, q.device)).reshape(b, h, tq, tk)
     if _CAPTURE is not None:
@@ -237,7 +255,7 @@ def _dense_attention(q, k, v, valid, cfg, hccs):
                      mode=cfg.hccs_mode, hard=True, mask=valid)
     else:
         p = torch.softmax(torch.where(valid, logits, NEG_INF), dim=-1)
-    pg = p.reshape(b, hkv, g, tq, tk).to(v.dtype)
+    pg = unflatten(p, 1, (hkv, g)).to(v.dtype)
     out = _einsum("bkgqt,bktd->bkgqd", pg, v)
     return out.reshape(b, h, tq, hd).to(q.dtype)
 
@@ -261,7 +279,7 @@ def _blockwise_attention(q, k, v, q_pos, k_len, cfg, hccs):
     vb = vp.reshape(b, hkv, nblk, bk, hd).movedim(2, 0)
     if k_len is None:
         k_len = torch.full((b,), tk, dtype=torch.int32, device=q.device)
-    qg = q.reshape(b, hkv, g, tq, hd)
+    qg = unflatten(q, 1, (hkv, g))
     sm = true_div(1.0, _sqrt_hd(hd, q.device))
     kpos = torch.arange(bk, device=q.device)
 
@@ -292,7 +310,7 @@ def _blockwise_attention(q, k, v, q_pos, k_len, cfg, hccs):
             delta = torch.minimum(m - qi, D)
             s = torch.where(vmask, B - S * delta, 0.0)
             zsum = zsum + s.sum(-1)
-            sg = s.reshape(b, hkv, g, tq, bk).to(vb.dtype)
+            sg = unflatten(s, 1, (hkv, g)).to(vb.dtype)
             acc = acc + _einsum("bkgqt,bktd->bkgqd", sg, vb[i]).reshape(
                 b, h, tq, hd)
         z = torch.clamp(zsum, min=1.0)[..., None]
@@ -311,7 +329,7 @@ def _blockwise_attention(q, k, v, q_pos, k_len, cfg, hccs):
         corr = torch.exp(m - m_new)
         e = torch.exp(lg - m_new[..., None])
         zsum = zsum * corr + e.sum(-1)
-        eg = e.reshape(b, hkv, g, tq, bk).to(vb.dtype)
+        eg = unflatten(e, 1, (hkv, g)).to(vb.dtype)
         pv = _einsum("bkgqt,bktd->bkgqd", eg, vb[i]).reshape(b, h, tq, hd)
         acc = acc * corr[..., None].to(acc.dtype) + pv
         m = m_new
@@ -373,15 +391,90 @@ def _packed_attention(q, k_pool, v_pool, cache, cfg, hccs, k_scales=None,
     return out[torch.where(sid >= 0, gp, 0)][None]          # (1, T, H*hd)
 
 
+def _merge_segments(parts, cfg, hccs):
+    """Combine per-segment partials computed against a SHARED max.
+
+    parts: list of (s_sum (B,H,Tq), acc (B,H,Tq,hd)): for HCCS sums of
+    clipped-linear scores (linear, so additive), for softmax exp-sums
+    against the shared max. out = sum(acc) / sum(Z), in f32."""
+    zsum = sum(p[0] for p in parts)
+    acc = sum(p[1] for p in parts)
+    floor = 1.0 if (cfg.attention_prob == "hccs" and hccs) else 1e-20
+    return acc.float() / torch.clamp(zsum, min=floor)[..., None]
+
+
+def _segment_logits(q, k):
+    """(B, H, Tq, Tk) f32 logits of q (B,H,Tq,hd) against one segment's
+    k (B,Hkv,Tk,hd), scaled by 1/sqrt(hd)."""
+    b, h, tq, hd = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    qg = unflatten(q, 1, (hkv, h // hkv))
+    logits = _einsum("bkgqd,bktd->bkgqt", qg, k).float()
+    return (logits / _sqrt_hd(hd, q.device)).reshape(b, h, tq, tk)
+
+
+def _segment_partials(q, k, v, valid, m, cfg, hccs):
+    """One segment's (Z_partial, acc_partial) against the shared max m
+    (B,H,Tq,1). HCCS: s = B - S*min(m - qint, D) on valid lanes; softmax:
+    e = exp(logits - m)."""
+    b, h, tq, hd = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    logits = _segment_logits(q, k)
+    if cfg.attention_prob == "hccs" and hccs is not None:
+        scale = hccs["scale"][:, None, None]
+        B = hccs["B"][:, None, None].float()
+        S = hccs["S"][:, None, None].float()
+        D = hccs["D"][:, None, None].float()
+        qi = _ste(torch.clamp(torch.round(logits / scale), -128.0, 127.0),
+                  logits / scale)
+        qi = torch.where(valid, qi, -1e9)
+        s = torch.where(valid, B - S * torch.minimum(m - qi, D), 0.0)
+    else:
+        s = torch.where(valid, torch.exp(logits - m), 0.0)
+    sg = unflatten(s, 1, (hkv, h // hkv)).to(v.dtype)
+    acc = _einsum("bkgqt,bktd->bkgqd", sg, v).reshape(b, h, tq, hd)
+    return s.sum(-1), acc
+
+
+def _segment_max(q, k, valid, cfg, hccs):
+    """Per-row max of the (quantized) logits over one segment; (B,H,Tq)."""
+    logits = _segment_logits(q, k)
+    if cfg.attention_prob == "hccs" and hccs is not None:
+        logits = torch.round(torch.clamp(
+            logits / hccs["scale"][:, None, None], -128.0, 127.0))
+    return torch.where(valid, logits, -1e9).max(-1).values
+
+
+def _hot_attention(q, k, v, positions, cache, cfg, hccs):
+    """The hot-buffer step: append k/v (B,Hkv,t,hd) to the hot buffers at
+    `hot_len`, IN PLACE (the start clamped as JAX's dynamic_update_slice
+    clamps it), then attend to the main segment (the prompt's
+    `length - hot_len` rows) and the hot segment against a shared,
+    stop-gradient max. Returns (out (B,H,t,hd) in q's dtype, new_cache)."""
+    b = q.shape[0]
+    t = k.shape[2]
+    hot_len, length = cache["hot_len"], cache["length"]
+    hk = _slot_scatter(cache["hot_k"], k, hot_len)
+    hv = _slot_scatter(cache["hot_v"], v, hot_len)
+    main_len = length - hot_len                        # the prompt's rows
+    mk, mv = cache["k"], cache["v"]
+    valid_main = _block_valid(cfg, positions,
+                              torch.arange(mk.shape[2], device=q.device),
+                              main_len.to(torch.int32).expand(b))
+    hot_pos = main_len + torch.arange(hk.shape[2], device=q.device)
+    valid_hot = _block_valid(cfg, positions, hot_pos,
+                             (length + t).to(torch.int32).expand(b))
+    m = torch.maximum(_segment_max(q, mk, valid_main, cfg, hccs),
+                      _segment_max(q, hk, valid_hot, cfg, hccs))
+    m = m.detach()[..., None]
+    parts = [_segment_partials(q, mk, mv, valid_main, m, cfg, hccs),
+             _segment_partials(q, hk, hv, valid_hot, m, cfg, hccs)]
+    out = _merge_segments(parts, cfg, hccs).to(q.dtype)
+    return out, {"k": mk, "v": mv, "hot_k": hk, "hot_v": hv}
+
+
 def _theta(hccs):
     return torch.stack([hccs["B"], hccs["S"], hccs["D"]], dim=-1)
-
-
-def _check_cache(cache):
-    if cache is not None and "hot_k" in cache:
-        raise NotImplementedError(
-            "hot buffers and the segment merge are not ported yet: "
-            "ROADMAP.md item A3")
 
 
 def _quant_write(cache, k, v):
@@ -414,17 +507,24 @@ def apply_attention(p, x, cfg, hccs=None, positions=None, cache=None,
     whose scales reset to 0 before the fold; a speculative verify step adds
     `draft_rows` (1, T) bool (rows folded with a clamped scale) and
     `stage_rows` (new_cache then carries the raw rows as f32 `staged_k` /
-    `staged_v` (B, Hkv, T, hd)). New K/V are written into the
+    `staged_v` (B, Hkv, T, hd)). A slot arena with hot buffers (`hot_k`,
+    `hot_v`, `hot_len`) takes steps of at most 8 tokens through
+    _hot_attention; longer steps (the prompt) fill the main arena and
+    leave the hot buffers as they are. New K/V are written into the
     cache IN PLACE before attention reads them; new_cache holds the written
     k/v (and scales). The engine guarantees `write_pos` never targets a
     block with refcount > 1 (copy-on-write runs on the host before the
     step), so shared blocks stay immutable."""
-    _check_cache(cache)
     b, t, d = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, t, h, hd).transpose(1, 2)
-    k = (x @ p["wk"]).reshape(b, t, hkv, hd).transpose(1, 2)
-    v = (x @ p["wv"]).reshape(b, t, hkv, hd).transpose(1, 2)
+    # the flat projections carry the constraint (h*hd divides by the TP
+    # degree even where the head count does not, e.g. hymba's 25 heads)
+    qf = constrain(x @ p["wq"], "batch", "attn_seq", "model")
+    kf = constrain(x @ p["wk"], "batch", "attn_seq", "kv_model")
+    vf = constrain(x @ p["wv"], "batch", "attn_seq", "kv_model")
+    q = unflatten(qf, -1, (h, hd)).transpose(1, 2)
+    k = unflatten(kf, -1, (hkv, hd)).transpose(1, 2)
+    v = unflatten(vf, -1, (hkv, hd)).transpose(1, 2)
     if positions is None:
         base = (cache["length"] if cache is not None
                 else torch.zeros((), dtype=torch.int32, device=x.device))
@@ -441,6 +541,10 @@ def apply_attention(p, x, cfg, hccs=None, positions=None, cache=None,
             p3 = positions[None].expand((3,) + tuple(positions.shape))
         q = apply_mrope(q, p3, cfg.rope_theta, cfg.mrope_sections)
         k = apply_mrope(k, p3, cfg.rope_theta, cfg.mrope_sections)
+
+    if cache is not None and "hot_k" in cache and t <= 8:
+        out, new_cache = _hot_attention(q, k, v, positions, cache, cfg, hccs)
+        return _project_out(out, p, b, t), new_cache
 
     new_cache = None
     k_len = None
@@ -505,6 +609,10 @@ def apply_attention(p, x, cfg, hccs=None, positions=None, cache=None,
                      (cfg.attention_impl == "auto" and t > 1 and
                       tk >= cfg.blockwise_threshold))
     if use_blockwise:
+        # one gather point: both HCCS passes read the same seq-replicated
+        # K/V
+        k = constrain(k, "batch", "kv_model", None, None)
+        v = constrain(v, "batch", "kv_model", None, None)
         out = _blockwise_attention(q, k, v, positions, k_len, cfg, hccs)
     else:
         valid = _block_valid(cfg, positions,

@@ -20,6 +20,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import DTYPES, apply_mlp, apply_norm
+from repro_torch.parallel.sharding import constrain
 
 ATTN_FAMILIES = ("dense", "moe", "audio", "vlm", "encoder", "hybrid")
 # the families whose per-layer cache holds K/V (an encoder has no cache)
@@ -67,8 +68,10 @@ def init_block(gen, cfg, dtype, device, layers: int):
 def init_layer_cache(cfg, batch, max_len, cache_dtype=None, device=None):
     """Zero cache for ONE layer: slot-arena K/V (batch, Hkv, len_c,
     head_dim), len_c from attention.kv_store_geometry, for the attention
-    families; the f32 SSD state (batch, nh, N, P) for ssm and hybrid.
-    cache_dtype=None resolves to cfg.cache_dtype."""
+    families, and with cfg.hot_buffer > 0 the hot buffers `hot_k` /
+    `hot_v` (batch, Hkv, hot_buffer, head_dim); the f32 SSD state
+    (batch, nh, N, P) for ssm and hybrid. cache_dtype=None resolves to
+    cfg.cache_dtype."""
     c = {}
     if cfg.family in KV_FAMILIES:
         dt = DTYPES[cache_dtype or cfg.cache_dtype]
@@ -76,6 +79,12 @@ def init_layer_cache(cfg, batch, max_len, cache_dtype=None, device=None):
         shape = (batch, cfg.num_kv_heads, len_c, hd_c)
         c["k"] = torch.zeros(shape, dtype=dt, device=device)
         c["v"] = torch.zeros(shape, dtype=dt, device=device)
+        if cfg.hot_buffer > 0:
+            # the decode hot buffer; it blocks the decode kernel, so hd_c
+            # is head_dim here
+            hot = (batch, cfg.num_kv_heads, cfg.hot_buffer, hd_c)
+            c["hot_k"] = torch.zeros(hot, dtype=dt, device=device)
+            c["hot_v"] = torch.zeros(hot, dtype=dt, device=device)
     if cfg.family in ("ssm", "hybrid"):
         c["ssm"] = torch.zeros((batch, cfg.ssm_heads, cfg.ssm_state,
                                 cfg.ssm_head_dim), dtype=torch.float32,
@@ -130,4 +139,6 @@ def apply_block(p, x, cfg, hccs=None, cache=None, length=None,
         x = x + y
     elif "mlp" in p:
         x = x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg)
-    return x, new_cache, aux
+    # sequence parallelism on the residual stream between blocks ("seq_act"
+    # maps to None unless the dry-run enables it)
+    return constrain(x, "batch", "seq_act", None), new_cache, aux

@@ -9,6 +9,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import constrain
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
@@ -65,7 +67,8 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     # per-frequency-slot section id -> which positional stream drives it
     sec_id = torch.repeat_interleave(
         torch.arange(len(sections), device=x.device),
-        torch.tensor(sections, device=x.device))               # (half,)
+        torch.tensor(sections, device=x.device),
+        output_size=half)                                      # (half,)
     pos_sel = positions3.float()[sec_id]                       # (half, B, T)
     ang = pos_sel.movedim(0, -1) * freq                        # (B, T, half)
     cos = torch.cos(ang)[:, None]
@@ -78,7 +81,7 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
 def apply_mlp(p, x, cfg):
     """The four MLP activations; GELU is the tanh form, as jax.nn.gelu's
     default."""
-    h = x @ p["w_in"]
+    h = constrain(x @ p["w_in"], "batch", "attn_seq", "ffn")
     if cfg.activation == "swiglu":
         h = F.silu(x @ p["w_gate"]) * h
     elif cfg.activation == "geglu":
@@ -89,18 +92,18 @@ def apply_mlp(p, x, cfg):
         h = torch.square(F.relu(h))
     else:
         raise ValueError(cfg.activation)
-    return h @ p["w_out"]
+    return constrain(h @ p["w_out"], "batch", "seq_act", "embed")
 
 
 def embed_tokens(p, tokens, cfg):
-    return p["table"][tokens.long()]
+    return constrain(p["table"][tokens.long()], "batch", "seq_act", "embed")
 
 
 def lm_logits(embed_p, head_p, x, cfg):
     """Logits over the padded vocab; pad lanes masked to -1e30 (Megatron-
     style padded vocab; semantics unchanged)."""
     w = embed_p["table"].t() if cfg.tie_embeddings else head_p["lm_head"]
-    logits = x @ w.to(x.dtype)
+    logits = constrain(x @ w.to(x.dtype), "batch", "attn_seq", "vocab")
     if cfg.padded_vocab != cfg.vocab_size:
         lane = torch.arange(logits.shape[-1], device=logits.device)
         logits = torch.where(lane < cfg.vocab_size, logits,

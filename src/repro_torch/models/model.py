@@ -30,6 +30,7 @@ from repro_torch.models import blocks
 from repro_torch.models.attention import init_hccs_head_params
 from repro_torch.models.layers import (DTYPES, apply_norm, embed_tokens,
                                       lm_logits)
+from repro_torch.parallel.sharding import constrain
 
 # per-step keys the paged engine attaches to the cache; forward hands them
 # to every layer (one table, per-layer pools): the packed step's slot ids,
@@ -199,6 +200,7 @@ def forward(weights, hccs, batch, cfg, cache=None, decode: bool = False):
     if cfg.rope == "learned":
         x = x + weights["pos_embed"][positions.long()]
     mrope_positions = batch.get("mrope_positions")
+    x = constrain(x, "batch", "seq_act", "embed")
     hccs = {k: v.detach() for k, v in hccs.items()}   # theta frozen (QAT)
     aux = 0.0                   # a tensor once a MoE block adds its loss
     if cache is None:
@@ -211,6 +213,12 @@ def forward(weights, hccs, batch, cfg, cache=None, decode: bool = False):
         x = apply_norm(weights["final_norm"], x, cfg)
         return x, None, _aux_tensor(aux, x.device)
     extras = {k: cache[k] for k in PAGED_EXTRAS if k in cache}
+    if cfg.hot_buffer > 0:
+        # hot-buffer decode: tokens past prompt_len live in the hot buffer;
+        # every layer needs the split point
+        extras["hot_len"] = length - cache.get(
+            "prompt_len", torch.zeros((), dtype=torch.int32,
+                                      device=x.device))
     staged = {"staged_k": [], "staged_v": []}
     for i in range(cfg.num_layers):
         lc = {name: leaf[i] for name, leaf in cache["layers"].items()}
@@ -232,6 +240,8 @@ def forward(weights, hccs, batch, cfg, cache=None, decode: bool = False):
             name: torch.stack(rows) for name, rows in staged.items()})
     if length is not None:
         new_cache["length"] = length + t
+    if "prompt_len" in cache:
+        new_cache["prompt_len"] = cache["prompt_len"]
     return x, new_cache, _aux_tensor(aux, x.device)
 
 
@@ -282,11 +292,15 @@ def init_cache(cfg, batch_size: int, max_len: int, cache_dtype=None,
     "ssm"?: (L, B, nh, N, P) f32}, "length"} (K/V for the attention
     families, the SSD state for ssm and hybrid). per_slot_lengths=True
     makes `length` a (batch,) vector (the continuous engine's per-slot
-    frontiers). cache_dtype=None resolves to cfg.cache_dtype. The device
+    frontiers). With cfg.hot_buffer > 0 the layers also hold the hot
+    buffers and the cache a scalar `prompt_len` (0 until prefill sets it);
+    hot buffers track one prompt length, so per-slot lengths raise
+    ValueError. cache_dtype=None resolves to cfg.cache_dtype. The device
     defaults to CUDA and raises without a card."""
-    if cfg.hot_buffer > 0:
-        raise NotImplementedError(
-            "hot buffers are not ported yet: ROADMAP.md item A3")
+    if cfg.hot_buffer > 0 and per_slot_lengths:
+        raise ValueError("hot buffers are lockstep-only: they track a "
+                         "single scalar prompt_len, incompatible with "
+                         "per-slot lengths")
     device = resolve_device(device)
     one = blocks.init_layer_cache(cfg, batch_size, max_len, cache_dtype,
                                   device)
@@ -294,18 +308,26 @@ def init_cache(cfg, batch_size: int, max_len: int, cache_dtype=None,
                              dtype=v.dtype, device=device)
               for k, v in one.items()}
     shape = (batch_size,) if per_slot_lengths else ()
-    return {"layers": layers,
-            "length": torch.zeros(shape, dtype=torch.int32, device=device)}
+    c = {"layers": layers,
+         "length": torch.zeros(shape, dtype=torch.int32, device=device)}
+    if cfg.hot_buffer > 0:
+        c["prompt_len"] = torch.zeros((), dtype=torch.int32, device=device)
+    return c
 
 
-def prefill(weights, hccs, batch, cfg, max_len: int, cache_dtype=None):
+def prefill(weights, hccs, batch, cfg, max_len: int, cache_dtype=None,
+            cache=None):
     """Run the prompt (batch["tokens"] (B, T), or "embeddings" (B, T, D))
-    through the model into a fresh cache on the inputs' device. Returns
-    (last-token logits (B, V), cache)."""
+    through the model into a fresh cache on the inputs' device (or into
+    `cache`, a zero cache of init_cache's layout the caller made, as the
+    dry-run's DTensors are). Returns (last-token logits (B, V), cache)."""
     inp = batch["tokens"] if "tokens" in batch else batch["embeddings"]
     b, t = inp.shape[:2]
-    cache = init_cache(cfg, b, max_len, cache_dtype, device=inp.device)
+    if cache is None:
+        cache = init_cache(cfg, b, max_len, cache_dtype, device=inp.device)
     x, cache, _ = forward(weights, hccs, batch, cfg, cache)
+    if cfg.hot_buffer > 0:
+        cache = dict(cache, prompt_len=cache["length"])
     logits = logits_from_hidden(weights, x[:, -1:], cfg)
     return logits[:, 0], cache
 

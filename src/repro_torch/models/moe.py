@@ -13,9 +13,9 @@ aux loss is returned beside the output.
 Ties follow the JAX package: `jax.lax.top_k` puts the lower expert index
 first among equal probabilities (the rule here is a stable descending
 sort), which matters under `cfg.hccs_router`, where the router's
-probabilities are HCCS on int8-quantized logits and tie often. The JAX
-module's sharding annotations (`constrain`) are no-ops on one device and
-have no counterpart here.
+probabilities are HCCS on int8-quantized logits and tie often. The
+sharding annotations (`constrain`) stand where the JAX module's do; they
+return their argument outside `use_rules` or on a plain tensor.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.constraints import default_params
 from repro_torch.core.hccs import HCCSParams, hccs_qat
+from repro_torch.parallel.sharding import constrain
 
 
 def init_moe(gen, cfg, dtype, device, layers: int):
@@ -89,7 +90,7 @@ def route(p, x, cfg):
     G = _num_groups(cfg, n_tok)
     M = n_tok // G
     cap = max(int(M * k / e * cfg.moe_capacity_factor), 1)
-    xg = x.reshape(G, M, d)
+    xg = constrain(x.reshape(G, M, d), "moe_group", None, "moe_embed")
     logits = xg.float() @ p["router"]                             # (G, M, E)
     probs = _router_probs(p, logits, cfg)
     gate, idx = top_k(probs, k)                                   # (G, M, K)
@@ -106,7 +107,7 @@ def route(p, x, cfg):
     flat = idx.reshape(G, mk)                                     # (G, M*K)
     order = torch.argsort(flat, dim=1, stable=True)
     sorted_e = torch.gather(flat, 1, order)
-    counts = torch.zeros((G, e), dtype=torch.int64, device=x.device)
+    counts = torch.zeros_like(probs[:, 0], dtype=torch.int64)      # (G, E)
     counts.scatter_add_(1, flat, torch.ones_like(flat))
     starts = torch.cumsum(counts, dim=1) - counts                 # (G, E)
     ar = torch.arange(mk, device=x.device)
@@ -139,17 +140,20 @@ def apply_moe(p, x, cfg):
     buf = torch.gather(xg, 1, tok[..., None].expand(G, e * cap, d))
     buf = torch.where(slot_valid.reshape(G, e * cap, 1), buf,
                       torch.zeros((), dtype=buf.dtype, device=x.device))
-    buf = buf.reshape(G, e, cap, d)
+    buf = constrain(buf.reshape(G, e, cap, d), "moe_group", "expert", None,
+                    None)
 
     w = p["experts"]
     h = torch.einsum("gecd,edf->gecf", buf, w["w_in"])
     gt = torch.einsum("gecd,edf->gecf", buf, w["w_gate"])
-    h = F.silu(gt) * h
-    y = torch.einsum("gecf,efd->gecd", h, w["w_out"])
+    h = constrain(F.silu(gt) * h, "moe_group", "expert", None, None)
+    y = constrain(torch.einsum("gecf,efd->gecd", h, w["w_out"]),
+                  "moe_group", "expert", None, None)
 
     # combine: entry (m, kk) reads its expert slot back — one gather
     slot_flat = r["flat"] * cap + r["slot"]                       # (G, M*K)
-    y_flat = y.reshape(G, e * cap, d)
+    y_flat = constrain(y.reshape(G, e * cap, d), "moe_group", None,
+                       "moe_embed")
     out_flat = torch.gather(y_flat, 1,
                             slot_flat[..., None].expand(G, mk, d))
     out_flat = torch.where(r["keep"][..., None], out_flat,
@@ -157,4 +161,5 @@ def apply_moe(p, x, cfg):
                                        device=x.device))
     out = (out_flat.reshape(G, M, k, d) *
            r["gate"][..., None].to(x.dtype)).sum(dim=2)
-    return out.reshape(b, t, d), r["aux"]
+    return constrain(out.reshape(b, t, d), "batch", "seq_act",
+                     "embed"), r["aux"]

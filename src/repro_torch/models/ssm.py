@@ -15,6 +15,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import constrain
+
 
 def init_ssm(gen, cfg, dtype, device, layers: int):
     """(L, ...) stacked SSD params, drawn like the JAX init: in_proj emits
@@ -44,7 +46,7 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 def _split_proj(p, x, cfg):
     di, g, n, nh = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
-    zxbcdt = x @ p["in_proj"]
+    zxbcdt = constrain(x @ p["in_proj"], "batch", "attn_seq", "model")
     z, xi, Bm, Cm, dt = torch.split(zxbcdt, [di, di, g * n, g * n, nh],
                                     dim=-1)
     return z, xi, Bm, Cm, dt
@@ -80,11 +82,16 @@ def apply_ssd(p, x, cfg, state=None):
     dtp = F.pad(dt, (0, 0, 0, pad))
     ap = F.pad(a, (0, 0, 0, pad))
 
-    xc = xp.reshape(b, nc, L, nh, hp)
-    Bc = Bp.reshape(b, nc, L, g, n)
-    Cc = Cp.reshape(b, nc, L, g, n)
-    dtc = dtp.reshape(b, nc, L, nh)
-    ac = ap.reshape(b, nc, L, nh)
+    # chunk views (b, nc, L, ...): chunks shard over the TP axis
+    xc = constrain(xp.reshape(b, nc, L, nh, hp), "batch", "ssd_chunk", None,
+                   None, None)
+    Bc = constrain(Bp.reshape(b, nc, L, g, n), "batch", "ssd_chunk", None,
+                   None, None)
+    Cc = constrain(Cp.reshape(b, nc, L, g, n), "batch", "ssd_chunk", None,
+                   None, None)
+    dtc = constrain(dtp.reshape(b, nc, L, nh), "batch", "ssd_chunk", None,
+                    None)
+    ac = constrain(ap.reshape(b, nc, L, nh), "batch", "ssd_chunk", None, None)
 
     cum = torch.cumsum(ac, dim=2)  # (b,nc,L,nh)
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (b,nc,Lq,Lk,nh)
@@ -125,11 +132,13 @@ def apply_ssd(p, x, cfg, state=None):
     y_inter = torch.einsum("bclgn,bclgr,bcgrnp->bclgrp", Cc,
                            decay_from_start, hg).reshape(b, nc, L, nh, hp)
 
-    y = (y_intra + y_inter).reshape(b, nc * L, nh, hp)[:, :t]
+    y_sum = constrain(y_intra + y_inter, "batch", "ssd_chunk", None, None,
+                      None)
+    y = y_sum.reshape(b, nc * L, nh, hp)[:, :t]
     y = y + p["D"][None, None, :, None] * xh
     y = y.reshape(b, t, cfg.d_inner).to(x.dtype)
     y = _gated_norm(p, y, z, cfg)
-    return y @ p["out_proj"], h
+    return constrain(y @ p["out_proj"], "batch", "seq_act", "embed"), h
 
 
 def apply_ssd_step(p, x, cfg, state):
@@ -153,4 +162,4 @@ def apply_ssd_step(p, x, cfg, state):
     y = y + p["D"][None, :, None] * xh
     y = y.reshape(b, 1, cfg.d_inner).to(x.dtype)
     y = _gated_norm(p, y, z, cfg)
-    return y @ p["out_proj"], new_state
+    return constrain(y @ p["out_proj"], "batch", None, "embed"), new_state

@@ -60,10 +60,11 @@ class Request:
 
 def kv_cache_bytes(cache) -> int:
     """Allocated KV bytes of an engine cache (the slot arena or the paged
-    block pool): k/v payload plus the int8 pools' per-block scales."""
+    block pool): k/v payload, the hot buffers, and the int8 pools'
+    per-block scales."""
     return sum(leaf.numel() * leaf.element_size()
                for name, leaf in cache["layers"].items()
-               if name in ("k", "v", "k_scale", "v_scale"))
+               if name in ("k", "v", "hot_k", "hot_v", "k_scale", "v_scale"))
 
 
 def kv_cache_byte_stats(cache, cfg, max_len: int | None = None) -> dict:
@@ -72,7 +73,8 @@ def kv_cache_byte_stats(cache, cfg, max_len: int | None = None) -> dict:
     padding), so the two differ only where a slot arena's rows were rounded
     up (kv_store_geometry) and `max_len` is given: `logical` counts the
     first max_len rows. Paged pools pass None. int8 pools count one byte a
-    value, and their (L, N, Hkv) f32 scales in full on both sides."""
+    value, and their (L, N, Hkv) f32 scales in full on both sides; hot
+    buffers count in full on both sides."""
     padded = kv_cache_bytes(cache)
     logical = padded
     if max_len is not None:

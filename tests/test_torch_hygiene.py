@@ -78,12 +78,9 @@ def test_every_port_module_imports_without_jax():
 
 
 # The JAX package's modules with no counterpart at the same path in the
-# port: the port's progress meter (ROADMAP.md item A1). The list shrinks as
-# slices land; a module ported or added on either side must update it.
-UNPORTED = [
-    "configs/shapes.py", "launch/dryrun.py", "launch/inspect_hlo.py",
-    "launch/mesh.py", "launch/roofline.py", "parallel/__init__.py",
-    "parallel/sharding.py"]
+# port: the port's progress meter. Every module has one now; a module
+# added on either side must update it.
+UNPORTED = []
 
 
 def test_unported_modules_are_the_recorded_list():
@@ -305,10 +302,64 @@ def test_unported_request_and_launcher_options_raise():
         port_serve.main(["--arch", "granite-3-2b", "--reduced", "--device",
                          "cpu", "--scheduler", "wave", "--step-layout",
                          "lockstep"])
-    # every family of the registry builds; hot buffers remain refused
+    # every family of the registry builds; the forward takes hot buffers
+    # (lockstep only, as in JAX), the continuous and paged engines refuse
+    # them as the JAX engines do
     M.init_params(port_registry.reduced_config("mamba2-1.3b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
-        M.init_cache(cfg.replace(hot_buffer=8), 2, 32, device="cpu")
+    hot_cfg = cfg.replace(hot_buffer=8)
+    cache = M.init_cache(hot_cfg, 2, 32, device="cpu")
+    assert cache["layers"]["hot_k"].shape[-2] == 8
+    with pytest.raises(ValueError, match="lockstep-only"):
+        M.init_cache(hot_cfg, 2, 32, per_slot_lengths=True, device="cpu")
+    params = M.init_params(hot_cfg, device="cpu")
+    for engine, match in ((ContinuousEngine, "slot arena, not hot buffers"),
+                          (PagedEngine, "block pool, not hot buffers")):
+        with pytest.raises(ValueError, match=match):
+            engine(params, hot_cfg, device="cpu", max_len=64)
+
+
+def test_constrain_adds_no_operation_outside_a_mesh(monkeypatch):
+    """constrain returns its argument object outside use_rules (and on a
+    plain tensor under them), and a reduced dense forward runs the same
+    aten ops with the model's constrain calls as with every call site
+    replaced by a bare identity."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models import attention, blocks, layers, moe, ssm
+    from repro_torch.parallel import sharding as SH
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    x = torch.zeros(2, 3)
+    assert SH.constrain(x, "batch", "model") is x
+
+    class FakeMesh:
+        mesh_dim_names = ("data", "model")
+    with SH.use_rules(FakeMesh()):
+        assert SH.spec("batch", "model") == ("data", "model")
+        assert SH.constrain(x, "batch", "model") is x
+
+    cfg = _cfg()
+    params = M.init_params(cfg, device="cpu")
+    toks = torch.arange(24, dtype=torch.int32).reshape(2, 12) % 50
+
+    def run():
+        with torch.no_grad(), Ops() as ops:
+            M.forward(params["weights"], params["hccs"], {"tokens": toks},
+                      cfg)
+        return ops.ops
+
+    with_calls = run()
+    for mod in (attention, blocks, layers, M, moe, ssm):
+        monkeypatch.setattr(mod, "constrain", lambda t, *a: t)
+    assert run() == with_calls and len(with_calls) > 50
 
 
 @pytest.mark.parametrize("key", ["stage_rows", "draft_rows"])

@@ -122,13 +122,33 @@ class TestCheckpoint:
                                           np.arange(8.0))
 
     def test_elastic_restore_new_sharding_is_refused(self):
-        """Placement on a mesh is not ported (ROADMAP.md item A11)."""
+        """The twin of test_elastic_restore_new_sharding. The name is kept
+        from the slices that refused placement on a mesh; the restore now
+        takes explicit shardings: on a (1, 1) mesh over a fake process
+        group, "w" sharded over data restores as a DTensor equal to the
+        saved array, and a None sharding (or none) as the plain tensor."""
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+
+        from repro_torch.parallel.sharding import NamedSharding
         tree = {"w": torch.arange(16.0).reshape(4, 4)}
         with tempfile.TemporaryDirectory() as d:
             mgr = CheckpointManager(d)
             mgr.save(1, tree)
-            with pytest.raises(NotImplementedError, match="A11"):
-                mgr.restore(tree, shardings={"w": None})
+            dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                    world_size=1)
+            try:
+                mesh = DeviceMesh("cpu", torch.zeros((1, 1), dtype=int),
+                                  mesh_dim_names=("data", "model"))
+                sh = {"w": NamedSharding.from_spec(mesh, ("data", None))}
+                restored, _ = mgr.restore(tree, shardings=sh)
+                np.testing.assert_array_equal(
+                    restored["w"].full_tensor().numpy(), tree["w"].numpy())
+                plain, _ = mgr.restore(tree, shardings={"w": None})
+            finally:
+                dist.destroy_process_group()
+            assert type(plain["w"]) is torch.Tensor
             restored, _ = mgr.restore(tree)
             np.testing.assert_array_equal(restored["w"].numpy(),
                                           tree["w"].numpy())
