@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases 1,2,24,25,26,27       # calibrate, train
     python3 chip_smoke.py --phases 1,2,28,29,30          # MoE, SSM, encoder
     python3 chip_smoke.py --phases 1,31,32,33   # hot buffer, mesh, dry-run
+    python3 chip_smoke.py --phases 1,2,34       # the four examples
 
 Builds the CUDA kernels from the sources in this checkout, holds every
 kernel against its plain PyTorch version on the card, drives the port's
@@ -173,7 +174,20 @@ Phases, in order:
                 mesh over a fake process group, on the host, without and
                 with a 32-row hot buffer: roofline terms beside the card's
                 name and power limit
- 34 report      one JSON line per the kernel table
+ 34 examples    the four examples (examples/torch_*.py) through their
+                own main() at the JAX scripts' defaults: the calibration
+                study (hccs_rows counted) against the same study through
+                the plain versions on the host; quickstart (hccs_rows
+                counted, its accuracy triple); train_lm at its defaults,
+                then stopped at 100 and resumed to 150 (the resume logged,
+                the loss below the run's start); serving (no decode
+                kernel: the STE path; the wave and continuous engines'
+                greedy tokens held to the paged engine's by the near-tie
+                rule; tokens/s); then quickstart's stages on bert-small
+                at full size (ClsTask at vocab 30522 and seq 128, 80
+                float and 40 QAT steps at batch 32): Table I's baseline /
+                no-retrain / retrained
+ 35 report      one JSON line per the kernel table
 
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero before it. `--phases` runs a subset (for bring-up).
@@ -185,6 +199,7 @@ import bisect
 import collections
 import contextlib
 import dataclasses
+import importlib.util
 import json
 import os
 import shutil
@@ -3903,7 +3918,7 @@ SSM_SCAN_T = 64                 # tokens of the chunked-vs-recurrent check
 # layers to logit differences of order 1 (on the card: mamba2 2.29 at the
 # decode row, 54 of 64 served tokens not the forward's argmax; hymba
 # 1.17). The JAX package grows such a difference alike with depth
-# (tests/test_torch_families_serve.py, the bf16 tests), so bf16 is served
+# (tests/test_torch_families_bf16.py), so bf16 is served
 # here for identity run to run only.
 # Gates, set from the first f32 run on an H100 80GB HBM3 at 700 W (PERF.md
 # section 6), about 4x the largest measurement: prefill + decode
@@ -4375,9 +4390,220 @@ def phase_dryrun():
     return recs
 
 
+# ---------------------------------------------------------------- phase 34 --
+
+EXAMPLES = ("calibration_study", "quickstart", "train_lm", "serving")
+BERT_SEQ, BERT_BATCH = 128, 32  # quickstart on bert-small: ClsTask shapes
+TRAIN_LM_RUNS = (100, 150)      # train_lm: stopped at 100, resumed to 150
+
+
+def load_example(name: str):
+    """examples/torch_<name>.py as a module (its main() runs nothing until
+    called)."""
+    path = ROOT / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_theta(label, theta, n):
+    B, S, D = (t.cpu().numpy() for t in theta.astuple())
+    try:
+        validate_params(B, S, D, n)
+    except (AssertionError, ValueError) as e:
+        raise PhaseFailed(f"{label}: infeasible theta: {e}") from e
+
+
+def study_against_cpu(ex, card):
+    """The study's theta at each granularity on the card against the same
+    study through the plain versions on the host: equal, or the card's
+    theta within CAL_KL_TIE of the CPU's KL on the same rows (a tie)."""
+    rows, scales, _ = ex.make_rows()
+    L, H, R, n = rows.shape
+    t0 = time.perf_counter()
+    cpu = ex.study(rows, scales, device="cpu", log=lambda *a: None)
+    groups = {"global": lambda l, h: (rows.reshape(-1, n),
+                                      float(scales.mean())),
+              "per_layer": lambda l, h: (rows[l].reshape(-1, n),
+                                         float(scales[l].mean())),
+              "per_head": lambda l, h: (rows[l, h], float(scales[l, h]))}
+    ties = 0
+    for gran, (theta, kl) in card.items():
+        check_theta(f"study {gran}", theta, n)
+        ctheta, ckl = cpu[gran]
+        for l in range(L):
+            for h in range(H):
+                mine = tuple(int(t[l, h]) for t in theta.astuple())
+                ref = tuple(int(t[l, h]) for t in ctheta.astuple())
+                if mine == ref:
+                    continue
+                xr, sc = groups[gran](l, h)
+                xq, pref = head_inputs(xr, sc, "cpu")
+                kl_mine = float(kl_for_grid(xq, pref, torch.tensor(
+                    [mine], dtype=torch.int32), CAL_MODE)[0])
+                rel = abs(kl_mine - ckl[l, h]) / ckl[l, h]
+                log(f"[examples]   study {gran} ({l}, {h}): card {mine}, "
+                    f"CPU {ref}; the card's theta on the CPU: KL "
+                    f"{kl_mine:.6f} against {ckl[l, h]:.6f} (rel. "
+                    f"{rel:.2e})")
+                check(rel <= CAL_KL_TIE, f"study {gran} ({l}, {h}): card "
+                      f"theta {mine} != CPU {ref}, no tie")
+                ties += 1
+        log(f"[examples] study {gran}: mean KL card {kl.mean():.6f}, CPU "
+            f"{ckl.mean():.6f}; per-head KL "
+            + ", ".join(f"{v:.4f}" for v in kl.ravel()))
+    log(f"[examples] study against the CPU in "
+        f"{time.perf_counter() - t0:.3f}s: {ties} near ties, every other "
+        f"theta equal")
+
+
+def phase_examples():
+    """Phase 34: the four examples, each through its own functions and, at
+    the JAX scripts' defaults, its main() on the card. The calibration
+    study (hccs_rows counted) against the same study through the plain
+    versions on the host; quickstart (hccs_rows counted); train_lm at its
+    defaults (150 steps, int8 compression; the script's loss-decrease
+    assertion), then --steps 100 into a directory under build/ and the
+    script's train stage to 150 from there, which must resume at step 100
+    with the loss below that run's step 0 (the script's own assertion
+    would compare steps 100 and 149 alone, where the loss sits at log V
+    and rises in both packages: PERF.md section 6);
+    serving (no decode kernel: the STE path, as in the JAX script), the
+    three engines' greedy tokens held to the paged engine's by the
+    near-tie rule; then quickstart's stages on bert-small at full size
+    (ClsTask at vocab 30522 and seq 128, 80 float steps and 40 QAT steps
+    at batch 32): Table I's accuracy triple. Returns the hccs_rows launches
+    and what was measured."""
+    ex = {name: load_example(name) for name in EXAMPLES}
+    out, launches, walls = {}, {}, {}
+
+    hccs_rows.launches = 0
+    t0 = time.perf_counter()
+    card_study = ex["calibration_study"].main([])
+    torch.cuda.synchronize()
+    walls["calibration_study"] = time.perf_counter() - t0
+    launches["calibration_study"] = hccs_rows.launches
+    check(launches["calibration_study"] > 0,
+          "study: hccs_rows never launched")
+    study_against_cpu(ex["calibration_study"], card_study)
+
+    hccs_rows.launches = 0
+    t0 = time.perf_counter()
+    qs = ex["quickstart"].main([])
+    torch.cuda.synchronize()
+    walls["quickstart"] = time.perf_counter() - t0
+    launches["quickstart"] = hccs_rows.launches
+    check(launches["quickstart"] > 0, "quickstart: hccs_rows never launched")
+    check(all(np.isfinite(qs["float_losses"] + qs["qat_losses"])),
+          "quickstart: a loss is not finite")
+    check_theta("quickstart", qs["theta"], ex["quickstart"].SEQ)
+    out["quickstart"] = {k: qs[k] for k in ("acc_base", "acc_nr",
+                                            "acc_qat")}
+
+    ckdir = ROOT / "build" / "smoke_train_lm"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    tl = ex["train_lm"]
+    first, second = TRAIN_LM_RUNS
+    lines = []
+
+    def keep(line):
+        lines.append(line)
+        log(line)
+    t0 = time.perf_counter()
+    try:
+        _, full = tl.main(["--steps", str(second), "--ckpt-dir",
+                           str(ckdir / "defaults")])
+        _, head = tl.main(["--steps", str(first), "--ckpt-dir",
+                           str(ckdir / "resumed")])
+        cfg, batch, seq = tl.model_config(False)
+        _, tail = tl.train(cfg, tl.train_config(second, "int8"), batch, seq,
+                           ckpt_dir=str(ckdir / "resumed"), device="cuda",
+                           log_fn=keep)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.synchronize()
+    walls["train_lm"] = time.perf_counter() - t0
+    check(any(line.startswith(f"[resume] restored step {first}")
+              for line in lines),
+          f"train_lm: the second run did not resume at step {first}")
+    check([h["step"] for h in full] == list(range(second)) and
+          [h["step"] for h in head + tail] == list(range(second)),
+          "train_lm: the runs' steps")
+    losses = [h["loss"] for h in full + head + tail]
+    check(all(np.isfinite(losses)), "train_lm: a loss is not finite")
+    joined = [h["loss"] for h in head + tail]
+    check(joined[-1] < joined[0], "train_lm: the resumed run's loss did "
+          "not fall from its step 0")
+    out["train_lm"] = dict(full=(full[0]["loss"], full[-1]["loss"]),
+                           resumed=(joined[0], tail[0]["loss"], joined[-1]))
+    log(f"[examples] train_lm at its defaults ({second} steps, int8): loss "
+        f"{full[0]['loss']:.4f} -> {full[-1]['loss']:.4f}; {first} steps, "
+        f"then resumed at step {first} to {second}: {joined[0]:.4f} -> "
+        f"{tail[0]['loss']:.4f} at the resume -> {joined[-1]:.4f}; "
+        f"{walls['train_lm']:.3f}s")
+
+    decode = (hccs_packed_prefill, hccs_paged_decode, hccs_decode)
+    for k in decode:
+        k.launches = 0
+    t0 = time.perf_counter()
+    sv = ex["serving"].main([])
+    torch.cuda.synchronize()
+    walls["serving"] = time.perf_counter() - t0
+    check(all(k.launches == 0 for k in decode),
+          "serving: a decode kernel launched on the STE path")
+    check(all(np.isfinite(h["loss"]) for h in sv["history"]),
+          "serving: a pre-train loss is not finite")
+    greedy = {name: {r.uid: list(r.out_tokens) for r in done
+                     if r.temperature == 0.0}
+              for name, (done, _, _) in sv["served"].items()}
+    prompts = {r.uid: r.prompt for r in sv["served"]["paged"][0]}
+    params, scfg = sv["state"]["params"], ex["serving"].cfg
+    for name in ("wave", "continuous"):
+        divergence(f"examples serving {name}", greedy[name],
+                   greedy["paged"], prompts, prompts, params, scfg)
+    out["serving"] = {name: tokens / dt for name, (_, tokens, dt)
+                      in sv["served"].items()}
+    stats = sv["prefix_stats"]
+    check(stats["decode_hits"] > 0, "serving: no decode-block hit")
+    log("[examples] serving: " + ", ".join(
+        f"{name} {v:.1f} tok/s" for name, v in out["serving"].items())
+        + f"; chat {stats['decode_hits']} decode-block hits, follow-up "
+        f"skip rate {stats['followup_skip_rate']:.4f}; "
+        f"{walls['serving']:.3f}s")
+
+    cfg = get_config(ENC_ARCH).replace(attention_prob="softmax")
+    task = ClsTask(ClsTaskConfig(vocab_size=cfg.vocab_size, seq_len=BERT_SEQ,
+                                 num_classes=cfg.num_classes))
+    hccs_rows.launches = 0
+    t0 = time.perf_counter()
+    bert = ex["quickstart"].run(cfg, task=task, steps=ex["quickstart"].STEPS,
+                                batch=BERT_BATCH, device="cuda", log=log)
+    torch.cuda.synchronize()
+    walls["bert_small"] = time.perf_counter() - t0
+    launches["bert_small"] = hccs_rows.launches
+    check(launches["bert_small"] > 0, "bert-small: hccs_rows never launched")
+    check(all(np.isfinite(bert["float_losses"] + bert["qat_losses"])),
+          "bert-small: a loss is not finite")
+    check_theta("bert-small", bert["theta"], BERT_SEQ)
+    out["bert_small"] = {k: bert[k] for k in ("acc_base", "acc_nr",
+                                              "acc_qat")}
+    del bert, qs, sv
+    torch.cuda.empty_cache()
+    for name in ("quickstart", "bert_small"):
+        a = out[name]
+        log(f"[examples] {name} Table I triple on {CARD}: baseline "
+            f"{a['acc_base']:.4f}, no-retrain {a['acc_nr']:.4f}, retrained "
+            f"{a['acc_qat']:.4f}")
+    log("[examples] hccs_rows launches: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()) + "; walls " + ", ".join(
+        f"{k} {v:.3f}s" for k, v in walls.items()))
+    return dict(launches=launches, walls=walls, **out)
+
+
 def kernel_entry(name, source, replaces, launches, tm, shape,
                  library_ms=None, headers=(), kernels_per_call=None):
-    """One kernel of phase 34's line. `launches` counts wrapper calls on
+    """One kernel of phase 35's line. `launches` counts wrapper calls on
     the main path; `kernels_per_call` is the kernels on the card per
     wrapper call in the path's profiled run (None where not profiled).
     `device_ms` / `cold_ms`: device-only time with K/V warm in L2 / with
@@ -4397,7 +4623,7 @@ def kernel_entry(name, source, replaces, launches, tm, shape,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default=",".join(str(p) for p in range(1, 35)),
+                    default=",".join(str(p) for p in range(1, 36)),
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -4516,14 +4742,18 @@ def main(argv=None):
     if 33 in phases:
         phase_dryrun()
         mark(33)
+    examples = None
     if 34 in phases:
+        examples = phase_examples()
+        mark(34)
+    if 35 in phases:
         check(launches and timings and len(decode_timings) == 2
               and len(path_launches) == 2 and {11, 12, 13, 17} <= phases
               and table3_launches and fold_t and fold_launches and spec
               and overload and chaos and asynch and tele and sampling
               and cal and ckpt and served and moe and ssm_walls
-              and enc_launches,
-              "phase 34 needs phases 3 and 5 to 30")
+              and enc_launches and examples,
+              "phase 35 needs phases 3, 5 to 30 and 34")
         slice_launches = {
             "hccs_packed_prefill": dict(
                 spec=spec["packed"],
@@ -4578,8 +4808,13 @@ def main(argv=None):
                               kernel_t["hccs_rows"],
                               f"{G_ROWS} x {G_COLS} int8, per-head theta, "
                               f"i16_div"),
-                 slice_launches=dict(calibration=cal["launches"],
-                                     encoder_calibration=enc_launches)),
+                 slice_launches=dict(
+                     calibration=cal["launches"],
+                     encoder_calibration=enc_launches,
+                     examples=examples["launches"]["calibration_study"]
+                     + examples["launches"]["quickstart"],
+                     examples_bert_small=examples["launches"][
+                         "bert_small"])),
             kernel_entry("softmax_bf16", "softmax_bf16.cu",
                          "src/repro/kernels/softmax_bf16.py:32",
                          table3_launches["softmax_bf16"],

@@ -16,6 +16,7 @@ package's.
 
 Every gate is exact: tokens, counters, tables and free lists.
 """
+import torch_threads  # noqa: F401  (first: one torch thread a worker)
 import copy
 import dataclasses
 

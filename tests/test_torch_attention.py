@@ -18,6 +18,7 @@ Tolerances. Measured (torch 2.13 CPU against jax 0.9 CPU, f32): (a) max |d|
 bin flipped in any case here, so every difference is summation order. The
 gates sit 4-8x above the measurement. (c) uses the reference's own 3e-5.
 """
+import torch_threads  # noqa: F401  (first: one torch thread a worker)
 import dataclasses
 import zlib
 

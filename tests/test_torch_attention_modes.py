@@ -11,6 +11,7 @@ outputs, max |d| 7.2e-7 measured on these shapes (f32 projections a few
 ulp apart), gate 1e-5 (CROSS_ATOL). The kernel's degenerate rows are
 integers: equal.
 """
+import torch_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,7 @@ through both packages: the grid's KLs, the chosen theta at every
 granularity, the row subsampling, the observer's scales and the captured
 attention logits of a tiny model.
 """
+import torch_threads  # noqa: F401  (first: one torch thread a worker)
 import dataclasses
 
 import jax

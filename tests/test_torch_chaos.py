@@ -12,6 +12,7 @@ and the same finished and failed uids (with the same tokens and reasons):
 the fault schedule is a pure function of the seed and the engine's host
 state, which the port copies.
 """
+import torch_threads  # noqa: F401  (first: one torch thread a worker)
 import dataclasses
 
 import jax

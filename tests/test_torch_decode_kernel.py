@@ -18,6 +18,7 @@ of an arena whose length is no multiple of any tile (arena).
     bins are counted against the bound measured below, and rows without a
     flip are held to the float tolerance measured below.
 """
+import torch_threads  # noqa: F401  (first: one torch thread a worker)
 import functools
 import zlib
 

@@ -4,14 +4,14 @@ sharding-rule resolution and the spec trees (equal to JAX's entry for
 entry), the local shard each mesh coordinate holds (equal to JAX's
 NamedSharding layout), the FLOP counter on local shards, the dry-run's
 inputs and grid (equal to JAX's), the meshes, a sharded checkpoint
-restore, two mini dry-run cells and inspect_hlo in subprocesses.
+restore. The two mini dry-run cells and inspect_hlo run in subprocesses in
+test_torch_dryrun_subprocess.py.
 
 Every mesh here lies over torch's fake process group: collectives move
 nothing and the local shards are meta or small CPU tensors. A test that
-needs one initializes it through `fake_group` and destroys it after. The
-whole file takes about 75 s on the CPU in one process; the three
-subprocesses take most of it.
+needs one initializes it through `fake_group` and destroys it after.
 """
+import torch_threads  # noqa: F401  (first: one torch thread a worker)
 import contextlib
 import json
 import os
@@ -429,61 +429,3 @@ def test_sharded_restore_on_a_fake_4_rank_mesh(tmp_path):
             assert out["b"].to_local().dtype == torch.bfloat16
             assert torch.equal(out["b"].to_local(), tree["b"][lo:hi])
             assert not SH.is_dtensor(out["s"]) and int(out["s"]) == 3
-
-
-# ---------------------------------------------------------- mini dry-runs --
-
-# useful_flops_ratio = model_flops / (chips * FLOPs per device). The train
-# cell's ceiling is 6/8: remat="full" recomputes the forward (2+2+4 N D per
-# token against the model's 6 N D). Its floor: every matrix product
-# replicated over the 2-way model axis (half the ceiling) and the experts'
-# capacity factor 1.25 padding their products gives 0.30; 0.25 leaves room
-# for the router's and attention's products, which 6 N D does not count
-# (measured 0.4302). The decode cell has no backward: ceiling
-# 1; floor 0.25 for the same replication and the attention and SSD state
-# work beside 2 N D (measured 0.6026).
-MINI_CELLS = [("granite-moe-1b-a400m", "train_4k", (0.25, 0.75)),
-              ("mamba2-1.3b", "decode_32k", (0.25, 1.0))]
-
-
-@pytest.mark.parametrize("cell", MINI_CELLS, ids=lambda c: c[0])
-def test_mini_dryrun_subprocess(cell, tmp_path):
-    """The port's dry-run on a fake (4, 2) mesh at full depth, in a
-    subprocess so the fake process group cannot leak into this one; the
-    cells JAX's twin cannot run (ROADMAP.md section C3). The train cell
-    takes about 47 s here, the decode cell about 7 s."""
-    arch, shape, (lo, hi) = cell
-    env = dict(os.environ, REPRO_MESH="4,2", PYTHONPATH=str(ROOT / "src"))
-    r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape, "--mesh", "pod", "--out", str(tmp_path)],
-        env=env, capture_output=True, text=True, timeout=300, cwd=str(ROOT))
-    assert r.returncode == 0, r.stderr[-2000:]
-    rec = json.load(open(tmp_path / f"{arch}_{shape}_pod.json"))
-    assert rec["ok"], rec.get("error")
-    assert rec["chips"] == 8 and rec["mesh_shape"] == [4, 2]
-    assert rec["flops_per_dev"] > 0 and rec["bytes_per_dev"] > 0
-    assert rec["roofline"]["dominant"] in ("compute", "memory", "collective")
-    assert lo <= rec["useful_flops_ratio"] <= hi, rec["useful_flops_ratio"]
-    assert rec["memory"]["argument_bytes"] > 0
-    assert rec["memory"]["temp_bytes"] > 0
-
-
-def test_inspect_hlo_prints_the_collective_breakdown():
-    """inspect_hlo on a 1-layer granite decode cell of a fake (4, 2) mesh,
-    in a subprocess: the header, the total and per-kind rows, then FLOPs,
-    bytes and peak temporaries."""
-    env = dict(os.environ, REPRO_MESH="4,2", PYTHONPATH=str(ROOT / "src"))
-    r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.inspect_hlo", "--arch",
-         "granite-3-2b", "--shape", "decode_32k", "--layers", "1",
-         "--top", "4"], env=env, capture_output=True, text=True,
-        timeout=300, cwd=str(ROOT))
-    assert r.returncode == 0, r.stderr[-2000:]
-    out = r.stdout
-    assert "== granite-3-2b x decode_32k x pod (L=1, SP=on) ==" in out
-    assert "total collective bytes (result shapes):" in out
-    kinds = [line.split()[3] for line in out.splitlines()
-             if " GiB  x" in line]
-    assert kinds and set(kinds) <= set(RL.COLLECTIVES)
-    assert "flops " in out and "temp " in out

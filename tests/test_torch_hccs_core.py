@@ -11,6 +11,7 @@ both frameworks, and the measured difference on every case here is 0 (the
 one exception, XLA:CPU's inexact log2 at Z = 8192, is stated at its test).
 The STE gradient has its own measured gate.
 """
+import torch_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -3,6 +3,7 @@ tests/test_hccs_properties.py, fuzzed with hypothesis, each case also held
 bit-for-bit against the JAX package's hccs_int / leading_bit on the same
 integers.
 """
+import torch_threads  # noqa: F401  (first: one torch thread a worker)
 from conftest import require_hypothesis
 
 hypothesis = require_hypothesis()

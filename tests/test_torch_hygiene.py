@@ -5,8 +5,10 @@ package; its entry points run on the card unless asked for the CPU and
 raise without one; paths not ported yet raise instead of falling back; and
 its configs are the JAX package's, field for field.
 """
+import torch_threads  # noqa: F401  (first: one torch thread a worker)
 import ast
 import dataclasses
+import importlib.util
 import json
 import os
 import subprocess
@@ -30,8 +32,9 @@ from repro_torch.serve.engine import Request
 from repro_torch.serve.paged import PagedEngine, init_paged_cache
 
 ROOT = Path(__file__).resolve().parents[1]
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + EXAMPLES
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
@@ -199,6 +202,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         port_serve.main(["--arch", "granite-3-2b", "--reduced"])
     with pytest.raises(ValueError, match="lie on"):
         PagedEngine(params, cfg, device="meta")
+    # the four examples: main([]) is the script at its defaults, on the card
+    assert [p.stem for p in EXAMPLES] == [
+        "torch_calibration_study", "torch_quickstart", "torch_serving",
+        "torch_train_lm"]
+    for path in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(path.stem, path)
+        example = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(example)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            example.main([])
 
 
 def test_training_and_calibration_entry_points_raise_without_cuda(

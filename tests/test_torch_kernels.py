@@ -4,6 +4,7 @@ package's (`repro.kernels`): the twin of tests/test_kernels.py.
 Every case runs the JAX wrapper (its Pallas kernel in interpret mode), the
 JAX oracle (`repro/kernels/ref.py`) and the port's wrapper on CPU tensors,
 which runs the kernel's plain PyTorch version, on the same numpy inputs
+import torch_threads  # noqa: F401  (first: one torch thread a worker)
 from a seed. Tolerances:
 
 - hccs_softmax (`hccs_rows`): none. Integer arithmetic throughout; bit-exact

@@ -22,6 +22,7 @@ The same numpy-seeded inputs go through both packages. Gates:
     >= 0.90, logit MAE mean <= 0.08, step max <= 0.5), on the port;
   * byte accounting: exact integers.
 """
+import torch_threads  # noqa: F401  (first: one torch thread a worker)
 import dataclasses
 
 import jax

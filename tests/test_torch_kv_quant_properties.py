@@ -10,6 +10,7 @@ tests/test_kv_quant_properties.py, fuzzed with hypothesis.
   * the CUDA kernel's algorithm, emulated in numpy, and the K+V plain
     version equal the JAX fold with draft rows and fresh blocks.
 """
+import torch_threads  # noqa: F401  (first: one torch thread a worker)
 from conftest import require_hypothesis
 
 hypothesis = require_hypothesis()

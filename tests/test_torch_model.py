@@ -5,6 +5,7 @@ Weights are made by `repro.models.model.init_params` and carried across by
 lanes, a random KV history in a shuffled pool) runs through both forwards,
 the JAX one with its Pallas kernel in interpret mode.
 """
+import torch_threads  # noqa: F401  (first: one torch thread a worker)
 import dataclasses
 
 import jax

@@ -13,6 +13,7 @@ never reaches past its own segment.
 
 Needs hypothesis (skips cleanly without it, like the allocator suite).
 """
+import torch_threads  # noqa: F401  (first: one torch thread a worker)
 import numpy as np
 
 from conftest import require_hypothesis

@@ -8,6 +8,7 @@
     requests with the same weights. Step counts, the block tables after
     every step and the greedy tokens must be identical.
 """
+import torch_threads  # noqa: F401  (first: one torch thread a worker)
 import copy
 import dataclasses
 

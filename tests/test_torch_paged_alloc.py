@@ -9,6 +9,7 @@ Invariants under arbitrary alloc/fork/free interleavings: conservation
 last-free-returns, double/foreign free and trash-block guards, exhaustion
 raising without mutating state.
 """
+import torch_threads  # noqa: F401  (first: one torch thread a worker)
 import pytest
 from conftest import require_hypothesis
 

@@ -31,6 +31,7 @@ The whole module skips cleanly when `hypothesis` is not installed (bare
 environments run the deterministic trie coverage in
 test_torch_serve_engine.py).
 """
+import torch_threads  # noqa: F401  (first: one torch thread a worker)
 from conftest import require_hypothesis
 
 hypothesis = require_hypothesis()

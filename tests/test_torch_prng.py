@@ -3,6 +3,7 @@ jax.random, and temperature sampling against the JAX engines.
 
 fold_in, the uint32/uint16/uint8 bits and the f32/bf16 uniforms are
 bit-equal to jax.random's; bf16 Gumbel noise too. f32 Gumbel noise differs
+import torch_threads  # noqa: F401  (first: one torch thread a worker)
 from XLA's where XLA's CPU log is not correctly rounded (within 5e-4), so
 f32 draws are held to equal tokens, which they give away from near ties.
 Then the port's sample_tokens against the JAX one on mixed greedy and hot

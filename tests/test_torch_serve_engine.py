@@ -16,6 +16,7 @@ engines, held within the port.
 Every gate here is token identity: on these tiny f32 configs no greedy
 token moved in any comparison.
 """
+import torch_threads  # noqa: F401  (first: one torch thread a worker)
 import dataclasses
 
 import jax

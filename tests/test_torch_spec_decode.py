@@ -17,6 +17,7 @@ across by params_from_jax; f32, the tiny config). Gates:
     at these shapes, although an ulp of float drift across frameworks may
     flip one (tests/test_torch_kv_quant.py).
 """
+import torch_threads  # noqa: F401  (first: one torch thread a worker)
 import dataclasses
 
 import jax

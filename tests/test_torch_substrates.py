@@ -7,6 +7,7 @@ the synthetic batches, checkpoints loaded across packages, MoE routing
 (expert ids, keep masks, slots, output, aux) and the SSD's chunked and
 recurrent forms with their gradients.
 """
+import torch_threads  # noqa: F401  (first: one torch thread a worker)
 import dataclasses
 import os
 import tempfile

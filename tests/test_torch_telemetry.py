@@ -9,6 +9,7 @@ bridge) and holds the port to it: the same tokens, the same step count,
 the same phases entered the same number of times, the same snapshot keys
 and the same counters (everything but wall-clock times); the registry and
 profiler, fed one fake clock, give the JAX package's numbers exactly."""
+import torch_threads  # noqa: F401  (first: one torch thread a worker)
 import copy
 import dataclasses
 import json

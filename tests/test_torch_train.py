@@ -7,6 +7,7 @@ Weights are made by `repro.models.model.init_params` and carried across by
 `params_from_jax`; batches come from the synthetic LM stream, which both
 packages draw bit for bit.
 """
+import torch_threads  # noqa: F401  (first: one torch thread a worker)
 import dataclasses
 import os
 import tempfile
