@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.core.hccs import hccs_mode_inv
 from repro_torch.kernels.build import cuda_device, launch
+from repro_torch.spans import span
 
 NEG_BIG = -(2 ** 30)
 MODES = ("wide", "i16_div", "i16_clb")
@@ -304,9 +305,11 @@ def _launch(fn, entry: str, args, q, k, *, qint_out, qint_len,
     out = torch.empty((r, h, d), dtype=torch.float32, device=dev)
     if r == 0:
         return out
-    ws = torch.empty(workspace_bytes(
-        r, h, qint_len, d, qint_scratch=qint_out is None and not static_max),
-        dtype=torch.uint8, device=dev)
+    with span("repro.workspace"):
+        ws = torch.empty(workspace_bytes(
+            r, h, qint_len, d,
+            qint_scratch=qint_out is None and not static_max),
+            dtype=torch.uint8, device=dev)
     mode, static_max = ctx.pop("mode"), ctx.pop("static_max")
     launch(fn, entry, dev, *args, out, qint_out, ws, ws.numel(),
            *ctx.values(), POOL_TYPES[k.dtype], MODE_CODES[mode],

@@ -21,6 +21,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import DTYPES, apply_mlp, apply_norm
 from repro_torch.parallel.sharding import constrain
+from repro_torch.spans import span
 
 ATTN_FAMILIES = ("dense", "moe", "audio", "vlm", "encoder", "hybrid")
 # the families whose per-layer cache holds K/V (an encoder has no cache)
@@ -119,26 +120,30 @@ def apply_block(p, x, cfg, hccs=None, cache=None, length=None,
         y, st = _ssd(p["ssm"], h, cfg, cache, decode)
         x = x + y
     elif fam == "hybrid":
-        ya, nc = _attention(p["attn"], h, cfg, hccs, cache, length,
-                            positions, mrope_positions)
+        with span("repro.attn"):
+            ya, nc = _attention(p["attn"], h, cfg, hccs, cache, length,
+                                positions, mrope_positions)
         ys, st = _ssd(p["ssm"], h, cfg, cache, decode)
         if nc is not None:
             new_cache.update(nc)
         x = x + 0.5 * (ya + ys)      # mean-fused parallel heads (Hymba)
     else:
-        y, nc = _attention(p["attn"], h, cfg, hccs, cache, length,
-                           positions, mrope_positions)
+        with span("repro.attn"):
+            y, nc = _attention(p["attn"], h, cfg, hccs, cache, length,
+                               positions, mrope_positions)
         if nc is not None:
             new_cache.update(nc)
         x = x + y
     if cache is not None and fam in ("ssm", "hybrid"):
         new_cache["ssm"] = st
     if "moe" in p:
-        y, aux = moe_mod.apply_moe(p["moe"], apply_norm(p["norm2"], x, cfg),
-                                   cfg)
-        x = x + y
+        with span("repro.moe"):
+            y, aux = moe_mod.apply_moe(p["moe"],
+                                       apply_norm(p["norm2"], x, cfg), cfg)
+            x = x + y
     elif "mlp" in p:
-        x = x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg)
+        with span("repro.mlp"):
+            x = x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg)
     # sequence parallelism on the residual stream between blocks ("seq_act"
     # maps to None unless the dry-run enables it)
     return constrain(x, "batch", "seq_act", None), new_cache, aux

@@ -31,6 +31,7 @@ from repro_torch.models.attention import init_hccs_head_params
 from repro_torch.models.layers import (DTYPES, apply_norm, embed_tokens,
                                       lm_logits)
 from repro_torch.parallel.sharding import constrain
+from repro_torch.spans import span
 
 # per-step keys the paged engine attaches to the cache; forward hands them
 # to every layer (one table, per-layer pools): the packed step's slot ids,
@@ -223,10 +224,11 @@ def forward(weights, hccs, batch, cfg, cache=None, decode: bool = False):
     for i in range(cfg.num_layers):
         lc = {name: leaf[i] for name, leaf in cache["layers"].items()}
         lc.update(extras)
-        x, lnew, aux_l = blocks.apply_block(
-            _layer(weights["layers"], i), x, cfg,
-            {k: v[i] for k, v in hccs.items()} or None, lc, length,
-            positions, mrope_positions, decode=decode)
+        with span("repro.layer"):
+            x, lnew, aux_l = blocks.apply_block(
+                _layer(weights["layers"], i), x, cfg,
+                {k: v[i] for k, v in hccs.items()} or None, lc, length,
+                positions, mrope_positions, decode=decode)
         aux = aux + aux_l
         if "ssm" in lnew:
             cache["layers"]["ssm"][i].copy_(lnew["ssm"])

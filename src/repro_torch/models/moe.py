@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.core.constraints import default_params
 from repro_torch.core.hccs import HCCSParams, hccs_qat
 from repro_torch.parallel.sharding import constrain
+from repro_torch.spans import span
 
 
 def init_moe(gen, cfg, dtype, device, layers: int):
@@ -126,7 +127,8 @@ def apply_moe(p, x, cfg):
     routing; the experts' products are torch.einsum."""
     b, t, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
-    r = route(p, x, cfg)
+    with span("repro.moe.route"):
+        r = route(p, x, cfg)
     G, M, cap, xg = r["G"], r["M"], r["cap"], r["xg"]
     mk = M * k
 

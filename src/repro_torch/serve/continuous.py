@@ -260,7 +260,7 @@ class ContinuousEngine:
             with torch.inference_mode():
                 logits, self._cache = M.decode_step(
                     self.w, self.hccs, tokens, self._cache, self.cfg)
-            if prof.enabled:
+            if prof.enabled and prof.fence:
                 T.device_fence(self.device)
         # the step advances every slot's frontier; dead slots' writes are
         # garbage parked one past their final token — freeze them here so

@@ -42,7 +42,12 @@ class Request:
     re-queues with `out_tokens` as resume state). `arrival_ts` is the
     intended arrival (absolute seconds on the serving clock) that
     drive_open_loop stamps before submit; the engines anchor the telemetry
-    submit time and the deadline clock there (None: arrived at submit)."""
+    submit time and the deadline clock there (None: arrived at submit).
+    The paged engine stamps `admit_step`, the 0-based index of the first
+    step after the request's first admission, and `first_token_step`, that
+    of the step that produced its first token, both from its count of
+    steps run (`occupancy_steps`): first_token_step - admit_step + 1 steps
+    from admission to the first token."""
     uid: int
     prompt: np.ndarray            # (t,) int32
     max_new_tokens: int = 32
@@ -56,6 +61,8 @@ class Request:
     fail_reason: str | None = None
     preemptions: int = 0
     arrival_ts: float | None = None
+    admit_step: int | None = None
+    first_token_step: int | None = None
 
 
 def kv_cache_bytes(cache) -> int:
@@ -114,7 +121,8 @@ def sample_tokens(key, logits: torch.Tensor, temps, uids,
     temps = np.asarray(temps, np.float64)
     hot = np.flatnonzero(temps > 0)
     if hot.size == 0:
-        return greedy.cpu().numpy().astype(np.int64)
+        with T.span("repro.sample.wait"):
+            return greedy.cpu().numpy().astype(np.int64)
     uids = np.asarray(uids)
     gen_idx = np.asarray(gen_idx)
     keys = torch.tensor([prng.fold_in(prng.fold_in(key, int(uids[i])),
@@ -125,7 +133,8 @@ def sample_tokens(key, logits: torch.Tensor, temps, uids,
                                          dtype=logits.dtype,
                                          device=logits.device)
     out = greedy.index_put((rows,), prng.categorical(keys, scaled))
-    return out.cpu().numpy().astype(np.int64)
+    with T.span("repro.sample.wait"):
+        return out.cpu().numpy().astype(np.int64)
 
 
 def check_params_device(params, device):
@@ -192,7 +201,8 @@ class ServeEngine:
                              [len(r.out_tokens) for r in wave])
 
     def _fence(self):
-        if self.telemetry.profiler.enabled:
+        prof = self.telemetry.profiler
+        if prof.enabled and prof.fence:
             T.device_fence(self.device)
 
     def _next_wave(self) -> list[Request]:

@@ -1024,6 +1024,8 @@ class PagedEngine:
             else:
                 self._queue.pop(0)
             slot = int(np.argmin(self._live))
+            if req.admit_step is None:
+                req.admit_step = self.occupancy_steps
             if self.telemetry.enabled:
                 self.telemetry.metrics.on_admit(req.uid)
             origins = [self.trie.origin(key) for key, _ in matched]
@@ -1498,8 +1500,10 @@ class PagedEngine:
         return dict(self._cache, **extras), fresh
 
     def _fence(self):
-        """The profiler's device-phase fence, only while profiling."""
-        if self.telemetry.profiler.enabled:
+        """The profiler's device-phase fence, only while a fencing profiler
+        is on (StepProfiler.fence)."""
+        prof = self.telemetry.profiler
+        if prof.enabled and prof.fence:
             T.device_fence(self.device)
 
     # ------------------------------------------------------ device seams --
@@ -1513,7 +1517,9 @@ class PagedEngine:
                                     self.cfg, cache)
             h_last = x[torch.arange(x.shape[0], device=x.device),
                        last_lane][:, None]                     # (B, 1, D)
-            logits = M.logits_from_hidden(self.w, h_last, self.cfg)[:, 0]
+            with T.span("repro.lm_head"):
+                logits = M.logits_from_hidden(self.w, h_last,
+                                              self.cfg)[:, 0]
         return logits, cache
 
     def _packed_forward(self, tokens, positions, cache, lane_idx):
@@ -1527,7 +1533,9 @@ class PagedEngine:
                                      "positions": positions},
                                     self.cfg, cache)
             h_last = x[0, lane_idx][:, None]                   # (B, 1, D)
-            logits = M.logits_from_hidden(self.w, h_last, self.cfg)[:, 0]
+            with T.span("repro.lm_head"):
+                logits = M.logits_from_hidden(self.w, h_last,
+                                              self.cfg)[:, 0]
         return logits, cache
 
     def _packed_spec_forward(self, tokens, positions, cache, lane_grid):
@@ -1541,7 +1549,9 @@ class PagedEngine:
                                     {"tokens": tokens,
                                      "positions": positions},
                                     self.cfg, cache)
-            logits = M.logits_from_hidden(self.w, x[0][lane_grid], self.cfg)
+            with T.span("repro.lm_head"):
+                logits = M.logits_from_hidden(self.w, x[0][lane_grid],
+                                              self.cfg)
         return logits, cache
 
     def _packed_async_forward(self, tokens, tok_src, prev_sampled, positions,
@@ -1562,7 +1572,9 @@ class PagedEngine:
                                      "positions": positions},
                                     self.cfg, cache)
             h_last = x[0, lane_idx][:, None]                   # (B, 1, D)
-            logits = M.logits_from_hidden(self.w, h_last, self.cfg)[:, 0]
+            with T.span("repro.lm_head"):
+                logits = M.logits_from_hidden(self.w, h_last,
+                                              self.cfg)[:, 0]
             sampled = torch.argmax(logits, dim=-1).to(torch.int32)
         return logits, sampled, cache
 
@@ -1574,14 +1586,16 @@ class PagedEngine:
         DeviceStepFailed, on which step() fails every live slot with reason
         "device_error". A failure raised inside the seam may have written
         the pools part way, so it is neither retried nor absorbed: it
-        propagates out of step()."""
+        propagates out of step(). The call is the `repro.forward` span."""
         if not self._robust:
-            return fn(*args)
+            with T.span("repro.forward"):
+                return fn(*args)
         retries = self._adm.max_device_retries
         for attempt in range(retries + 1):
             self._device_entered = False
             try:
-                return fn(*args)
+                with T.span("repro.forward"):
+                    return fn(*args)
             except Exception as exc:
                 if self._device_entered:
                     raise
@@ -1968,6 +1982,7 @@ class PagedEngine:
                 self._prompt_pos[slot] = min(self._prompt_pos[slot] + tv,
                                              feed_len[slot])
         return {
+            "step": self.occupancy_steps - 1,
             "live": live.copy(),
             "samples": samples,
             "was_prefill": was_prefill,
@@ -2008,7 +2023,8 @@ class PagedEngine:
             samples = p["samples"] & ~p["dead"]
             # the unprofiled async step's one host sync
             if p["event"] is not None:
-                p["event"].synchronize()
+                with T.span("repro.sample.wait"):
+                    p["event"].synchronize()
             sampled = p["host"].numpy()
             if self._robust and self._adm.nan_check:
                 bad = (~torch.isfinite(p["logits"]).all(-1)).cpu().numpy()
@@ -2033,8 +2049,8 @@ class PagedEngine:
                 continue                     # still mid-prompt at dispatch
             tok = int(sampled[slot])
             req.out_tokens.append(tok)
-            if self.telemetry.enabled and len(req.out_tokens) == 1:
-                self.telemetry.metrics.on_first_token(req.uid)
+            if len(req.out_tokens) == 1:
+                self._first_token(req, p["step"])
             self._last[slot] = tok
             if (len(req.out_tokens) >= req.max_new_tokens or
                     (self.eos_id is not None and tok == self.eos_id) or
@@ -2042,6 +2058,13 @@ class PagedEngine:
                      p["lengths_after"][slot] >= self.max_len - 1)):
                 finished.append(self._finish(slot))
         return finished
+
+    def _first_token(self, req: Request, step: int):
+        """out_tokens went 0 -> 1 on step `step` (0-based, as
+        Request.admit_step)."""
+        req.first_token_step = step
+        if self.telemetry.enabled:
+            self.telemetry.metrics.on_first_token(req.uid)
 
     def _sample_and_finish(self, live, t_valid, logits) -> list[Request]:
         """Sample each slot that produced a next token, advance frontiers,
@@ -2084,8 +2107,8 @@ class PagedEngine:
                 continue                     # still mid-prompt
             tok = int(nxt[slot])
             req.out_tokens.append(tok)
-            if self.telemetry.enabled and len(req.out_tokens) == 1:
-                self.telemetry.metrics.on_first_token(req.uid)
+            if len(req.out_tokens) == 1:
+                self._first_token(req, self.occupancy_steps - 1)
             self._last[slot] = tok
             # the cache-full guard only applies to decode-written KV
             if (len(req.out_tokens) >= req.max_new_tokens or
@@ -2161,8 +2184,8 @@ class PagedEngine:
                     continue                 # still mid-prompt
                 tok = int(toks[slot, 0])
                 req.out_tokens.append(tok)
-                if self.telemetry.enabled and len(req.out_tokens) == 1:
-                    self.telemetry.metrics.on_first_token(req.uid)
+                if len(req.out_tokens) == 1:
+                    self._first_token(req, self.occupancy_steps - 1)
                 self._last[slot] = tok
                 if (len(req.out_tokens) >= req.max_new_tokens or
                         (self.eos_id is not None and tok == self.eos_id) or

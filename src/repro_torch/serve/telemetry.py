@@ -30,7 +30,14 @@ the three engines.
   `summary()` gives per-phase totals, shares of step time and `coverage`
   (attributed / step wall time; the acceptance gate keeps it >= 0.9);
   `write_chrome_trace` writes one complete event per line (Perfetto,
-  chrome://tracing).
+  chrome://tracing). `StepProfiler(fence=False)` times the same phases on
+  the host with no device fence, each phase then also a `phase.<name>`
+  range while a torch.profiler records, so the profiler's device trace
+  places the card's work against the phases instead.
+
+* **span** — the program's named ranges on the device trace's clock
+  (`repro_torch/spans.py`, re-exported here): a `record_function` range
+  while a torch.profiler records, the shared null context otherwise.
 
 * **Telemetry** — one registry and one profiler behind one `enabled` flag.
   Engines hold a disabled instance by default: every hook is then one
@@ -43,7 +50,6 @@ arrival-driven serving loop behind `launch/serve.py --arrival-rate`.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import math
@@ -51,6 +57,9 @@ import time
 
 import numpy as np
 import torch
+
+from repro_torch.spans import NULL as _NULL
+from repro_torch.spans import span
 
 # v2 added the `robustness` section and RequestTrace.dropped
 SNAPSHOT_SCHEMA_VERSION = 2
@@ -66,14 +75,13 @@ QUEUE_WAIT_EDGES_MS = (1.0, 2.0, 5.0, 10.0, 20.0, 50.0, 100.0, 200.0,
 # SLO on another. Inject a replacement with Telemetry(clock=...).
 SERVING_CLOCK = time.perf_counter
 
-_NULL = contextlib.nullcontext()
-
 
 def device_fence(device: torch.device):
     """The profiler's `device` phase fence: wait for the card to finish
     the work queued so far, so device time lands in the phase that queued
-    it. Nothing on the CPU. Engines call it only while profiling, through
-    this module, so a test can count the fences."""
+    it. Nothing on the CPU. Engines call it only while a fencing profiler
+    is on (`StepProfiler.fence`), through this module, so a test can count
+    the fences."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -235,12 +243,16 @@ class _Span:
         if self.is_step:
             prof._step_depth += 1
             self.idx = prof.step_count
+        self.range = (_NULL if prof.fence or self.is_step
+                      else span("phase." + self.name))
+        self.range.__enter__()
         self.t0 = prof.clock()
         return self
 
     def __exit__(self, *exc):
         prof = self.prof
         t1 = prof.clock()
+        self.range.__exit__(*exc)
         dur = t1 - self.t0
         ev = dict(name=self.name, cat="step" if self.is_step else "phase",
                   ph="X", ts=round((self.t0 - prof.epoch) * 1e6, 1),
@@ -264,10 +276,15 @@ class _Span:
 class StepProfiler:
     """Wall-time attribution of engine steps to named phases: `step(name)`
     wraps one engine step, `phase(name)` a region of its body. When
-    disabled both return a shared null context."""
+    disabled both return a shared null context. `fence` (the default) has
+    the engines wait for the card at the end of the device phase, so its
+    host time holds the device time; with fence False nothing waits, and
+    each phase is also a `phase.<name>` range while a torch.profiler
+    records."""
 
-    def __init__(self, enabled: bool = True, clock=None):
+    def __init__(self, enabled: bool = True, clock=None, fence: bool = True):
         self.enabled = enabled
+        self.fence = fence
         self.clock = clock if clock is not None else SERVING_CLOCK
         self.reset()
 
@@ -321,13 +338,13 @@ class StepProfiler:
 
 class Telemetry:
     """One MetricsRegistry and one StepProfiler behind one `enabled`
-    flag."""
+    flag; `fence` is the profiler's (StepProfiler)."""
 
-    def __init__(self, enabled: bool = True, clock=None):
+    def __init__(self, enabled: bool = True, clock=None, fence: bool = True):
         self.enabled = enabled
         self.clock = clock if clock is not None else SERVING_CLOCK
         self.metrics = MetricsRegistry(self.clock)
-        self.profiler = StepProfiler(enabled, self.clock)
+        self.profiler = StepProfiler(enabled, self.clock, fence)
 
     def reset(self):
         """Drop traces and profile data (after a warm-up, so a timed

@@ -2,7 +2,8 @@
 tests/test_async_loop.py (the parity legs are in test_torch_async_loop.py;
 the shared substrate in torch_async.py): chaos invariants at commit
 boundaries, profiler coverage under overlap, and sync-point hygiene — an
-unprofiled step of any paged or continuous path makes no device fence.
+unprofiled step of any paged or continuous path makes no device fence, nor
+does a profiled one under the fence-free StepProfiler.
 
 Each engine run is held to the JAX engine on the same weights: under chaos
 the same fault schedule and outcomes, under telemetry the same phases and
@@ -176,3 +177,29 @@ def test_continuous_unprofiled_steps_issue_no_fence(served, monkeypatch,
         eng.run()
         assert bool(fences) == enabled, \
             f"telemetry {enabled}: {len(fences)} device fences"
+
+
+@pytest.mark.parametrize("path", sorted(PAGED_PATHS) + ["continuous",
+                                                        "wave"])
+def test_fence_free_profiler_issues_no_fence(tiny_cfg, monkeypatch, path):
+    """StepProfiler(fence=False) times every phase of every path with
+    telemetry on and never fences the device."""
+    quant = "int8" if path == "packed" else "none"
+    _, _, pcfg, pparams = A.models(tiny_cfg, quant)
+    tel = Telemetry(enabled=True, fence=False)
+    if path in PAGED_PATHS:
+        eng = PagedEngine(pparams, pcfg, max_batch=4, max_len=128,
+                          block_size=16, device="cpu", telemetry=tel,
+                          **PAGED_PATHS[path])
+    else:
+        cls = ContinuousEngine if path == "continuous" else ServeEngine
+        eng = cls(pparams, pcfg, max_batch=4, max_len=64, device="cpu",
+                  telemetry=tel)
+    temps = (0.9, 0.0) if path == "hot" else None
+    for req in A.requests(n=6, temps=temps):
+        eng.submit(req)
+    fences = _count_fences(monkeypatch)
+    eng.run()
+    assert not fences, f"fence-free profiler fenced {len(fences)} times"
+    phases = eng.snapshot()["phases"]
+    assert phases["steps"] > 0 and "device" in phases["phases"]
