@@ -25,8 +25,11 @@ Phases, in order:
   3 kernel      hccs_packed_prefill against hccs_packed_prefill_ref at
                 granite's shapes, every width of the engine's ladder, every
                 mode / static_max / pool dtype, exact and random inputs, and
-                a pool of 256-key blocks (split boundaries inside blocks);
-                times per call, device-only warm and L2-cold
+                pools of 256-key blocks (split boundaries inside blocks);
+                each case also bit for bit (output, q_int) against the
+                split sweep run per token; times per call, device-only
+                warm and L2-cold; the cells' packed steps (tiled) and
+                all-decode steps (the split sweep, not slower than it)
   4 forward     one packed step of granite (2 layers, f32), card against CPU
   5 engine      packed PagedEngine: granite, 40 layers, bf16, 8 requests x 32
                 new tokens, twice, then once profiled
@@ -233,13 +236,16 @@ from repro_torch.kernels.attention import (fused_plan,  # noqa: E402
                                            fused_smem_bytes, hccs_mha_fused,
                                            hccs_mha_fused_ref, mha_qint)
 from repro_torch.kernels.decode import (SPLIT_KEYS,  # noqa: E402
+                                        SPLIT_SWEEP_TOKENS, TILE_ROWS,
                                         decode_qint, hccs_decode,
                                         hccs_decode_ref, hccs_packed_prefill,
                                         hccs_packed_prefill_ref,
                                         hccs_paged_decode,
                                         hccs_paged_decode_ref, packed_qint,
                                         paged_qint, split_count,
-                                        split_smem_bytes, workspace_bytes)
+                                        split_smem_bytes, tile_tokens,
+                                        tiled_smem_bytes, uses_tiles,
+                                        workspace_bytes)
 from repro_torch.kernels.hccs import hccs_rows, hccs_rows_ref  # noqa: E402
 from repro_torch.kernels.kv_quant import (  # noqa: E402
     MAX_SMEM_BYTES, fold_smem_bytes, paged_quant_scatter,
@@ -373,9 +379,12 @@ def cold_time_ms(fn, calls: int = 20, replays: int = 5) -> float:
         flush, calls, replays)
 
 
-# the split sweep's kernels (csrc/hccs_split.cuh), one symbol per pass
+# the split and tiled sweeps' kernels (csrc/hccs_split.cuh, hccs_tiled.cuh),
+# one symbol per pass
 SPLIT_PASSES = {"split_qk_kernel": "pass1", "split_pv_kernel": "pass2",
-                "split_fused_kernel": "fused", "split_combine_kernel": "pass3"}
+                "split_fused_kernel": "fused", "split_combine_kernel": "pass3",
+                "tile_list_kernel": "tiles", "tiled_qk_kernel": "pass1",
+                "tiled_pv_kernel": "pass2", "tiled_fused_kernel": "fused"}
 
 
 def kernel_passes(fn, calls: int = 10) -> str:
@@ -386,6 +395,20 @@ def kernel_passes(fn, calls: int = 10) -> str:
     run's events; each mean is over the events it delivered, and the line
     says how many. (The gaps between kernels under the profiler are its
     own, not the call's: see device_ms.)"""
+    times = pass_times(fn, calls)
+    if not times:
+        return "no device events: per-kernel times not measured"
+    parts = [f"{name} {sum(us) / len(us):.1f} us" for name, us in
+             times.items()]
+    n = sum(len(us) for us in times.values())
+    return (f"{len(times)} kernel(s) a call: {', '.join(parts)} ({n} "
+            f"events of {calls} calls)")
+
+
+def pass_times(fn, calls: int = 10) -> dict[str, list[float]]:
+    """kernel_passes' device times (us) by kernel, in order of first
+    launch: the passes by their SPLIT_PASSES names, the tiled ones with
+    /narrow or /wide."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
@@ -396,20 +419,17 @@ def kernel_passes(fn, calls: int = 10) -> str:
         torch.cuda.synchronize()
 
     def short(name):
+        narrow = ", true," in name or "Lb1E" in name
         name = name.replace("(anonymous namespace)::", "")
         name = name.replace("void ", "").split("<")[0].split("(")[0]
         name = name.split("::")[-1]
-        return SPLIT_PASSES.get(name, name)
+        tiled = name.startswith("tiled_")
+        name = SPLIT_PASSES.get(name, name)
+        return f"{name}/{'narrow' if narrow else 'wide'}" if tiled else name
     times: dict[str, list[float]] = {}
     for e in sorted(device_events(prof), key=lambda e: e.start):
         times.setdefault(short(e.name), []).append(e.end - e.start)
-    if not times:
-        return "no device events: per-kernel times not measured"
-    parts = [f"{name} {sum(us) / len(us):.1f} us" for name, us in
-             times.items()]
-    n = sum(len(us) for us in times.values())
-    return (f"{len(times)} kernel(s) a call: {', '.join(parts)} ({n} "
-            f"events of {calls} calls)")
+    return times
 
 
 def kernel_times(fn, plain) -> dict:
@@ -474,13 +494,18 @@ def phase_build():
     split = [" / ".join(str(split_smem_bytes(g, D, e, static))
                         for e in (4, 2, 1)) for static in (False, True)]
     log(f"[build] dynamic shared memory per block at granite shapes, split "
-        f"sweep (packed, paged, arena), f32 / bf16 / int8 K/V: "
+        f"sweep (paged, arena), f32 / bf16 / int8 K/V: "
         f"{split[0]} B (passes 1-2), {split[1]} B (static_max pass); "
+        f"tiled sweep (packed, any pool) {tiled_smem_bytes(D, False)} B "
+        f"(passes 1-2), {tiled_smem_bytes(D, True)} B (static_max pass), "
+        f"{TILE_ROWS} rows a tile ({tile_tokens(g)} tokens at granite, "
+        f"{tile_tokens(MOE_HEADS[0] // MOE_HEADS[1])} at granite-moe); "
         f"{SPLIT_KEYS}-key splits, "
         f"{split_count(MAX_LEN)} a {MAX_LEN}-key row; workspace of a decode "
         f"step {workspace_bytes(MAX_BATCH, H, MAX_LEN, D, qint_scratch=True)}"
-        f" B, of a width-256 step "
-        f"{workspace_bytes(256, H, MAX_LEN, D, qint_scratch=True)} B")
+        f" B, of a width-256 packed step "
+        f"{workspace_bytes(256, H, MAX_LEN, D, qint_scratch=True, tiles=True)}"
+        f" B")
     # the fused kernel's shared memory: the Python mirror against the C
     # formula, and the variant each of phase 13's shapes runs
     lib = kbuild.load_library()
@@ -599,17 +624,60 @@ def bound_of(case) -> tuple[float, str, float, float]:
     return (*bound(nbytes, flops), nbytes, flops)
 
 
-# a pool of 256-key blocks: every split boundary falls inside a block
-WIDE_BLOCKS = (64, 256)
+# pools of 256-key blocks: every split boundary falls inside a block; at a
+# width of the split sweep and at one of the tiled sweep (uses_tiles)
+WIDE_BLOCKS = ((64, 256), (256, 256))
+
+
+def per_token_rows(case):
+    """hccs_paged_decode's rows for a packed case, one a token: its slot's
+    block-table row and its own frontier (pad lanes at length 0)."""
+    sid = case["slot_ids"].long()
+    table = case["block_table"][sid.clamp(min=0)].contiguous()
+    lens = torch.where(sid >= 0, case["lengths"],
+                       torch.zeros_like(case["lengths"])).contiguous()
+    return table, lens
+
+
+def split_per_token(case, rows=None, qint_out=None, **kw):
+    """The split sweep on a packed case: hccs_paged_decode with one row a
+    token (`per_token_rows`, built here unless given), which is what
+    hccs_packed_prefill ran at every width before its tiles."""
+    table, lens = per_token_rows(case) if rows is None else rows
+    return hccs_paged_decode(case["q"], case["k_pool"], case["v_pool"], table,
+                             lens, case["scale"], case["theta"],
+                             k_scales=case["k_scales"],
+                             v_scales=case["v_scales"], qint_out=qint_out,
+                             **kw)
+
+
+def same_bits(a, b) -> bool:
+    return a.shape == b.shape and bool(
+        (a.contiguous().view(torch.int32) == b.contiguous().view(torch.int32))
+        .all()) if a.dtype == torch.float32 else bool((a == b).all())
+
+
+def check_against_split(case, got, qo, what: str, **kw):
+    """The packed kernel's output and q_int (qo, prefilled with -128)
+    equal the split sweep's run per token, bit for bit; pad lanes are
+    zero."""
+    qs = torch.full_like(qo, -128)
+    want = split_per_token(case, qint_out=qs, **kw)
+    check(same_bits(got, want), f"packed output differs from the split "
+          f"sweep's at {what}: max |d| {float((got - want).abs().max())}")
+    check(same_bits(qo, qs), f"packed q_int differs from the split sweep's "
+          f"at {what}: {int((qo != qs).sum())} of {qo.numel()}")
+    check(bool((got[case["slot_ids"] < 0] == 0).all()),
+          f"pad lanes not zero at {what}")
 
 
 def phase_kernel():
     rows = []
     timings = {}
     worst = 0.0
-    dtypes = (torch.float32, torch.bfloat16, torch.int8)
+    dtypes = (torch.float32, torch.bfloat16, torch.float16, torch.int8)
     shapes = [(w, BS, d, (H, HKV)) for w in WIDTHS for d in dtypes]
-    shapes += [(WIDE_BLOCKS[0], WIDE_BLOCKS[1], torch.float32, (H, HKV))]
+    shapes += [(w, bs, torch.float32, (H, HKV)) for w, bs in WIDE_BLOCKS]
     shapes += [(w, BS, d, MOE_HEADS) for w in (WIDTHS[0], WIDTHS[-1])
                for d in dtypes]
     for width, bs, pool_dtype, heads in shapes:
@@ -650,6 +718,9 @@ def phase_kernel():
                     pads = got[case["slot_ids"] < 0]
                     check(bool((pads == 0).all()),
                           f"pad lanes not zero at {at}")
+                    check_against_split(case, got, qo, f"{at} {pool_dtype}"
+                                        f" {mode} static={static_max} "
+                                        f"exact={exact}", **kw)
                     if exact:
                         check(flips == 0 and (max_err == 0.0
                                               or rel <= 1e-6),
@@ -688,7 +759,167 @@ def phase_kernel():
         log(f"[kernel] timing width {w}: {times_text(tm)}; the tokens' K/V "
             f"reads {reads / 1e6:.1f} MB, {reads / tm['device_ms'] / 1e9:.2f}"
             f" TB/s over the device time")
+    log(f"[kernel] every case above: the packed kernel's output and q_int "
+        f"(tiled past {SPLIT_SWEEP_TOKENS} lanes, the split sweep at and "
+        f"below) bit-identical to the split sweep run per token "
+        f"(hccs_paged_decode), pad lanes zero")
+    tiled_cells()
     return timings, worst
+
+
+# the benchmark cells' packed steps (bench/configs, bench/traffic
+# azure-code): prompts log-uniform 750-3000, 64 / 128 slots, 2,048 / 4,096
+# lanes; and each cell's all-decode step, one token a slot
+CELL_STEPS = {"granite": ((H, HKV), 64, 2048),
+              "moe": (MOE_HEADS, 128, 4096)}
+CELL_PROMPTS = (750, 3000)
+CELL_MAX_LEN = 4096          # the cells' max_len: 128 blocks of 32 a slot
+TOP_RATE = 1979e12           # bench/counts.py PEAK_TOP, int8 OP/s
+# the spread of an all-decode step's device time between calls on one
+# H100 (granite's 64 lanes through the split sweep: 0.2168-0.2241 ms in
+# five calls). At such a step the packed call runs the split sweep's
+# passes, which differ from hccs_paged_decode's only in how a row finds
+# its block-table row (through slot_ids, against a gathered per-token
+# table): -0.2% (granite) to +1.5% (granite-moe) in one call
+ALL_DECODE_SPREAD = 0.034
+
+
+def cell_step(heads, slots: int, lanes: int, seed: int, decode_only=False):
+    """A packed step shaped like a cell's: each slot prefilling (a prompt
+    log-uniform over CELL_PROMPTS, a uniform share of it fed) or, with
+    probability 0.3 (every slot with decode_only), decoding its 4-42th new
+    token; lanes dealt by the engine's scheduler, random f32 inputs, the
+    pool's blocks shuffled. Returns the case and the step's t_valid."""
+    h, hkv = heads
+    rng = np.random.default_rng(seed)
+    lo, hi = np.log(CELL_PROMPTS[0]), np.log(CELL_PROMPTS[1] - 42)
+    prompt = np.exp(rng.uniform(lo, hi, slots)).astype(np.int64)
+    decoding = np.ones(slots, bool) if decode_only else rng.random(slots) < 0.3
+    fed = np.where(decoding, prompt + rng.integers(3, 41, slots),
+                   (prompt * rng.uniform(0, 1, slots)).astype(np.int64))
+    remaining = np.where(decoding, 0, prompt - fed)
+    t_valid = schedule_step_tokens(np.ones(slots, bool), remaining, lanes,
+                                   4 * BS)     # the engine's chunk cap
+    sid, off = pack_slot_ids(t_valid, lanes)
+    lens = np.zeros(lanes, np.int32)
+    for s in np.flatnonzero(t_valid):
+        tv = int(t_valid[s])
+        lens[off[s]:off[s] + tv] = fed[s] + 1 + np.arange(tv)
+    need = -(-(fed + t_valid) // BS)
+    n_blocks = 1 + int(need.sum())
+    perm = rng.permutation(np.arange(1, n_blocks))
+    table = np.full((slots, CELL_MAX_LEN // BS), -1, np.int32)
+    c = 0
+    for s in range(slots):
+        table[s, :need[s]] = perm[c:c + need[s]]
+        c += need[s]
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pool = (n_blocks, hkv, BS, D)
+    i32 = (lambda a: torch.tensor(np.asarray(a), dtype=torch.int32,
+                                  device=dev))
+    case = dict(
+        q=torch.randn((lanes, h, D), generator=gen, device=dev),
+        k_pool=torch.randn(pool, generator=gen, device=dev),
+        v_pool=torch.randn(pool, generator=gen, device=dev),
+        block_table=i32(table), slot_ids=i32(sid), lengths=i32(lens),
+        scale=torch.tensor(rng.uniform(0.005, 0.02, h), dtype=torch.float32,
+                           device=dev),
+        theta=i32(np.stack([rng.integers(120, 200, h), rng.integers(0, 2, h),
+                            rng.integers(16, 100, h)], -1)),
+        k_scales=None, v_scales=None)
+    return case, t_valid
+
+
+def tile_fill(t_valid, width: int, group: int) -> float:
+    """Valid rows over the rows of the tiles a step of `width` lanes is cut
+    into (serve/paged.py tile_rows; 0 where it runs the split sweep)."""
+    valid, total = serve_paged.tile_rows(t_valid, width, tile_tokens(group),
+                                         group)
+    return valid / max(total, 1)
+
+
+def cell_bound(case, heads) -> tuple[float, float, float, float]:
+    """(f32 CUDA-core bound ms, top-rate roofline ms, bytes, operations) of
+    a packed call: each slot's live K/V rows once, q and the output once,
+    bench/counts.py's operations (2 x 2 x d a live key and query head)."""
+    h, hkv = heads
+    sid = case["slot_ids"].cpu().numpy()
+    lens = case["lengths"].cpu().numpy()
+    live = sid >= 0
+    keys = float(lens[live].sum())
+    rows = sum(int(lens[sid == s].max()) for s in np.unique(sid[live]))
+    nbytes = 2.0 * rows * hkv * D * 4 + 2.0 * int(live.sum()) * h * D * 4
+    ops = 4.0 * h * D * keys
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_bytes, ops / F32_FLOPS * 1e3),
+            max(t_bytes, ops / TOP_RATE * 1e3), nbytes, ops)
+
+
+def tiled_cells():
+    """Phase 3's cell-shaped cases: the packed kernel against the split
+    sweep run per token, bit for bit (output and q_int; random inputs, f32
+    pool, wide, and static_max), and both timed in turns (device time, CUDA
+    graphs: packed, split, packed, split, packed, split; the per-token rows
+    built before the graph) at each cell's packed step, where the packed
+    kernel runs its tiles, and at each cell's all-decode step (64 / 128
+    one-token segments), where a call of at most SPLIT_SWEEP_TOKENS tokens
+    runs the split sweep's passes alone and may not be slower than it
+    beyond its spread between calls (ALL_DECODE_SPREAD)."""
+    steps = [(name, heads, slots, lanes, False)
+             for name, (heads, slots, lanes) in CELL_STEPS.items()]
+    steps += [(f"{name} all-decode", heads, slots, slots, True)
+              for name, (heads, slots, _) in CELL_STEPS.items()]
+    for n, (name, heads, slots, lanes, dec) in enumerate(steps):
+        case, t_valid = cell_step(heads, slots, lanes, seed=2700 + n,
+                                  decode_only=dec)
+        group = heads[0] // heads[1]
+        t, h, _ = case["q"].shape
+        check(uses_tiles(t) != dec, f"{name}: {t} lanes, tiles "
+              f"{uses_tiles(t)}")
+        for static_max in (False, True):
+            qo = torch.full((t, h, CELL_MAX_LEN), -128, dtype=torch.int8,
+                            device="cuda")
+            got = hccs_packed_prefill(**case, static_max=static_max,
+                                      qint_out=qo)
+            check_against_split(case, got, qo, f"{name} static="
+                                f"{static_max}", static_max=static_max)
+        rows = per_token_rows(case)
+        packed = (lambda: hccs_packed_prefill(**case))
+        split = (lambda: split_per_token(case, rows))
+        times = {"packed": [], "split": []}
+        for _ in range(3):
+            times["packed"].append(graph_time_ms(packed))
+            times["split"].append(graph_time_ms(split))
+        bound_f32, bound_top, nbytes, ops = cell_bound(case, heads)
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        segs = t_valid[t_valid > 0]
+        log(f"[kernel] {name} step: {lanes} lanes ("
+            f"{'tiled' if uses_tiles(t) else 'split sweep'}), {len(segs)} "
+            f"segments ({int((segs == 1).sum())} of one token, longest "
+            f"{int(segs.max())}), frontiers up to "
+            f"{int(case['lengths'].max())}, heads {heads[0]}/{heads[1]}, "
+            f"tile_fill {100 * tile_fill(t_valid, lanes, group):.2f}% "
+            f"({tile_tokens(group)} tokens a tile); device ms packed "
+            + " / ".join(f"{x:.4f}" for x in times["packed"])
+            + ", split per token "
+            + " / ".join(f"{x:.4f}" for x in times["split"])
+            + f" (median {med['split'] / med['packed']:.2f}x); bound "
+            f"{bound_f32:.4f} ms at the f32 CUDA-core rate, {bound_top:.4f}"
+            f" ms at the top rate ({nbytes / 1e6:.1f} MB, "
+            f"{ops / 1e9:.2f} GOP): roofline "
+            f"{100 * bound_top / med['packed']:.2f}% packed, "
+            f"{100 * bound_top / med['split']:.2f}% split; packed "
+            f"{kernel_passes(packed)}; split {kernel_passes(split)}")
+        if dec:
+            ran = set(pass_times(packed))
+            check(ran == {"pass1", "pass2", "pass3"},
+                  f"{name} step: the packed call ran {sorted(ran)}, not "
+                  f"the split sweep's three passes")
+            check(med["packed"] <= med["split"] * (1 + ALL_DECODE_SPREAD),
+                  f"{name} step slower packed ({times['packed']}) than the "
+                  f"split sweep ({times['split']}) beyond its spread "
+                  f"({100 * ALL_DECODE_SPREAD:.1f}%)")
 
 
 # ---------------------------------------------------------------- phase 4 --

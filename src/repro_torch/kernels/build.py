@@ -5,7 +5,8 @@ source, all started together, for `sm_90a` (Hopper), then linked into one
 shared library with a plain C interface. The sources share headers:
 `csrc/hccs_common.cuh` (element loads, locators, Stage 5; kv_quant.cu uses
 its loads) and the split-KV sweep `csrc/hccs_split.cuh` (hccs_arena.cu,
-hccs_packed.cu, hccs_paged.cu).
+hccs_packed.cu, hccs_paged.cu), with the query-tiled sweep
+`csrc/hccs_tiled.cuh` over it (hccs_packed.cu).
 The library:
 
     build/repro_torch_kernels/libkernels-<hash>.so

@@ -5,14 +5,18 @@
 // Element types and loads of the four pool types, 16-byte cp.async, the
 // warp max, the Stage 5 reciprocal (the float formulas of
 // repro/core/hccs.py hccs_mode_inv), how a block of a paged pool is located
-// through a block-table row, the shared memory opt-in and the launch
-// geometry check.
+// through a block-table row, the shared memory opt-in, the device's
+// attributes and a kernel's resident blocks (each read once), and the
+// launch geometry check.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <vector>
 
 namespace hccs {
 
@@ -109,6 +113,65 @@ inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
+}
+
+// An attribute of the current device (slot 0: its streaming
+// multiprocessors, 1: the shared memory a block can opt in to), read once a
+// device; `fallback` (the H100's) where it cannot be read.
+inline int device_attr(int slot, int fallback) {
+  static int cached[2][64] = {};
+  const cudaDeviceAttr attr[2] = {cudaDevAttrMultiProcessorCount,
+                                  cudaDevAttrMaxSharedMemoryPerBlockOptin};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
+    return fallback;
+  if (cached[slot][dev] == 0 &&
+      cudaDeviceGetAttribute(&cached[slot][dev], attr[slot], dev) !=
+          cudaSuccess)
+    return fallback;
+  return cached[slot][dev];
+}
+
+// The blocks of `kernel` (`threads` a block, `smem` bytes of dynamic shared
+// memory) an SM holds at once, with its shared memory cap raised (to the
+// largest smem seen) and its carveout set to the most shared memory. Both
+// are set, and the count read, once a (kernel, device, smem); later calls
+// read the cached count and make no runtime call but cudaGetDevice.
+template <class Kernel>
+inline cudaError_t resident_blocks(Kernel kernel, int threads, size_t smem,
+                                   int* per_sm) {
+  struct Seen {
+    const void* fn;
+    int dev;
+    size_t smem;
+    int per_sm;
+  };
+  static std::mutex mu;
+  static std::vector<Seen> seen;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> lock(mu);
+  size_t cap = smem;  // never below a size an earlier launch still uses
+  for (const Seen& s : seen) {
+    if (s.fn != fn || s.dev != dev) continue;
+    if (s.smem == smem) {
+      *per_sm = s.per_sm;
+      return cudaSuccess;
+    }
+    if (s.smem > cap) cap = s.smem;
+  }
+  err = allow_smem(kernel, cap);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                        threads, smem);
+  if (err == cudaSuccess) seen.push_back(Seen{fn, dev, smem, *per_sm});
+  return err;
 }
 
 inline bool valid_geometry(int group, int d) {

@@ -1,8 +1,9 @@
 // hccs_split.cuh — the split-KV single-query HCCS sweep, run by
-// hccs_arena.cu (hccs_decode), hccs_packed.cu (hccs_packed_prefill) and
-// hccs_paged.cu (hccs_paged_decode).
+// hccs_arena.cu (hccs_decode) and hccs_paged.cu (hccs_paged_decode); its
+// workspace, helpers and combine pass also serve the query-tiled sweep of
+// hccs_packed.cu (hccs_packed_prefill, hccs_tiled.cuh).
 //
-// Replaces, for those three kernels, the body the Pallas TPU kernels share,
+// Replaces, for those kernels, the body the Pallas TPU kernels share,
 // `_decode_tile` (src/repro/kernels/decode.py:65). Each query row (a slot or
 // a packed token) computes, per query head h, over its live keys j < nk:
 //
@@ -46,9 +47,10 @@
 // from shared memory once per four heads; in PV a warp owns a head and a
 // lane columns lane + 32u, walking the split's keys with s and V in shared
 // memory. The price is the partials' traffic (d + 2 words per (row, head,
-// split)) and two more launches. At prefill widths every token of a slot
-// reads the slot's K/V again (from L2): sharing a tile across a slot's
-// tokens is later work.
+// split)) and two more launches. Single-query rows want this parallelism
+// over keys; a prefill chunk's tokens would each read their slot's K/V
+// again, so the packed kernel shares each staged split across a tile of a
+// slot's tokens instead (hccs_tiled.cuh), with the same numerics.
 //
 // Numerics, bit for bit with the JAX kernels on exact inputs: the logit is
 // one sequential fmaf chain over c = 0..d-1 (int8 pools dequantized as

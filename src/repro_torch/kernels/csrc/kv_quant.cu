@@ -129,23 +129,6 @@ struct FoldArgs {
   int64_t pool_ls, scale_ls;  // layer strides of the pools and scales
 };
 
-// an attribute of the current device (slot 0: its streaming
-// multiprocessors, 1: the shared memory a block can opt in to), read once a
-// device; `fallback` (the H100's) where it cannot be read
-int device_attr(int slot, int fallback) {
-  static int cached[2][64] = {};
-  const cudaDeviceAttr attr[2] = {cudaDevAttrMultiProcessorCount,
-                                  cudaDevAttrMaxSharedMemoryPerBlockOptin};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
-    return fallback;
-  if (cached[slot][dev] == 0 &&
-      cudaDeviceGetAttribute(&cached[slot][dev], attr[slot], dev) !=
-          cudaSuccess)
-    return fallback;
-  return cached[slot][dev];
-}
-
 int hash_size(int R) {
   int h = 32;
   while (h < 2 * R) h <<= 1;

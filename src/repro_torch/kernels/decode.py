@@ -12,12 +12,19 @@ Three entry points compute the same single-query sweep (the JAX package's
                        [0, lengths[b]) of a contiguous (B, Hkv, Tmax, d)
                        arena (csrc/hccs_arena.cu)
 
-On the card all three run the split-KV sweep (`csrc/hccs_split.cuh`):
-(row, kv head, SPLIT_KEYS-key split) work items in three passes (QK and
-split maxima; partial Z and s @ V; the fixed-order combine and Stage 5;
-passes 1 and 2 fused under static_max), all enqueued by one C call into
-one workspace the wrapper allocates (`workspace_bytes`). The row type each
-source instantiates the sweep on (PackedRows, PagedRows, ArenaRows) says
+On the card the two decode kernels run the split-KV sweep
+(`csrc/hccs_split.cuh`): (row, kv head, SPLIT_KEYS-key split) work items in
+three passes (QK and split maxima; partial Z and s @ V; the fixed-order
+combine and Stage 5; passes 1 and 2 fused under static_max). The packed
+kernel runs the query-tiled sweep (`csrc/hccs_tiled.cuh`): the same passes
+and partials, but a work item is a tile of up to `tile_tokens(group)`
+consecutive tokens of one slot segment against one split, so a prefill
+chunk's K/V split is staged once for TILE_ROWS (token, head) rows instead
+of once per token; the tile list is built on the card in the same call.
+A packed call of at most SPLIT_SWEEP_TOKENS tokens (decode lanes, at
+serving widths) runs the split sweep. Each call is one C call into one
+workspace the wrapper allocates (`workspace_bytes`). The row type each
+source instantiates its sweep on (PackedRows, PagedRows, ArenaRows) says
 where a row's keys live.
 
 Each wrapper dispatches on the tensors' device: CUDA tensors launch the
@@ -53,6 +60,14 @@ MAX_SMEM_BYTES = 232448          # H100: dynamic shared memory per block
 # and the alignment of each workspace region (kWsAlign)
 SPLIT_KEYS = 128
 WS_ALIGN = 256
+# the query-tiled sweep of csrc/hccs_tiled.cuh (hccs_packed_prefill): the
+# (token, head) rows of a tile (kTileRows), so tile_tokens(group) tokens a
+# tile: 16 at granite-3-2b's GQA group of 4, 32 at granite-moe's 2
+TILE_ROWS = 64
+# a packed call of at most this many tokens runs the split sweep
+# (kSplitSweepTokens): at such widths a serving step is one-token decode
+# lanes, which a tile cannot share a split across
+SPLIT_SWEEP_TOKENS = 128
 
 
 def sm_denom(head_dim: int) -> float:
@@ -63,7 +78,7 @@ def sm_denom(head_dim: int) -> float:
 def split_smem_bytes(group: int, head_dim: int, elem_size: int,
                      static_max: bool) -> int:
     """Dynamic shared memory of the largest pass of the split sweep
-    (every decode wrapper; hccs::split_smem_bytes): per
+    (hccs_paged_decode and hccs_decode; hccs::split_smem_bytes): per
     key its pool offset and V scale, per (warp, head) a max, the group's
     queries (QK) and s per (head, key) (PV, both in the static_max pass),
     and the split's SPLIT_KEYS rows of K or V, each padded to 16 bytes plus
@@ -76,24 +91,63 @@ def split_smem_bytes(group: int, head_dim: int, elem_size: int,
     return fixed + (qk + pv if static_max else max(qk, pv))
 
 
+def tile_tokens(group: int) -> int:
+    """Tokens of a full tile of the packed kernel (hccs::tile_tokens)."""
+    return 1 if group >= TILE_ROWS else TILE_ROWS // group
+
+
+def uses_tiles(tokens: int) -> bool:
+    """Whether a packed call of `tokens` lanes runs the tiled sweep (else
+    the split sweep; kSplitSweepTokens in csrc/hccs_tiled.cuh)."""
+    return tokens > SPLIT_SWEEP_TOKENS
+
+
+def tiled_smem_bytes(head_dim: int, static_max: bool) -> int:
+    """Dynamic shared memory of the largest pass of the tiled sweep
+    (hccs_packed_prefill; hccs::tiled_smem_bytes of its wide tiles, which
+    need more than its narrow ones): per key its pool offset and K and V
+    scales, per tile token its frontier, per (warp, row) of a narrow tile
+    (16 rows) a partial maximum or Z, the split's allocated keys as 128
+    bits; the tile's TILE_ROWS query rows (QK) or s per (key, row) (PV) in
+    one union, or the QK pass's logits (TILE_ROWS rows of SPLIT_KEYS + 4
+    floats); the split's SPLIT_KEYS rows staged as float32 whatever the
+    pool. Query and K rows take head_dim rounded to 8, plus 4, floats, the
+    V rows of a PV pass head_dim rounded to 4."""
+    stride = -(-head_dim // 8) * 8 + 4
+    head = SPLIT_KEYS * 16 + TILE_ROWS * 4 + (SPLIT_KEYS // 32) * 16 * 4 + 16
+    q, s = TILE_ROWS * stride * 4, SPLIT_KEYS * (TILE_ROWS + 4) * 4
+    kv = SPLIT_KEYS * stride * 4
+    if static_max:
+        return head + max(q, s) + kv
+    v = SPLIT_KEYS * -(-head_dim // 4) * 4 * 4      # V rows, unpadded
+    return head + max(q + kv, s + v, TILE_ROWS * (SPLIT_KEYS + 4) * 4)
+
+
 def split_count(max_len: int) -> int:
     """Key splits of a row of capacity max_len."""
     return -(-max_len // SPLIT_KEYS)
 
 
 def workspace_bytes(rows: int, heads: int, max_len: int, head_dim: int, *,
-                    qint_scratch: bool) -> int:
-    """Bytes of the one workspace a split-sweep call takes
+                    qint_scratch: bool, tiles: bool = False) -> int:
+    """Bytes of the one workspace a call takes
     (hccs::split_workspace_bytes): the int8 q_int scratch (rows, heads,
     max_len) when the call needs its own (no qint_out, not static_max), the
     split maxima and partial Z (rows, heads, nsplit) int32 and the partial
     s @ V (rows, heads, nsplit, head_dim) f32, each region aligned to
-    WS_ALIGN bytes."""
+    WS_ALIGN bytes. With `tiles` (the packed kernel;
+    hccs::tiled_workspace_bytes) the last region is aligned too and the
+    tile list follows: a work item per (tile, split) (four int32: first
+    token, tokens, top frontier, split), 3 int32 counters, and per tile its
+    first token, tokens and top frontier (int32)."""
     def align(n):
         return -(-n // WS_ALIGN) * WS_ALIGN
     rh, ns = rows * heads, split_count(max_len)
-    return ((align(rh * max_len) if qint_scratch else 0)
-            + 2 * align(rh * ns * 4) + rh * ns * head_dim * 4)
+    split = ((align(rh * max_len) if qint_scratch else 0)
+             + 2 * align(rh * ns * 4) + rh * ns * head_dim * 4)
+    if not tiles:
+        return split
+    return align(split) + rows * ns * 16 + (3 + 3 * rows) * 4
 
 
 # ----------------------------------------------------------- plain versions --
@@ -280,13 +334,14 @@ def _check_table(block_table, rows=None):
 
 
 def _launch(fn, entry: str, args, q, k, *, qint_out, qint_len,
-            **ctx) -> torch.Tensor:
+            tiles: bool = False, **ctx) -> torch.Tensor:
     """Launch one of the CUDA kernels on `q`'s device and stream: the shared
     launch limits and qint_out checks, the output and workspace
     allocation, then `build.launch` (device, contiguity, error check,
-    launch count): one C call, whatever the number of passes. `ctx` are
-    the entry point's trailing int arguments, in order, before pool type,
-    mode, static_max."""
+    launch count): one C call, whatever the number of passes. `tiles`: the
+    kernel runs the tiled sweep (its shared memory and workspace). `ctx`
+    are the entry point's trailing int arguments, in order, before pool
+    type, mode, static_max."""
     r, h, d = q.shape
     g = h // k.shape[1]
     dev = cuda_device(*args, qint_out)
@@ -294,7 +349,8 @@ def _launch(fn, entry: str, args, q, k, *, qint_out, qint_len,
         raise ValueError(f"kernel takes GQA groups <= {MAX_GROUP} and "
                          f"head_dim <= {MAX_HEAD_DIM}, got {g} and {d}")
     static_max = ctx["static_max"]
-    smem = split_smem_bytes(g, d, k.element_size(), static_max)
+    smem = (tiled_smem_bytes(d, static_max) if tiles
+            else split_smem_bytes(g, d, k.element_size(), static_max))
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"kernel needs {smem} B of shared memory, over the "
                          f"{MAX_SMEM_BYTES} B a block can have")
@@ -308,7 +364,7 @@ def _launch(fn, entry: str, args, q, k, *, qint_out, qint_len,
     with span("repro.workspace"):
         ws = torch.empty(workspace_bytes(
             r, h, qint_len, d,
-            qint_scratch=qint_out is None and not static_max),
+            qint_scratch=qint_out is None and not static_max, tiles=tiles),
             dtype=torch.uint8, device=dev)
     mode, static_max = ctx.pop("mode"), ctx.pop("static_max")
     launch(fn, entry, dev, *args, out, qint_out, ws, ws.numel(),
@@ -339,12 +395,23 @@ def hccs_packed_prefill(q, k_pool, v_pool, block_table, slot_ids, lengths,
     scale: (H,) float32 logit scales; theta: (H, 3) int32 per-head
     (B, S, D). Returns (T, H, d) float32.
 
-    CUDA tensors run the split sweep's passes through one C call (and bump
-    `hccs_packed_prefill.launches` once); CPU tensors run
-    `hccs_packed_prefill_ref`. qint_out, for on-card testing only, is an
-    int8 (T, H, nblk * block_size) CUDA tensor, prefilled by the caller,
-    that receives the kernel's quantized logits at the live keys; it then
-    serves as the kernel's q_int scratch."""
+    CUDA tensors run the tiled sweep's passes through one C call (and bump
+    `hccs_packed_prefill.launches` once); a call of at most
+    SPLIT_SWEEP_TOKENS tokens runs the split sweep instead (`uses_tiles`:
+    such a step is decode lanes, where the split sweep is the faster); CPU
+    tensors run `hccs_packed_prefill_ref`. The tiles are cut on the card from
+    slot_ids: each run of equal slot ids >= 0 (a slot segment, as
+    `serve/paged.py` pack_slot_ids lays them out) into tiles of
+    `tile_tokens(group)` tokens, a one-token segment being a one-token
+    tile. A tile's block stages each 128-key split of its slot's K and V
+    once for all its tokens, so a prefill chunk is bound by its QK and PV
+    products on the f32 CUDA cores, not by re-reading its K/V per token; a
+    decode lane is bound by its slot's K/V bytes. Output and q_int equal
+    the split sweep's (`hccs_paged_decode` run per token) bit for bit.
+    qint_out, for on-card testing only, is an int8 (T, H, nblk *
+    block_size) CUDA tensor, prefilled by the caller, that receives the
+    kernel's quantized logits at the live keys; it then serves as the
+    kernel's q_int scratch."""
     _check(q, k_pool, v_pool, scale, theta, mode, k_scales, v_scales,
            pool=True)
     _check_table(block_table)
@@ -362,8 +429,9 @@ def hccs_packed_prefill(q, k_pool, v_pool, block_table, slot_ids, lengths,
         hccs_packed_prefill, "hccs_packed_prefill_launch",
         [q, k_pool, v_pool, k_scales, v_scales, block_table, slot_ids,
          lengths, scale, theta], q, k_pool, qint_out=qint_out,
-        qint_len=nblk * bs, T=q.shape[0], num_kv=hkv,
-        group=q.shape[1] // hkv, block_size=bs, nblk=nblk, d=d, **kw)
+        qint_len=nblk * bs, tiles=uses_tiles(q.shape[0]), T=q.shape[0],
+        num_kv=hkv, group=q.shape[1] // hkv, block_size=bs, nblk=nblk, d=d,
+        **kw)
 
 
 def hccs_paged_decode(q, k_pool, v_pool, block_table, lengths, scale, theta,

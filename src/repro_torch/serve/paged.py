@@ -120,6 +120,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.decode import tile_tokens, uses_tiles
 from repro_torch.kernels.kv_quant import paged_quant_scatter_kv
 from repro_torch.models import model as M
 from repro_torch.models.attention import kernel_on
@@ -538,6 +539,26 @@ def pack_slot_ids(t_valid, width: int):
     return sid, off
 
 
+# padding_stats' keys of the port alone (the JAX engine has no tiled kernel)
+TILE_STATS = ("tile_rows_valid", "tile_rows_total", "tile_fill")
+
+
+def tile_rows(t_valid, width: int, tokens: int,
+              group: int) -> tuple[int, int]:
+    """(valid, total) (token, query head) rows of the tiles the packed
+    attention kernel cuts a step of `width` lanes into
+    (`kernels/csrc/hccs_tiled.cuh`): each slot's segment of t_valid tokens
+    in tiles of `tokens`, `group` rows a token; none at a width that runs
+    the split sweep (`uses_tiles`). Read from the host's schedule, never
+    from the device."""
+    if not uses_tiles(width):
+        return 0, 0
+    tv = np.asarray(t_valid, np.int64)
+    tv = tv[tv > 0]
+    return (int(tv.sum()) * group,
+            int((-(-tv // tokens)).sum()) * tokens * group)
+
+
 def _slot_write_targets(table_row, start: int, tv: int, bs: int):
     """Flat pool positions for one slot's next tv tokens: token i lands at
     table_row[(start+i)//bs] * bs + (start+i) % bs."""
@@ -765,6 +786,11 @@ class PagedEngine:
         self.lanes_valid = 0
         self.lanes_total = 0
         self.pad_lanes_skipped = 0
+        # rows of the packed kernel's tiles (tile_rows), packed steps only
+        self._group = max(cfg.num_heads // max(cfg.num_kv_heads, 1), 1)
+        self._tile_tokens = tile_tokens(self._group)
+        self.tile_rows_valid = 0
+        self.tile_rows_total = 0
         self.decode_steps = 0
 
         # prefix sharing: the trie holds its own reference on every indexed
@@ -1211,11 +1237,22 @@ class PagedEngine:
     def padding_stats(self) -> dict:
         """Token-lane telemetry: efficiency = valid lanes / padded lanes over
         every step so far, plus the estimated lanes the lockstep layout would
-        have burned extra."""
+        have burned extra; and (TILE_STATS, packed steps) tile_fill = the
+        valid rows of the packed attention kernel's tiles over their rows."""
         return dict(lanes_valid=self.lanes_valid,
                     lanes_total=self.lanes_total,
                     efficiency=self.lanes_valid / max(self.lanes_total, 1),
-                    pad_lanes_skipped=self.pad_lanes_skipped)
+                    pad_lanes_skipped=self.pad_lanes_skipped,
+                    tile_rows_valid=self.tile_rows_valid,
+                    tile_rows_total=self.tile_rows_total,
+                    tile_fill=(self.tile_rows_valid
+                               / max(self.tile_rows_total, 1)))
+
+    def _count_tiles(self, t_valid, width: int):
+        valid, total = tile_rows(t_valid, width, self._tile_tokens,
+                                 self._group)
+        self.tile_rows_valid += valid
+        self.tile_rows_total += total
 
     # ------------------------------------------------------------- slots --
 
@@ -1760,6 +1797,7 @@ class PagedEngine:
                                        + np.arange(tv))
             self.lanes_valid += int(t_valid.sum())
             self.lanes_total += width
+            self._count_tiles(t_valid, width)
             self._count_pad_lanes(live, remaining, t_valid, width)
         with prof.phase("alloc_cow"):
             draft_allocs = self._alloc_and_cow(
@@ -1928,6 +1966,7 @@ class PagedEngine:
                                        + np.arange(tv))
             self.lanes_valid += int(t_valid.sum())
             self.lanes_total += width
+            self._count_tiles(t_valid, width)
             self._count_pad_lanes(live, remaining, t_valid, width)
         with prof.phase("alloc_cow"):
             self._alloc_and_cow(t_valid)
@@ -2347,13 +2386,16 @@ class PagedEngine:
     def snapshot(self) -> dict:
         """The schema-versioned telemetry snapshot (T.make_snapshot):
         lifecycle latencies and step phases when telemetry is on, with the
-        prefix, padding, KV-byte, occupancy and robustness counters."""
+        prefix, padding, KV-byte, occupancy and robustness counters. The
+        padding counters are the JAX engine's (the schema is shared):
+        padding_stats less TILE_STATS."""
         return T.make_snapshot(
             "paged", self.telemetry,
             kv_cache=kv_cache_byte_stats(self._cache, self.cfg, None),
             occupancy=(self.occupancy_sum / self.occupancy_steps
                        if self.occupancy_steps else None),
             prefix=self.prefix_stats(),
-            padding=self.padding_stats(),
+            padding={k: v for k, v in self.padding_stats().items()
+                     if k not in TILE_STATS},
             robustness=(self.robust_counters.snapshot()
                         if self._robust else None))

@@ -16,7 +16,9 @@ import pytest
 import torch_async as A
 from repro.serve import PagedEngine as JPaged
 from repro.serve import Request as JRequest
+from repro_torch.kernels.decode import SPLIT_SWEEP_TOKENS
 from repro_torch.serve import PagedEngine, Request
+from repro_torch.serve.paged import TILE_STATS
 
 
 @pytest.fixture
@@ -50,7 +52,12 @@ def _same_run(eng, jeng):
         (jeng.occupancy_steps, jeng.async_overlapped_steps,
          jeng.async_sync_fallbacks)
     assert eng.prefix_stats() == jeng.prefix_stats()
-    assert eng.padding_stats() == jeng.padding_stats()
+    pad = eng.padding_stats()
+    assert {k: v for k, v in pad.items() if k not in TILE_STATS} == \
+        jeng.padding_stats()
+    # no tiles: every step is narrow enough for the split sweep
+    assert max(eng._widths) <= SPLIT_SWEEP_TOKENS
+    assert pad["tile_rows_valid"] == pad["tile_rows_total"] == 0
 
 
 LEGS = {

@@ -719,3 +719,280 @@ def test_split_sweep_matches_jax_packed_kernel(inputs, mode, static_max,
 def test_split_sweep_matches_jax_paged_kernel(inputs, mode, static_max,
                                               pool, split):
     _check_split("paged", pool, inputs, mode, static_max, split)
+
+
+# ----------------------------------------- the tiled sweep (emulated) --
+#
+# On the card `hccs_packed_prefill` runs the query-tiled sweep of
+# csrc/hccs_tiled.cuh. `_tiled_sweep` emulates it in numpy: the tile list
+# cut from slot_ids (runs of equal ids >= 0, every `tq` tokens from a
+# run's first token), per (tile, split) the split's keys staged once up to
+# the tile's top frontier (dead keys: K left unstaged, here NaN; V a zero
+# row), each row's logits as one sequential fmaf chain, q_int and the
+# split maxima at the row's own live keys, then m over the row's own
+# splits, s, the partial Z and the masked key-order s @ V (a key past a
+# row's frontier is never multiplied), and the split sweep's combine. The
+# case has one slot segment of each of 1, 2, TQ - 1, TQ, TQ + 1 tokens for
+# every tile height TQ, one of 33, a second run of a slot, a zero-length
+# row, pad lanes, sentinel blocks inside two frontiers, and NaN in every
+# pool row past every frontier of its slot and in the unowned blocks, so a
+# key read past a tile's top, or a dead key multiplied, shows as NaN.
+# Held against the JAX packed kernel (interpret mode) and the port's plain
+# version as the split cases are (exact: bit-identical to the plain
+# version and the JAX kernel's q_int; random: MAX_FLIPS, RANDOM_ATOL), and
+# bit for bit against `_split_sweep` on random inputs too.
+
+TILE_HEIGHTS = (1, 3, 4, 16)
+TILE_SPLIT = 12                   # split boundaries inside 8-key blocks
+# (slot, first position, tokens) of each run, in lane order; slot 9's token
+# has length 0
+TILE_RUNS = ((0, 40, 33), (1, 12, 1), (2, 23, 2), (3, 0, 3), (4, 60, 4),
+             (5, 7, 5), (6, 80, 15), (7, 11, 16), (8, 50, 17), (9, 0, 1),
+             (0, 74, 1))
+TILE_SENTINELS = ((0, 2), (8, 3))  # (slot, block) inside a frontier
+
+
+def _tiles(slot_ids, tq):
+    """The kernel's tile list: [(first token, tokens)] in token order."""
+    tiles, t, n = [], 0, len(slot_ids)
+    while t < n:
+        u = t
+        while u < n and slot_ids[u] == slot_ids[t]:
+            u += 1
+        if slot_ids[t] >= 0:
+            tiles += [(a, min(tq, u - a)) for a in range(t, u, tq)]
+        t = u
+    return tiles
+
+
+def _tiled_sweep(q, kg, vg, alloc, slot_ids, lengths, scale, theta, mode,
+                 static_max, split, tq):
+    """The tiled sweep's passes on each token's gathered keys: q (T, H, d)
+    f32; kg, vg (T, Hkv, L, d) f32, dequantized, the keys of the token's
+    slot (a tile stages them once, from its first token's slot); alloc
+    (T, L) keys in an allocated block. Returns the output (T, H, d) f32 and
+    q_int (T, H, L), NEG_BIG at dead keys."""
+    t_, h, d = q.shape
+    hkv, length = kg.shape[1], kg.shape[2]
+    g = h // hkv
+    nsplit = -(-length // split)
+    fr_all = np.where(slot_ids >= 0, np.minimum(lengths, length), 0)
+    q_int = np.full((t_, h, length), NEG_BIG, np.int64)
+    smax = np.full((t_, h, nsplit), NEG_BIG, np.int64)
+    z = np.zeros((t_, h, nsplit), np.int64)
+    acc = np.zeros((t_, h, nsplit, d), np.float32)
+    b_, s_, d_ = (theta[:, i].astype(np.int64) for i in range(3))
+    items = []
+    for t0, n in _tiles(slot_ids, tq):
+        toks = np.arange(t0, t0 + n)
+        fr = fr_all[toks]
+        for s in range(-(-max(int(fr.max()), 0) // split)):
+            k0 = s * split
+            keys = np.arange(k0, min(int(fr.max()), k0 + split))
+            staged = alloc[t0, keys]
+            kk = np.where(staged[None, :, None], kg[t0][:, keys], np.nan)
+            vv = np.where(staged[None, :, None], vg[t0][:, keys], 0.0)
+            rowlive = (keys[None, :] < fr[:, None]) & staged[None, :]
+            items.append((toks, fr, s, k0, keys, vv, rowlive))
+            # pass 1: (n, Hkv, g, keys) dot products, q_int, split maxima
+            qq = q[toks].reshape(n, hkv, g, 1, d)
+            dot = np.zeros((n, hkv, g, len(keys)), np.float32)
+            with np.errstate(invalid="ignore"):
+                for c in range(d):
+                    dot = _fma_f32(qq[..., c], kk[None, :, None, :, c], dot)
+                logits = dot.reshape(n, h, -1) / np.float32(sm_denom(d))
+                logits = logits / scale[None, :, None]
+                qv = np.clip(np.rint(logits), -128, 127)
+            live = np.broadcast_to(rowlive[:, None, :], qv.shape)
+            qv = np.where(live, np.nan_to_num(qv), NEG_BIG).astype(np.int64)
+            q_int[toks[:, None], np.arange(h)[None, :], k0:k0 + len(keys)] = qv
+            mine = fr > k0
+            smax[toks[mine], :, s] = qv[mine].max(-1)
+    for toks, fr, s, k0, keys, vv, rowlive in items:
+        # pass 2: m over the row's own splits, s, Z, masked s @ V
+        n = len(toks)
+        ns = -(-fr // split)
+        m = np.stack([smax[t, :, :max(c, 1)].max(-1) for t, c in
+                      zip(toks, ns)]) if not static_max else \
+            np.full((n, h), 127)
+        qv = q_int[toks][:, :, k0:k0 + len(keys)]
+        live = np.broadcast_to(rowlive[:, None, :], qv.shape)
+        sc = np.where(live, b_[None, :, None] - s_[None, :, None]
+                      * np.minimum(m[..., None] - qv, d_[None, :, None]), 0)
+        nlim = np.clip(fr - k0, 0, len(keys))
+        v = np.repeat(vv, g, axis=0)                     # (H, keys, d)
+        part = np.zeros((n, h, d), np.float32)
+        for j in range(len(keys)):
+            on = (j < nlim)[:, None, None]
+            part = np.where(on, _fma_f32(sc[:, :, j, None].astype(np.float32),
+                                         v[None, :, j], part), part)
+        mine = fr > k0
+        z[toks[mine], :, s] = sc[mine].sum(-1)
+        acc[toks[mine], :, s] = part[mine]
+    # pass 3: each row's own splits in order, then Stage 5
+    out = np.zeros((t_, h, d), np.float32)
+    for t in np.flatnonzero(fr_all > 0):
+        a = np.zeros((h, d), np.float32)
+        for s in range(-(-fr_all[t] // split)):
+            a = a + acc[t, :, s]
+        zz = np.maximum(z[t, :, :-(-fr_all[t] // split)].sum(-1)
+                        .astype(np.float32), 1.0)
+        inv = hccs_mode_inv(torch.from_numpy(zz), mode).numpy()[:, None]
+        out[t] = (a * inv).astype(np.float32)
+    return out, q_int
+
+
+@functools.lru_cache(maxsize=None)
+def _tiled_case(pool, exact):
+    """The packed case of TILE_RUNS (see the section comment), its inputs
+    clean (for the JAX kernel and the plain version), and each token's
+    gathered keys and values with NaN in every row no token may read."""
+    rng = np.random.default_rng(zlib.crc32(repr(("tiled", pool, exact))
+                                           .encode()))
+    h = 2 * HKV
+    sid, lens = [], []
+    top = {}
+    for slot, p0, n in TILE_RUNS:
+        sid += [slot] * n
+        lens += [0] * n if slot == 9 else list(range(p0 + 1, p0 + n + 1))
+        top[slot] = max(top.get(slot, 0), lens[-1])
+    sid += [-1, -1]
+    lens += [0, 0]
+    nblk = -(-max(top.values()) // BS) + 1
+    need = {s: -(-f // BS) for s, f in top.items()}
+    n_blocks = sum(need.values()) + 3
+    shape = (n_blocks, HKV, BS, D)
+    if exact:
+        q = rng.integers(-8, 9, (len(sid), h, D)) / 8.0
+        k = rng.integers(-8, 9, shape) / 8.0
+        v = rng.integers(-8, 9, shape) / 8.0
+        scale = rng.uniform(0.015, 0.03, h)
+    else:
+        q = rng.normal(0, 1, (len(sid), h, D))
+        k = rng.normal(0, 1, shape)
+        v = rng.normal(0, 1, shape)
+        scale = rng.uniform(0.01, 0.04, h)
+    theta = np.stack([rng.integers(120, 200, h), rng.integers(0, 2, h),
+                      rng.integers(16, 100, h)], -1).astype(np.int32)
+    table = np.full((10, nblk), -1, np.int32)
+    blocks = rng.permutation(np.arange(1, n_blocks))
+    c = 0
+    for s, nb in sorted(need.items()):
+        table[s, :nb] = blocks[c:c + nb]
+        c += nb
+    for s, b in TILE_SENTINELS:
+        table[s, b] = -1
+    case = dict(q=q.astype(np.float32), block_table=table,
+                slot_ids=np.asarray(sid, np.int32),
+                lengths=np.asarray(lens, np.int32),
+                scale=scale.astype(np.float32), theta=theta)
+    if pool == "int8":
+        sc = (np.full((n_blocks, HKV), 0.125) if exact
+              else rng.uniform(0.05, 0.2, (n_blocks, HKV)))
+        case.update(k_pool=np.clip(np.round(k * 8), -127, 127)
+                    .astype(np.int8),
+                    v_pool=np.clip(np.round(v * 8), -127, 127)
+                    .astype(np.int8),
+                    k_scales=sc.astype(np.float32),
+                    v_scales=sc[::-1].astype(np.float32).copy())
+    else:
+        case.update(k_pool=k.astype(np.float32), v_pool=v.astype(np.float32))
+    # each token's keys, as staged: f32, dequantized; NaN past its slot's
+    # top frontier and in sentinel blocks
+    t = _as(case, pool, "torch")
+    rows = np.maximum(case["slot_ids"], 0)
+    tbl = torch.from_numpy(np.maximum(table[rows], 0)).long()
+    cols = np.arange(nblk * BS)
+    alloc = table[rows][:, cols // BS] >= 0
+    tops = np.asarray([top.get(s, 0) if s >= 0 else 0
+                       for s in case["slot_ids"]])
+    reach = alloc & (cols[None, :] < tops[:, None])
+
+    def gather(pool_, scales):
+        g = pool_[tbl].float()
+        if scales is not None:
+            g = g * scales[tbl][..., None, None]
+        g = g.permute(0, 2, 1, 3, 4).reshape(len(rows), HKV, nblk * BS, D)
+        return np.where(reach[:, None, :, None], g.numpy(), np.nan)
+    return case, (gather(t["k_pool"], t.get("k_scales")),
+                  gather(t["v_pool"], t.get("v_scales")), alloc)
+
+
+@functools.lru_cache(maxsize=None)
+def _tiled_want(pool, exact, mode, static_max):
+    """The JAX kernel's output and quantized logits on the clean case, and
+    the port's plain version's output."""
+    case, _ = _tiled_case(pool, exact)
+    j, t = _as(case, pool, "jax"), _as(case, pool, "torch")
+    kw = dict(mode=mode, static_max=static_max)
+    out = ops.hccs_packed_prefill(
+        j["q"], j["k_pool"], j["v_pool"], j["block_table"], j["slot_ids"],
+        j["lengths"], j["scale"], j["theta"], k_scales=j.get("k_scales"),
+        v_scales=j.get("v_scales"), **kw)
+    plain = hccs_packed_prefill(
+        t["q"], t["k_pool"], t["v_pool"], t["block_table"], t["slot_ids"],
+        t["lengths"], t["scale"], t["theta"], k_scales=t.get("k_scales"),
+        v_scales=t.get("v_scales"), **kw)
+    kp = dict(case, k_pool=np.asarray(j["k_pool"].astype(jnp.float32)))
+    jq = _jax_qint(kp, "int8" if pool == "int8" else "f32")
+    return np.asarray(out), jq, plain.numpy()
+
+
+# every tile height on one mode; the mode reaches only the combine pass,
+# which the tiled sweep shares with the split sweep, so the other two run
+# at granite's tile height
+TILE_MODES = [("wide", tq) for tq in TILE_HEIGHTS] + [
+    ("i16_div", 16), ("i16_clb", 16)]
+
+
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("static_max", [False, True])
+@pytest.mark.parametrize("mode,tq", TILE_MODES)
+@pytest.mark.parametrize("inputs", ["exact", "random"])
+def test_tiled_sweep_matches_jax_packed_kernel(inputs, mode, tq, static_max,
+                                               pool):
+    exact = inputs == "exact"
+    case, (kg, vg, alloc) = _tiled_case(pool, exact)
+    want, jq, plain = _tiled_want(pool, exact, mode, static_max)
+    args = (case["q"], kg, vg, alloc, case["slot_ids"], case["lengths"],
+            case["scale"], case["theta"], mode, static_max, TILE_SPLIT)
+    got, qi = _tiled_sweep(*args, tq)
+    assert np.isfinite(got).all()
+    # the split sweep on the same inputs (its own live-key masks)
+    valid = alloc & (np.arange(kg.shape[2])[None, :]
+                     < np.where(case["slot_ids"] >= 0, case["lengths"],
+                                0)[:, None])
+    split, sq = _split_sweep(case["q"], kg, vg, valid, case["scale"],
+                             case["theta"], mode, static_max, TILE_SPLIT)
+    np.testing.assert_array_equal(qi, sq)
+    np.testing.assert_array_equal(got.view(np.int32), split.view(np.int32))
+    live = np.broadcast_to(valid[:, None, :], qi.shape)
+    flipped = (qi != jq) & live
+    empty = np.flatnonzero(~valid.any(-1))
+    assert len(empty) >= 3                  # zero-length row, two pad lanes
+    np.testing.assert_array_equal(got[empty], 0.0)
+    np.testing.assert_array_equal(want[empty], 0.0)
+    if exact:
+        assert not flipped.any()
+        np.testing.assert_array_equal(got, plain)
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    else:
+        clean = ~flipped.any(-1)
+        assert flipped.sum() <= MAX_FLIPS
+        np.testing.assert_allclose(got[clean], want[clean], rtol=0,
+                                   atol=RANDOM_ATOL)
+
+
+@pytest.mark.parametrize("tq", TILE_HEIGHTS)
+def test_tile_list_cuts_every_run(tq):
+    """The tile list covers every token of a run >= 0 once, in token order,
+    each tile within one run and at most tq tokens, a run of n tokens in
+    ceil(n / tq) tiles; pad lanes and other runs are never in a tile."""
+    case, _ = _tiled_case("f32", True)
+    sid = case["slot_ids"]
+    tiles = _tiles(sid, tq)
+    covered = np.concatenate([np.arange(a, a + n) for a, n in tiles])
+    np.testing.assert_array_equal(covered, np.flatnonzero(sid >= 0))
+    assert all(1 <= n <= tq and (sid[a:a + n] == sid[a]).all()
+               for a, n in tiles)
+    assert len(tiles) == sum(-(-n // tq) for _, _, n in TILE_RUNS)

@@ -565,12 +565,14 @@ def test_kernel_api_builds_nothing_at_import():
     assert res.stdout.split()[0] == "True"
 
 
-def _fake_cuda_args(name):
+def _fake_cuda_args(name, rows=2):
     """Arguments of each kernel wrapper as CUDA tensors without a card:
-    FakeTensors carry a device and a shape, and no data."""
+    FakeTensors carry a device and a shape, and no data. `rows`: the
+    packed kernel's tokens."""
     f32, i32 = torch.float32, torch.int32
     q3, pool, sc, th = ((2, 4, 16), f32), ((5, 2, 8, 16), f32), \
         ((4,), f32), ((4, 3), i32)
+    tok = (((rows, 4, 16), f32), ((rows,), i32))
     shapes = {
         "hccs_rows": [((4, 16), torch.int8), ((4, 3), i32)],
         "softmax_bf16": [((4, 16), torch.bfloat16)],
@@ -580,8 +582,8 @@ def _fake_cuda_args(name):
                         ((2,), i32), sc, th],
         "hccs_paged_decode": [q3, pool, pool, ((2, 3), i32), ((2,), i32),
                               sc, th],
-        "hccs_packed_prefill": [q3, pool, pool, ((2, 3), i32), ((2,), i32),
-                                ((2,), i32), sc, th],
+        "hccs_packed_prefill": [tok[0], pool, pool, ((2, 3), i32), tok[1],
+                                tok[1], sc, th],
     }[name]
     return [torch.empty(shape, dtype=dt, device="cuda")
             for shape, dt in shapes]
@@ -640,21 +642,27 @@ def _record_launches(monkeypatch):
 @pytest.mark.parametrize("with_qint", [False, True])
 @pytest.mark.parametrize("static_max", [False, True])
 @pytest.mark.parametrize("name", ["hccs_decode", "hccs_packed_prefill",
-                                  "hccs_paged_decode"])
+                                  "hccs_paged_decode",
+                                  "hccs_packed_prefill_tiled"])
 def test_split_wrappers_make_one_c_call_with_their_workspace(
         name, static_max, with_qint, monkeypatch):
-    """The split-sweep wrappers enqueue all their passes through one C
+    """The split-sweep wrappers (and the packed one's tiled sweep, past
+    SPLIT_SWEEP_TOKENS tokens) enqueue all their passes through one C
     call: it gets a uint8 workspace of `workspace_bytes` (no q_int scratch
-    of its own when qint_out is given or under static_max), qint_out in the
-    scratch's place right before it, and the wrapper counts one launch."""
+    of its own when qint_out is given or under static_max; the tile list
+    after it for the tiled sweep), qint_out in the scratch's place right
+    before it, and the wrapper counts one launch."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.kernels import decode
+    tiled = name.endswith("_tiled")
+    name = name.removesuffix("_tiled")
     calls = _record_launches(monkeypatch)
     wrapper = getattr(decode, name)
     before = wrapper.launches
     with FakeTensorMode(allow_non_fake_inputs=True):
-        args = _fake_cuda_args(name)
+        args = _fake_cuda_args(
+            name, rows=decode.SPLIT_SWEEP_TOKENS + 1 if tiled else 2)
         r, h, d = args[0].shape
         length = 11 if name == "hccs_decode" else 3 * 8
         qo = (torch.empty((r, h, length), dtype=torch.int8, device="cuda")
@@ -668,7 +676,9 @@ def test_split_wrappers_make_one_c_call_with_their_workspace(
         assert len(ws) == 1
         i = ws[0]
         want = decode.workspace_bytes(
-            r, h, length, d, qint_scratch=not with_qint and not static_max)
+            r, h, length, d, qint_scratch=not with_qint and not static_max,
+            tiles=tiled)
+        assert decode.uses_tiles(r) == tiled
         assert cargs[i].numel() == cargs[i + 1] == want
         assert cargs[i - 1] is qo and cargs[i - 2] is out
         assert cargs[-2] == int(static_max)

@@ -20,6 +20,7 @@ from repro.models import model as JM
 from repro.serve import paged as JP
 from repro.serve.engine import Request as JRequest
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode import SPLIT_SWEEP_TOKENS, tile_tokens
 from repro_torch.models import model as M
 from repro_torch.serve import paged as PP
 from repro_torch.serve.engine import Request as PRequest
@@ -99,6 +100,21 @@ def test_schedule_and_packing_match(seed):
         np.testing.assert_array_equal(wj, wpp)
 
 
+@pytest.mark.parametrize("group", [2, 4])
+def test_tile_rows_cut_segments_past_the_split_sweep_width(group):
+    """The engine's tile counters: each slot's segment in tiles of
+    tile_tokens(group) tokens, group rows a token, at a width past
+    SPLIT_SWEEP_TOKENS; nothing at a width the split sweep runs."""
+    tq = tile_tokens(group)
+    t_valid = np.array([tq * 2 + 1, 1, 0, tq, tq - 1, 0])
+    wide = SPLIT_SWEEP_TOKENS + 1
+    valid, total = PP.tile_rows(t_valid, wide, tq, group)
+    assert valid == int(t_valid.sum()) * group
+    assert total == (3 + 1 + 1 + 1) * tq * group
+    assert PP.tile_rows(t_valid, SPLIT_SWEEP_TOKENS, tq, group) == (0, 0)
+    assert PP.tile_rows(np.zeros(4, int), wide, tq, group) == (0, 0)
+
+
 @pytest.mark.parametrize("kernel,mode", [("fused", "wide"),
                                          ("static_max", "i16_div")])
 def test_engine_matches_jax_engine(tiny_cfg, kernel, mode):
@@ -124,7 +140,14 @@ def test_engine_matches_jax_engine(tiny_cfg, kernel, mode):
         assert jeng.occupancy_steps == peng.occupancy_steps
     assert outs[0] == outs[1]
     assert sorted(outs[1]) == [0, 1, 2, 3]
-    assert jeng.padding_stats() == peng.padding_stats()
+    pad = peng.padding_stats()
+    assert jeng.padding_stats() == {k: v for k, v in pad.items()
+                                    if k not in PP.TILE_STATS}
+    # the port alone counts its packed kernel's tile rows: none here, where
+    # every step is narrow enough for the split sweep
+    assert max(peng._widths) <= SPLIT_SWEEP_TOKENS
+    assert pad["tile_rows_valid"] == pad["tile_rows_total"] == 0
+    assert pad["lanes_valid"] > 0
     assert jeng.alloc.num_free == peng.alloc.num_free == jeng.num_blocks - 1
     # the same traffic twice through the port: identical (deterministic)
     again = PP.PagedEngine(pparams, pcfg, device="cpu", **kw)
