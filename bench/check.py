@@ -1,9 +1,10 @@
 """How `correct` is decided for a served cell.
 
 Once the window has closed, a sample of the requests it finished, drawn
-from the seed and always holding the longest, is recomputed by the plain
-reference (bench/reference/decoder.py) over each prompt with its served
-tokens. At every served position, two numbers:
+from the seed and always holding the longest, is recomputed by the
+configuration's plain reference (bench/reference/<model>.py, through its
+model module's `logits_at`) over each prompt with its served tokens. At
+every served position, two numbers:
 
   gap        reference's best logit - reference's logit of the served token
   logit_err  |the engine's own logit of the token it served - the
@@ -23,8 +24,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-
-from bench.reference import decoder
 
 # positions whose logit error exceeds TAIL are counted (`over_tail`, a
 # diagnostic beside the compared numbers)
@@ -86,10 +85,11 @@ def sample(done, seed: int, n: int) -> list:
     return [order[0]] + [rest[i] for i in sorted(pick)]
 
 
-def reference_logits(weights, hccs, cfg, reqs, cast=None):
-    """The reference's logits at each served position of each request:
-    the sequence is the prompt and every served token but the last, the
-    rows the prompt's last position onwards."""
+def reference_logits(model, weights, hccs, cfg, reqs, cast=None):
+    """The reference's logits (the model module's `logits_at`) at each
+    served position of each request: the sequence is the prompt and every
+    served token but the last, the rows the prompt's last position
+    onwards."""
     dev = weights["embed"]["table"].device
     seqs, rows = [], []
     for r in reqs:
@@ -97,8 +97,8 @@ def reference_logits(weights, hccs, cfg, reqs, cast=None):
         seq = np.concatenate([p, o[:-1]]).astype(np.int64)
         seqs.append(torch.as_tensor(seq, device=dev))
         rows.append(torch.arange(len(p) - 1, len(seq), device=dev))
-    with torch.no_grad(), decoder.full_float32():
-        return decoder.logits_at(weights, hccs, seqs, rows, cfg, cast)
+    with torch.no_grad():
+        return model.logits_at(weights, hccs, seqs, rows, cfg, cast)
 
 
 def readings(ref, reqs, own) -> dict:

@@ -1,7 +1,8 @@
-"""The benchmark's yardstick of work: the chip's peaks, the operations and
-bytes of one `hccs_packed_prefill` call from the step's schedule, and the
-model FLOPs of a token. Counted from shapes, never from the program's own
-counters."""
+"""The benchmark's yardstick of work: the chip's peaks, and the operations
+and bytes of one `hccs_packed_prefill` call from the step's schedule.
+Counted from shapes, never from the program's own counters. A model's
+FLOPs, and the shape and number of its attention calls, are its model
+module's (bench/models/<model>.py)."""
 from __future__ import annotations
 
 # one NVIDIA H100 SXM, dense rates without sparsity (NVIDIA's data sheet),
@@ -38,26 +39,3 @@ def bound_seconds(ops: float, nbytes: float, peak_ops: float = PEAK_TOP,
     """The least time the chip could take: the larger of the two bounds."""
     return max(ops / peak_ops, nbytes / peak_bytes)
 
-
-def dense_params_per_token(cfg: dict) -> int:
-    """Active non-embedding parameters a token passes through: the
-    attention projections, and the MLP or the router and its top-k
-    experts (not the capacity padding)."""
-    d, f = cfg["d_model"], cfg["d_ff"]
-    hd = cfg["head_dim"]
-    attn = d * cfg["num_heads"] * hd * 2 + d * cfg["num_kv_heads"] * hd * 2
-    if cfg["num_experts"]:
-        mlp = d * cfg["num_experts"] + cfg["experts_per_token"] * 3 * d * f
-    else:
-        mlp = 3 * d * f
-    return cfg["num_layers"] * (attn + mlp)
-
-
-def model_flops(cfg: dict, tokens: int, keys: int, sampled_rows: int) -> float:
-    """Model FLOPs of a stretch of steps: 2 x active parameters per token
-    processed, HCCS attention's QK and PV over every token's live keys in
-    every layer, and the LM head over the published vocabulary on each row
-    that was sampled."""
-    attn = 4.0 * cfg["num_heads"] * cfg["head_dim"] * keys * cfg["num_layers"]
-    head = 2.0 * cfg["d_model"] * cfg["vocab_size"] * sampled_rows
-    return 2.0 * dense_params_per_token(cfg) * tokens + attn + head

@@ -8,7 +8,9 @@ The program under test is `repro_torch`'s packed PagedEngine. The
 harness drives it through submit and step; it reaches into the engine
 only to warm the width ladder (one device step a rung) and, from outside,
 to wrap its device seam and a few functions for spans, counters and the
-logits it sampled from."""
+logits it sampled from. Whatever is model-specific (the program's config,
+the weights, the reference's logits, the work counts) comes from the
+module that the configuration file names (spec.Bench.model)."""
 from __future__ import annotations
 
 import gc
@@ -20,7 +22,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from bench import check, spec, weights
+from bench import check, spec
 from bench import tracing as tr
 from bench.reference.precision import Fp8
 
@@ -38,28 +40,6 @@ def log(msg: str):
 def forbidden_modules() -> list[str]:
     return sorted({m.split(".")[0] for m in list(sys.modules)}
                   & set(FORBIDDEN))
-
-
-def port_config(conf: dict):
-    """The program's ModelConfig of a configuration file: the registry's
-    architecture with the file's sizes and the port's settings."""
-    from repro_torch.configs.registry import get_config
-    port = {k: v for k, v in conf["port"].items() if k != "padded_vocab"}
-    sizes = dict(num_layers=conf["num_hidden_layers"],
-                 d_model=conf["hidden_size"],
-                 num_heads=conf["num_attention_heads"],
-                 num_kv_heads=conf["num_key_value_heads"],
-                 head_dim=conf["hidden_size"] // conf["num_attention_heads"],
-                 d_ff=conf["intermediate_size"],
-                 vocab_size=conf["vocab_size"],
-                 rope_theta=conf["rope_theta"],
-                 num_experts=conf.get("num_local_experts", 0),
-                 experts_per_token=conf.get("num_experts_per_tok", 0))
-    cfg = get_config(conf["arch"]).replace(**sizes, **port)
-    if cfg.padded_vocab != conf["port"]["padded_vocab"]:
-        raise ValueError(f"padded vocab {cfg.padded_vocab} != "
-                         f"{conf['port']['padded_vocab']}")
-    return cfg
 
 
 def percentile(values, q: float):
@@ -174,13 +154,14 @@ def run(bench: spec.Bench, cell_name: str, seed: int, seconds: float,
     engine_kw = dict(conf["engine"], **settings.get("engine", {}),
                      **sizes.get("engine", {}))
     mix = dict(bench.mix(cell["traffic"]), **sizes.get("mix", {}))
-    ref_cfg = spec.reference_config(conf)
-    cfg = port_config(conf)
+    model = bench.model(conf)
+    ref_cfg = model.reference_config(conf)
+    cfg = model.port_config(conf)
     gen = bench.generator(mix["kind"])
     traffic = gen.Traffic(mix, engine_kw, conf["vocab_size"], seed)
 
-    w = weights.make_weights(ref_cfg, seed, device)
-    hccs = weights.make_hccs(ref_cfg, seed, device)
+    w = model.make_weights(ref_cfg, seed, device)
+    hccs = model.make_hccs(ref_cfg, seed, device)
     eng = PagedEngine({"weights": w, "hccs": hccs}, cfg, packed=True,
                       device=device, **engine_kw)
     warm_rungs(eng)
@@ -234,7 +215,7 @@ def run(bench: spec.Bench, cell_name: str, seed: int, seconds: float,
                 lanes_valid_per_step=h["lanes_valid"] / h["steps"])
         prof = tr.Profile(stretch.prof) if stretch is not None else None
         ctx = SimpleNamespace(
-            cfg=ref_cfg, host=h, profile=prof,
+            cfg=ref_cfg, model=model, host=h, profile=prof,
             stretch_steps=probe.stretch_steps,
             stretch_sampled=stretch.sampled if stretch else None,
             pool_bytes=eng._cache["layers"]["k"].element_size())
@@ -266,13 +247,13 @@ def run(bench: spec.Bench, cell_name: str, seed: int, seconds: float,
     t_ref = CLOCK()
     values = {}
     if reqs:
-        ref = check.reference_logits(w, hccs, ref_cfg, reqs)
+        ref = check.reference_logits(model, w, hccs, ref_cfg, reqs)
         values = check.readings(ref, reqs, own)
     ref_s = CLOCK() - t_ref
     low = None
     if control and reqs:
         low = check.control_readings(ref, check.reference_logits(
-            w, hccs, ref_cfg, reqs, cast=Fp8()))
+            model, w, hccs, ref_cfg, reqs, cast=Fp8()))
     log(f"reference {ref_s:.1f} s over {len(reqs)} requests: {values}")
     ok, checks = check.verdict(values, settings.get("limits", {}))
     ok = ok and counts["failed"] == 0

@@ -4,7 +4,8 @@ could take for every hccs_packed_prefill call of the stretch (the larger
 of its operations at the chip's top dense rate and its bytes at the HBM
 rate, bench/counts.py), over the device time of the kernel's launches
 (kernels/csrc/hccs_packed.cu, every pass: `PackedRows` in the name).
-Calls are counted from each step's schedule, one a layer."""
+Calls are counted from each step's schedule, as many a step as the
+model module's `attention_layers`, each of its `attention_shape`."""
 
 from bench import counts
 
@@ -18,11 +19,9 @@ def read(ctx):
     spent = p.kernel_s(KERNEL)
     if not spent or not ctx.stretch_steps:
         return None
-    c = ctx.cfg
+    shape = ctx.model.attention_shape(ctx.cfg)
     bound = 0.0
     for slots in ctx.stretch_steps:
-        ops, nbytes = counts.packed_call(slots, c["num_heads"],
-                                         c["num_kv_heads"], c["head_dim"],
-                                         ctx.pool_bytes)
+        ops, nbytes = counts.packed_call(slots, *shape, ctx.pool_bytes)
         bound += counts.bound_seconds(ops, nbytes)
-    return 100.0 * bound * c["num_layers"] / spent
+    return 100.0 * bound * ctx.model.attention_layers(ctx.cfg) / spent

@@ -2,15 +2,23 @@
 of a checkout: BENCHMARK.json beside bench/):
 
     BENCHMARK.json                   cells, configurations, metrics
-    bench/configs/<config>.json      one model configuration, as run
+    bench/configs/<config>.json      one model configuration, as run; its
+                                     "model" names
+    bench/models/<model>.py          all that is model-specific: the
+                                     reference's view of the file, the
+                                     program's config, weights and HCCS
+                                     constants, the reference's logits, the
+                                     CPU test sizes and the work counts
+    bench/reference/<model>.py       its plain reference, which imports
+                                     nothing of the program or the harness
     bench/traffic/<mix>.json         one traffic mix; its "kind" names
     bench/generators/<kind>.py       the generator that reads it
     bench/cells/<cell>.json          a cell's own settings: the limits of
                                      its correctness check, engine overrides
     bench/metrics/<metric>.py        one per-layer metric's reader, read(ctx)
 
-A new cell, configuration, mix or metric is a new file and a new entry;
-nothing here changes."""
+A new cell, configuration, model, mix or metric is new files and a new
+entry; nothing here changes."""
 from __future__ import annotations
 
 import importlib.util
@@ -52,6 +60,18 @@ class Bench:
                 return _json(self.root / c["file"])
         raise KeyError(f"no configuration {name!r} in BENCHMARK.json")
 
+    def model(self, conf: dict):
+        """The model module that the configuration file `conf` names under
+        "model": bench/models/<model>.py."""
+        if "model" not in conf:
+            raise ValueError(f"configuration {conf.get('name')!r} has no "
+                             f"key \"model\": it names the file under "
+                             f"bench/models/ that runs it")
+        name = conf["model"]
+        return _module(self.dir / "models" / f"{name}.py",
+                       "bench_model_" + name.replace(".", "_")
+                       .replace("-", "_"))
+
     def mix(self, name: str) -> dict:
         return _json(self.dir / "traffic" / f"{name}.json")
 
@@ -74,18 +94,3 @@ class Bench:
         return _module(path, "bench_metric_" + metric.replace(".", "_")
                        .replace("-", "_")).read
 
-
-def reference_config(conf: dict) -> dict:
-    """The reference's view of a configuration file: the published sizes
-    under their published names, and the port's settings it serves with."""
-    port = conf["port"]
-    return dict(
-        num_layers=conf["num_hidden_layers"], d_model=conf["hidden_size"],
-        num_heads=conf["num_attention_heads"],
-        num_kv_heads=conf["num_key_value_heads"],
-        head_dim=conf["hidden_size"] // conf["num_attention_heads"],
-        d_ff=conf["intermediate_size"], vocab_size=conf["vocab_size"],
-        padded_vocab=port["padded_vocab"], rope_theta=conf["rope_theta"],
-        num_experts=conf.get("num_local_experts", 0),
-        experts_per_token=conf.get("num_experts_per_tok", 0),
-        dtype=port["dtype"], hccs_mode=port["hccs_mode"], hccs=conf["hccs"])

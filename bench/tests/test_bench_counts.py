@@ -1,5 +1,7 @@
-"""The benchmark's work counts (bench/counts.py) against values worked out
-by hand."""
+"""The benchmark's work counts (bench/counts.py, and the decoder's through
+its model module's seam) against values worked out by hand."""
+from types import SimpleNamespace
+
 import pytest
 
 from bench import counts, spec
@@ -11,6 +13,14 @@ from bench import counts, spec
 # unallocated entry
 FRONTS = [2048, 1024, 777, 1500, 33, 100, 511, 1]
 TOKENS = [128, 100, 23, 1, 1, 1, 1, 1]
+
+
+def seam(name):
+    """The model module of configuration `name` and its reference view."""
+    bench = spec.Bench()
+    conf = bench.config(name)
+    model = bench.model(conf)
+    return model, model.reference_config(conf)
 
 
 def test_width_256_case_is_3_04_gflop():
@@ -43,15 +53,44 @@ def test_packed_call_bytes_by_hand():
     ("granite-moe-1b-a400m", 24 * (2097152 + 1048576 + 32768 + 12582912)),
 ])
 def test_active_parameters(name, per_token):
-    cfg = spec.reference_config(spec.Bench().config(name))
-    assert counts.dense_params_per_token(cfg) == per_token
+    model, cfg = seam(name)
+    assert model.active_params_per_token(cfg) == per_token
 
 
 def test_model_flops_by_hand():
-    cfg = spec.reference_config(spec.Bench().config("granite-3-2b"))
-    p = counts.dense_params_per_token(cfg)
+    model, cfg = seam("granite-3-2b")
+    p = model.active_params_per_token(cfg)
     assert 2 * p / 1e9 == pytest.approx(4.8654, abs=1e-4)
     # 10 tokens, 100 live keys over all of them, 3 sampled rows
     want = (2.0 * p * 10 + 4.0 * 32 * 64 * 100 * 40
             + 2.0 * 2048 * 49155 * 3)
-    assert counts.model_flops(cfg, 10, 100, 3) == want
+    assert model.model_flops(cfg, 10, 100, 3) == want
+
+
+@pytest.mark.parametrize("name,calls,shape", [
+    ("granite-3-2b", 40, (32, 8, 64)),
+    ("granite-moe-1b-a400m", 24, (16, 8, 64)),
+])
+def test_attention_calls(name, calls, shape):
+    model, cfg = seam(name)
+    assert model.attention_layers(cfg) == calls
+    assert model.attention_shape(cfg) == shape
+
+
+def test_roofline_counts_the_models_attention_calls():
+    """packed_attn_roofline takes the calls a step and their shape from the
+    model module: a model with 4 attention layers reads a tenth of one with
+    40 on the same schedule and device time."""
+    read = spec.Bench().reader("packed_attn_roofline")
+    steps = [[(10, 2), (0, 5)], [(12, 1)]]
+    ops, nbytes = zip(*(counts.packed_call(s, 32, 8, 64, 4) for s in steps))
+    bound = sum(counts.bound_seconds(o, b) for o, b in zip(ops, nbytes))
+
+    def reading(layers):
+        model = SimpleNamespace(attention_layers=lambda cfg: layers,
+                                attention_shape=lambda cfg: (32, 8, 64))
+        profile = SimpleNamespace(kernel_s=lambda name: 1e-3)
+        return read(SimpleNamespace(cfg={}, model=model, profile=profile,
+                                    stretch_steps=steps, pool_bytes=4))
+    assert reading(40) == 100.0 * bound * 40 / 1e-3
+    assert reading(4) == 100.0 * bound * 4 / 1e-3

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from bench import check, harness, spec, weights
+from bench import check, spec
 from bench.reference import decoder
 from bench.tests import tiny
 
@@ -20,16 +20,17 @@ CELLS = {"dense": "granite-3-2b.azure-code", "moe": "granite-moe-1b-a400m.azure-
 def setup(kind, seed=3):
     bench = spec.Bench()
     conf = tiny.config(bench, CELLS[kind])
-    ref_cfg = spec.reference_config(conf)
-    cfg = harness.port_config(conf)
-    w = weights.make_weights(ref_cfg, seed, "cpu")
-    hccs = weights.make_hccs(ref_cfg, seed, "cpu")
-    return ref_cfg, cfg, w, hccs
+    model = bench.model(conf)
+    ref_cfg = model.reference_config(conf)
+    cfg = model.port_config(conf)
+    w = model.make_weights(ref_cfg, seed, "cpu")
+    hccs = model.make_hccs(ref_cfg, seed, "cpu")
+    return model, ref_cfg, cfg, w, hccs
 
 
 @pytest.mark.parametrize("kind", ["dense", "moe"])
 def test_forward_matches_the_program(kind):
-    ref_cfg, cfg, w, hccs = setup(kind)
+    _, ref_cfg, cfg, w, hccs = setup(kind)
     tok = torch.randint(0, ref_cfg["vocab_size"], (40,),
                         generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
@@ -47,7 +48,7 @@ def test_served_logits_match_the_program(kind):
     over each prompt and its served tokens agrees with the engine's own
     logits at every served position, and every served token is the
     reference's first choice."""
-    ref_cfg, cfg, w, hccs = setup(kind)
+    model, ref_cfg, cfg, w, hccs = setup(kind)
     eng = PagedEngine({"weights": w, "hccs": hccs}, cfg, packed=True,
                       device="cpu", **tiny.ENGINE)
     tap = check.OwnLogits(eng)
@@ -61,7 +62,7 @@ def test_served_logits_match_the_program(kind):
         eng.step()
     done = [dict(uid=r.uid, prompt=r.prompt, out=list(r.out_tokens))
             for r in reqs]
-    ref = check.reference_logits(w, hccs, ref_cfg, done)
+    ref = check.reference_logits(model, w, hccs, ref_cfg, done)
     got = check.readings(ref, done, tap.own())
     assert got["tokens"] == 30
     assert got["logit_err"] < 1e-3 and got["gap"] < 1e-3, got

@@ -1,7 +1,7 @@
 """Each cell of BENCHMARK.json driven through the harness at a small size
 on the CPU, through the program's plain kernel versions: the result line
-has the contract's keys; a configuration, a mix, a cell and a per-layer
-metric added as new files and entries are found by name; and the
+has the contract's keys; a configuration, a model, a mix, a cell and a
+per-layer metric added as new files and entries are found by name; and the
 measuring path refuses to run without a card."""
 import json
 import shutil
@@ -104,6 +104,64 @@ def test_additions_are_found_by_name(tmp_path, monkeypatch):
     assert res["correct"] is True
     assert res["metrics"]["steps_counted"]["value"] > 0
     assert {"dispatch_ms", "lane_fill"} <= set(res["metrics"])
+    assert all(p.read_bytes() == data for p, data in before.items())
+
+
+# a second model module, added as a file: the decoder under another name,
+# with its own copy of the plain reference, loaded from beside it
+WIDE_HEAD = '''"""The decoder, through its own copy of the reference."""
+import importlib.util
+from pathlib import Path
+
+from bench.models.decoder import *  # noqa: F401,F403
+
+_at = Path(__file__).resolve().parents[1] / "reference" / "wide_head.py"
+_spec = importlib.util.spec_from_file_location("wide_head_reference", _at)
+reference = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(reference)
+
+
+def logits_at(weights, hccs, seqs, rows, cfg, cast=None):
+    with reference.full_float32():
+        return reference.logits_at(weights, hccs, seqs, rows, cfg, cast)
+'''
+
+
+def test_a_model_is_added_as_files(tmp_path, monkeypatch):
+    """A model module, its reference, a configuration naming it (head_dim
+    stated: 32 at the small size, not hidden / heads = 16) and a cell:
+    files and entries only, in a copy of the benchmark; a traced run is
+    correct and reads its metrics; no existing file changes."""
+    monkeypatch.setattr(harness, "STRETCH_S", 0.3)
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    shutil.copytree(ROOT / "bench", tmp_path / "bench",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    before = {p: p.read_bytes() for p in (tmp_path / "bench").rglob("*")
+              if p.is_file()}
+    b = tmp_path / "bench"
+    (b / "models" / "wide_head.py").write_text(WIDE_HEAD)
+    shutil.copy(b / "reference" / "decoder.py",
+                b / "reference" / "wide_head.py")
+    conf = json.loads((b / "configs" / "granite-3-2b.json").read_text())
+    conf.update(name="wide-head", model="wide_head", head_dim=128)
+    (b / "configs" / "wide-head.json").write_text(json.dumps(conf))
+    cell = "wide-head.azure-code"
+    (b / "cells" / f"{cell}.json").write_text(
+        (b / "cells" / "granite-3-2b.azure-code.json").read_text())
+    spec_ = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    spec_["configs"].append(dict(spec_["configs"][0], name="wide-head",
+                                 file="bench/configs/wide-head.json"))
+    spec_["workloads"].append(dict(spec_["workloads"][0], name=cell,
+                                   config="wide-head"))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec_))
+    bench = spec.Bench(tmp_path)
+    sizes = tiny.sizes(bench, cell)
+    assert (sizes["config"]["head_dim"], sizes["config"]["hidden_size"]
+            // sizes["config"]["num_attention_heads"]) == (32, 16)
+    res, _ = harness.run(bench, cell, 2 ** 31 + 5, 1.5, True, "cpu",
+                         time.perf_counter(), sizes)
+    assert res["correct"] is True, res["checks"]
+    assert {"mfu", "lane_fill"} <= set(res["metrics"])
     assert all(p.read_bytes() == data for p, data in before.items())
 
 
