@@ -191,6 +191,13 @@ Phases, in order:
                 float and 40 QAT steps at batch 32): Table I's baseline /
                 no-retrain / retrained
  35 report      one JSON line per the kernel table
+ 36 hybrid      granite-4.0-h-micro's Mamba-2 scan (kernels/ssd.py) at full
+                width against its plain version (fresh and continued
+                segments of 1-130 tokens, an idle slot, pad lanes; f32
+                and bf16) and timed at the benchmark cell's step; then the
+                model at full depth on the packed PagedEngine: a profiled
+                all-decode step at 4 and at 256 live slots launches as
+                many kernels inside every `repro.ssm` range
 
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero before it. `--phases` runs a subset (for bring-up).
@@ -204,6 +211,7 @@ import contextlib
 import dataclasses
 import importlib.util
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -253,6 +261,8 @@ from repro_torch.kernels.kv_quant import (  # noqa: E402
     paged_quant_scatter_ref)
 from repro_torch.kernels.softmax_bf16 import (softmax_bf16,  # noqa: E402
                                               softmax_bf16_ref)
+from repro_torch.kernels.ssd import (ssd_packed_scan,  # noqa: E402
+                                     ssd_packed_scan_ref)
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as moe_module  # noqa: E402
@@ -4851,10 +4861,232 @@ def kernel_entry(name, source, replaces, launches, tm, shape,
             "library_ms": library_ms, "shape": shape}
 
 
+# ------------------------------------------------------------ phase 36 --
+
+HYB_ARCH = "granite-4.0-h-micro"
+# the kernel check's slots: (tokens, position of the first) each; 0 tokens:
+# no segment; position 0: the segment starts from zero state
+HYB_SEGMENTS = ((1, 0), (2, 700), (3, 5), (37, 0), (130, 1200), (0, 0),
+                (1, 2047), (64, 64))
+HYB_PADS = 5
+# the benchmark cell's step (granite-4.0-h-micro.short-chat): 256 slots,
+# 243 one-token decode lanes and 13 prefill chunks of 128, at the 2048 rung
+HYB_CELL = dict(slots=256, decode=243, chunks=13, chunk=128, width=2048)
+# gates, far above a run's readings on an H100 80GB HBM3 at 700 W (y
+# 1.5e-6 in f32 and 2.8e-4 in bf16, state 7.9e-7): y against the plain
+# version relative to its largest |y|, the f32 state relative to its
+# largest entry; the conv window is a copy and must be equal
+HYB_Y_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+HYB_STATE_RTOL = 1e-4
+
+
+def hybrid_scan_case(slots_spec, pads, dtype, seed, cfg):
+    """Inputs of one ssd_packed_scan call: a packed row of the given
+    segments (in slot order, pad lanes at the tail), random stored state
+    and window, the layer's weights drawn as the benchmark draws them."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    di, nh, n, hp = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+    c, k = di + 2 * n, cfg.ssm_conv
+    lens = [t for t, _ in slots_spec]
+    width = sum(lens) + pads
+    sid = np.full(width, -1, np.int32)
+    pos = np.zeros(width, np.int32)
+    o = 0
+    for b, (t, p0) in enumerate(slots_spec):
+        sid[o:o + t] = b
+        pos[o:o + t] = p0 + np.arange(t)
+        o += t
+
+    def rn(*shape, std=1.0, dt=dtype):
+        return (torch.randn(shape, generator=g, device="cuda") * std).to(dt)
+    dt0 = torch.exp(math.log(1e-3) + (math.log(0.1) - math.log(1e-3))
+                    * torch.rand(nh, generator=g, device="cuda"))
+    case = dict(
+        zxbcdt=rn(width, di + c + nh), conv_w=rn(c, k, std=0.5),
+        conv_b=rn(c, std=0.5), conv_state=rn(len(lens), k - 1, c),
+        ssm_state=rn(len(lens), nh, n, hp, std=0.1, dt=torch.float32),
+        A_log=torch.log(1 + 15 * torch.rand(nh, generator=g, device="cuda")),
+        dt_bias=dt0 + torch.log(-torch.expm1(-dt0)),
+        D=torch.ones(nh, device="cuda"))
+    sid_t = torch.tensor(sid, device="cuda")
+    case["segments"] = ssm_module.packed_segments(
+        sid_t, torch.tensor(pos, device="cuda"), len(lens))
+    case["slot_ids"] = sid_t
+    return case
+
+
+def hybrid_scan(case, cfg, fn):
+    args = {k: (v.clone() if k in ("conv_state", "ssm_state") else v)
+            for k, v in case.items()}
+    y = fn(args["zxbcdt"], args["conv_w"], args["conv_b"],
+           args["conv_state"], args["ssm_state"], args["A_log"],
+           args["dt_bias"], args["D"], args["segments"], args["slot_ids"],
+           d_inner=cfg.d_inner, state=cfg.ssm_state,
+           head_dim=cfg.ssm_head_dim, groups=cfg.ssm_groups,
+           chunk=cfg.ssm_chunk)
+    return y, args["ssm_state"], args["conv_state"]
+
+
+def hybrid_launches(prof, ranges=("repro.ssm",)) -> dict:
+    """Kernel launches (runtime launch calls) inside each `ranges` range of
+    a profile: {name: [launches of each range]}."""
+    evs = [(e.name(), e.start_ns(), e.end_ns())
+           for e in prof.profiler.kineto_results.events()
+           if not str(e.device_type()).endswith("CUDA")]
+    calls = sorted(s for n, s, _ in evs
+                   if n.startswith(("cudaLaunch", "cuLaunch")))
+    out = {}
+    for name in ranges:
+        spans = sorted((s, e) for n, s, e in evs if n == name)
+        out[name] = [bisect.bisect_right(calls, e) - bisect.bisect_left(
+            calls, s) for s, e in spans]
+    return out
+
+
+def hybrid_check(case, cfg, dtype, what) -> float:
+    """One ssd_packed_scan call against its plain version on the same
+    inputs (each on its own copy of the stored state): y, the f32 state,
+    the conv window, y = 0 on the pad lanes and every idle slot's state
+    untouched. Fails the phase past the HYB_* gates; returns y's error
+    relative to its largest |y|."""
+    n0 = ssd_packed_scan.launches
+    with torch.inference_mode():
+        got = hybrid_scan(case, cfg, ssd_packed_scan)
+        torch.cuda.synchronize()
+        want = hybrid_scan(case, cfg, ssd_packed_scan_ref)
+    check(ssd_packed_scan.launches == n0 + 1, "ssd_packed_scan did not "
+          "launch")
+    dy = float((got[0].float() - want[0].float()).abs().max()
+               / want[0].float().abs().max())
+    ds = float((got[1] - want[1]).abs().max() / want[1].abs().max())
+    dw = bool(torch.equal(got[2], want[2]))
+    pads = case["slot_ids"] < 0
+    pad = float(got[0][pads].float().abs().max()) if bool(pads.any()) else 0.0
+    idle = case["segments"][1] == 0
+    untouched = bool(torch.equal(got[1][idle], case["ssm_state"][idle])
+                     and torch.equal(got[2][idle], case["conv_state"][idle]))
+    log(f"[hybrid] scan {what}, {dtype}: y rel {dy:.2e} (gate "
+        f"{HYB_Y_RTOL[dtype]}), state rel {ds:.2e} (gate {HYB_STATE_RTOL}), "
+        f"window equal {dw}, pad |y| {pad}, {int(idle.sum())} idle slots "
+        f"untouched {untouched}")
+    check(dy <= HYB_Y_RTOL[dtype] and ds <= HYB_STATE_RTOL and dw
+          and pad == 0.0 and untouched, f"ssd_packed_scan {what} {dtype} "
+          "differs from its plain version")
+    return dy
+
+
+def phase_hybrid():
+    """granite-4.0-h-micro's Mamba-2 scan (kernels/ssd.py, csrc/
+    ssd_packed.cu) at full width: against its plain version on a packed
+    row of fresh and continued segments of 1-130 tokens, an idle slot and
+    pad lanes, in f32 and bf16 (y, the f32 state, the conv window); then
+    at the benchmark cell's step (and its decode lanes and its chunks
+    alone), checked the same way and then timed beside its bound. Then the
+    model at full width and depth on the packed PagedEngine: one
+    all-decode step at 4 and at 256 live slots, profiled, must launch as
+    many kernels inside every `repro.ssm` range, and the kernel once a
+    Mamba-2 layer. Returns phase 35's timing and launches."""
+    cfg = get_config(HYB_ARCH)
+    kernel = ssd_packed_scan
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        hybrid_check(hybrid_scan_case(HYB_SEGMENTS, HYB_PADS, dtype, 5, cfg),
+                     cfg, dtype, "mixed segments")
+    hc = HYB_CELL
+    decode = [(1, 900 + b) for b in range(hc["decode"])]
+    chunks = [(hc["chunk"], 0 if b % 2 else 512) for b in range(hc["chunks"])]
+    nh, n, hp = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+    c = cfg.d_inner + 2 * n
+    state = nh * n * hp * 4 + (cfg.ssm_conv - 1) * c * 2
+    out["scan"] = {}
+    for what, spec in (("cell", decode + chunks), ("decode", decode),
+                       ("chunks", chunks)):
+        spec = spec + [(0, 0)] * (hc["slots"] - len(spec))
+        toks = sum(t for t, _ in spec)
+        pads = (hc["width"] if what == "cell" else toks) - toks
+        case = hybrid_scan_case(spec, pads, torch.bfloat16, 6, cfg)
+        err = hybrid_check(case, cfg, torch.bfloat16, what)
+        args = (case["zxbcdt"], case["conv_w"], case["conv_b"],
+                case["conv_state"], case["ssm_state"], case["A_log"],
+                case["dt_bias"], case["D"], case["segments"],
+                case["slot_ids"])
+        kw = dict(d_inner=cfg.d_inner, state=n, head_dim=hp, groups=1,
+                  chunk=cfg.ssm_chunk)
+
+        def call():
+            kernel(*args, **kw)
+        with torch.inference_mode():
+            ms, dev_ms = cuda_time_ms(call), graph_time_ms(call)
+            plain_ms = (cuda_time_ms(lambda: ssd_packed_scan_ref(*args, **kw),
+                                     iters=2, warmup=1)
+                        if what == "cell" else None)
+        nbytes = (sum(state * (2 if p0 else 1) for t, p0 in spec if t)
+                  + toks * (c + nh + cfg.d_inner) * 2)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"[hybrid] scan, {what} ({sum(1 for t, _ in spec if t)} "
+            f"segments, {toks} tokens, width {toks + pads}, "
+            f"{hc['slots']} slots, bf16): {ms:.4f} ms a call, device "
+            f"{dev_ms:.4f} ms, plain {plain_ms} ms, bound {bound_ms:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB), {100 * bound_ms / dev_ms:.1f}% of "
+            f"the roofline ({CARD})")
+        out["scan"][what] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                 bound_ms=bound_ms, bound_by="bytes",
+                                 max_abs_err=err, nbytes=nbytes)
+
+    params = M.init_params(cfg, seed=0, device="cuda")
+    counts = {}
+    for live in (4, 256):
+        eng = PagedEngine(params, cfg, max_batch=256, max_len=64,
+                          block_size=32, num_blocks=2 * 256 + 2,
+                          token_budget=4096, device="cuda")
+        rng = np.random.default_rng(live)
+        for i in range(live):
+            eng.submit(Request(uid=i, prompt=rng.integers(
+                0, cfg.vocab_size, 16).astype(np.int32), max_new_tokens=8))
+        eng.step()                               # every prompt in one step
+        eng.step()
+        torch.cuda.synchronize()
+        kernel.launches = 0
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            eng.step()                           # every lane a decode lane
+            torch.cuda.synchronize()
+        calls = kernel.launches
+        got = hybrid_launches(prof, ("repro.ssm", "repro.ssm.scan"))
+        counts[live] = got
+        on_card = sum(1 for e in device_events(prof)
+                      if "ssd_scan_kernel" in e.name
+                      or "ssd_window_kernel" in e.name)
+        log(f"[hybrid] {live} live slots, one decode step: launches a "
+            f"repro.ssm range {sorted(set(got['repro.ssm']))} over "
+            f"{len(got['repro.ssm'])} ranges, a repro.ssm.scan range "
+            f"{sorted(set(got['repro.ssm.scan']))}; ssd_packed_scan called "
+            f"{calls} times, {on_card} of its kernels on the card")
+        check(len(got["repro.ssm"]) == cfg.layers_of("mamba")
+              and len(set(got["repro.ssm"])) == 1,
+              f"{live} slots: the Mamba-2 layers launch unevenly")
+        check(calls == cfg.layers_of("mamba"), f"{live} slots: "
+              f"ssd_packed_scan called {calls} times in a step, not once a "
+              f"Mamba-2 layer")
+        check(on_card in (0, 2 * calls), f"{live} slots: {on_card} scan "
+              f"and window kernels on the card for {calls} calls, not 2 a "
+              f"call")
+        out["launches"] = calls
+        out["kernels_per_call"] = per_call(on_card, calls)
+        del eng
+        torch.cuda.empty_cache()
+    check(counts[4] == counts[256], "the Mamba-2 layer's launches grow "
+          "with the live slots")
+    out["launches_per_mixer"] = counts[4]["repro.ssm"][0]
+    return out
+
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default=",".join(str(p) for p in range(1, 36)),
+                    default=",".join(str(p) for p in range(1, 37)),
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -4977,14 +5209,18 @@ def main(argv=None):
     if 34 in phases:
         examples = phase_examples()
         mark(34)
+    hybrid = None
+    if 36 in phases:
+        hybrid = phase_hybrid()
+        mark(36)
     if 35 in phases:
         check(launches and timings and len(decode_timings) == 2
               and len(path_launches) == 2 and {11, 12, 13, 17} <= phases
               and table3_launches and fold_t and fold_launches and spec
               and overload and chaos and asynch and tele and sampling
               and cal and ckpt and served and moe and ssm_walls
-              and enc_launches and examples,
-              "phase 35 needs phases 3, 5 to 30 and 34")
+              and enc_launches and examples and hybrid,
+              "phase 35 needs phases 3, 5 to 30, 34 and 36")
         slice_launches = {
             "hccs_packed_prefill": dict(
                 spec=spec["packed"],
@@ -5069,7 +5305,16 @@ def main(argv=None):
                  slice_launches=slice_launches["paged_quant_scatter_kv"],
                  shapes={what: {k: tm[k] for k in (
                      "ms", "device_ms", "cold_ms", "plain_ms", "bound_ms",
-                     "bound_by")} for what, tm in fold_t["timing"].items()})
+                     "bound_by")} for what, tm in fold_t["timing"].items()}),
+            kernel_entry("ssd_packed_scan", "ssd_packed.cu",
+                         "none (the JAX package serves no SSM on its paged "
+                         "engine)", hybrid["launches"],
+                         hybrid["scan"]["cell"],
+                         f"{HYB_ARCH}: {HYB_CELL['slots']} slots, "
+                         f"{HYB_CELL['decode']} one-token and "
+                         f"{HYB_CELL['chunks']} x {HYB_CELL['chunk']}-token "
+                         f"segments, width {HYB_CELL['width']}, bf16",
+                         kernels_per_call=hybrid["kernels_per_call"])
         ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

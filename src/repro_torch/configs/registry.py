@@ -31,6 +31,10 @@ def get_config(arch: str) -> ModelConfig:
     if arch in ("bert-tiny", "bert-small"):
         mod = importlib.import_module("repro_torch.configs.bert")
         return mod.BERT_TINY if arch == "bert-tiny" else mod.BERT_SMALL
+    if arch == "granite-4.0-h-micro":   # port-only (no JAX twin)
+        mod = importlib.import_module(
+            "repro_torch.configs.granite_4_0_h_micro")
+        return mod.CONFIG
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
     return mod.CONFIG
 

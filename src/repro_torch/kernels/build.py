@@ -6,7 +6,8 @@ shared library with a plain C interface. The sources share headers:
 `csrc/hccs_common.cuh` (element loads, locators, Stage 5; kv_quant.cu uses
 its loads) and the split-KV sweep `csrc/hccs_split.cuh` (hccs_arena.cu,
 hccs_packed.cu, hccs_paged.cu), with the query-tiled sweep
-`csrc/hccs_tiled.cuh` over it (hccs_packed.cu).
+`csrc/hccs_tiled.cuh` over it (hccs_packed.cu); ssd_packed.cu (the
+Mamba-2 mixer's packed scan) stands alone.
 The library:
 
     build/repro_torch_kernels/libkernels-<hash>.so
@@ -141,6 +142,8 @@ def load_library() -> ctypes.CDLL:
         lib.paged_quant_scatter_kv_launch.restype = i
         lib.paged_quant_scatter_kv_smem_bytes.argtypes = [i] * 2
         lib.paged_quant_scatter_kv_smem_bytes.restype = sz
+        lib.ssd_packed_launch.argtypes = [vp] * 13 + [i] * 5 + [vp]
+        lib.ssd_packed_launch.restype = i
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,5 +1,6 @@
 """Transformer blocks: dense, MoE, Mamba2 (SSD) and Hymba-style hybrid —
-the port of `repro/models/blocks.py`.
+the port of `repro/models/blocks.py` — and the port-only interleaved
+family, whose layer is a Mamba-2 or an attention mixer then an MLP.
 
     apply_block(p, x, cfg, hccs, cache, length, positions, mrope_positions,
                 decode) -> (x, new_cache, aux)
@@ -50,8 +51,18 @@ def init_mlp(gen, cfg, dtype, device, layers: int):
 
 def init_block(gen, cfg, dtype, device, layers: int):
     """The L stacked blocks: (L, ...) leaves, the layout the JAX package's
-    vmapped init produces."""
+    vmapped init produces. The interleaved family stacks each mixer's
+    leaves over its own layers (`attn` over the attention layers, `ssm`
+    over the Mamba-2 ones) and the norms and the MLP over all L."""
     fam = cfg.family
+    if fam == "interleaved":
+        return {"norm1": init_norm(cfg, dtype, device, layers),
+                "attn": attn.init_attention(gen, cfg, dtype, device,
+                                            cfg.layers_of("attention")),
+                "ssm": ssm_mod.init_ssm(gen, cfg, dtype, device,
+                                        cfg.layers_of("mamba")),
+                "norm2": init_norm(cfg, dtype, device, layers),
+                "mlp": init_mlp(gen, cfg, dtype, device, layers)}
     p = {"norm1": init_norm(cfg, dtype, device, layers)}
     if fam in ATTN_FAMILIES:
         p["attn"] = attn.init_attention(gen, cfg, dtype, device, layers)
@@ -116,7 +127,10 @@ def apply_block(p, x, cfg, hccs=None, cache=None, length=None,
     new_cache: dict = {}
     fam = cfg.family
     h = apply_norm(p["norm1"], x, cfg)
-    if fam == "ssm":
+    if fam == "interleaved" and "ssm" in p:
+        with span("repro.ssm"):
+            x = x + ssm_mod.apply_mamba(p["ssm"], h, cfg, cache)
+    elif fam == "ssm":
         y, st = _ssd(p["ssm"], h, cfg, cache, decode)
         x = x + y
     elif fam == "hybrid":

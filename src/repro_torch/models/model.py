@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import init_hccs_head_params
 from repro_torch.models.layers import (DTYPES, apply_norm, embed_tokens,
                                       lm_logits)
@@ -66,7 +67,10 @@ def _init(cfg, gen, device, hccs_n_ref: int):
     hccs = {}
     if cfg.attention_prob == "hccs" and cfg.num_heads > 0:
         one = init_hccs_head_params(cfg, device, n_ref=hccs_n_ref)
-        hccs = {k: v[None].expand(L, -1).contiguous() for k, v in one.items()}
+        la = (cfg.layers_of("attention") if cfg.family == "interleaved"
+              else L)
+        hccs = {k: v[None].expand(la, -1).contiguous()
+                for k, v in one.items()}
     return {"weights": weights, "hccs": hccs}
 
 
@@ -147,6 +151,33 @@ def _layer(tree, i):
             for k, v in tree.items()}
 
 
+# the params and the per-layer cache leaves each mixer of the interleaved
+# family reads
+MIXER_PARAMS = {"mamba": "ssm", "attention": "attn"}
+MIXER_CACHE = {"mamba": ("ssm", "conv"),
+               "attention": ("k", "v", "k_scale", "v_scale")}
+
+
+def _layer_parts(layers, hccs, cache_layers, cfg, i):
+    """Layer i's (params, HCCS constants or None, cache leaves or None).
+    Every family but the interleaved one stacks every leaf over every
+    layer (a "block" layer). An interleaved model stacks the norms and the
+    MLP over every layer, and the mixer's params, HCCS constants
+    (attention layers only) and cache leaves over its own kind's layers
+    (cfg.layer_plan)."""
+    kind, j = (cfg.layer_plan[i] if cfg.family == "interleaved"
+               else ("block", i))
+    mixer = MIXER_PARAMS.get(kind)
+    p = {k: _layer(v, j if k == mixer else i) for k, v in layers.items()
+         if mixer is None or k not in MIXER_PARAMS.values() or k == mixer}
+    hc = ({k: v[j] for k, v in hccs.items()} or None
+          if kind != "mamba" else None)
+    lc = (None if cache_layers is None else
+          {k: v[j] for k, v in cache_layers.items()
+           if mixer is None or k in MIXER_CACHE[kind]})
+    return p, hc, lc
+
+
 def _block_caller(cfg):
     """apply_block without a cache, under torch.utils.checkpoint when
     cfg.remat asks for it and autograd is recording. Returns (x, aux)."""
@@ -181,7 +212,11 @@ def forward(weights, hccs, batch, cfg, cache=None, decode: bool = False):
     adds a (B,) `length`; the packed step passes explicit positions and no
     length). Default positions are length + arange(T). Layer i's K/V (and
     scales, and SSD state) are written into its slices in place. `decode`
-    runs the SSD's one-token recurrent step (decode_step sets it). Returns
+    runs the SSD's one-token recurrent step (decode_step sets it). An
+    interleaved model (configs/granite_4_0_h_micro.py) takes only the packed
+    paged step, whose cache adds each Mamba-2 layer's per-slot `ssm`
+    (Lm, S, nh, N, P) f32 and `conv` (Lm, S, K-1, C) state beside the
+    attention layers' pools (serve/paged.py init_paged_cache). Returns
     (hidden, cache, aux) like the JAX forward, aux the sum of the layers'
     MoE load-balance losses (0 without MoE); the returned cache's length is
     advanced by T. With `stage_rows` in the cache, the returned layers also
@@ -207,9 +242,8 @@ def forward(weights, hccs, batch, cfg, cache=None, decode: bool = False):
     if cache is None:
         call = _block_caller(cfg)
         for i in range(cfg.num_layers):
-            x, aux_l = call(_layer(weights["layers"], i), x,
-                            {k: v[i] for k, v in hccs.items()} or None,
-                            positions, mrope_positions)
+            lp, hc, _ = _layer_parts(weights["layers"], hccs, None, cfg, i)
+            x, aux_l = call(lp, x, hc, positions, mrope_positions)
             aux = aux + aux_l
         x = apply_norm(weights["final_norm"], x, cfg)
         return x, None, _aux_tensor(aux, x.device)
@@ -220,15 +254,23 @@ def forward(weights, hccs, batch, cfg, cache=None, decode: bool = False):
         extras["hot_len"] = length - cache.get(
             "prompt_len", torch.zeros((), dtype=torch.int32,
                                       device=x.device))
+    if cfg.family == "interleaved":
+        if "slot_ids" not in extras:
+            raise ValueError("an interleaved model's cache is the packed "
+                             "paged step's: its Mamba-2 state is per slot")
+        # each slot's segment of the step, once for every Mamba-2 layer
+        extras["segments"] = ssm_mod.packed_segments(
+            extras["slot_ids"], positions[0],
+            cache["layers"]["ssm"].shape[1])
     staged = {"staged_k": [], "staged_v": []}
     for i in range(cfg.num_layers):
-        lc = {name: leaf[i] for name, leaf in cache["layers"].items()}
+        lp, hc, lc = _layer_parts(weights["layers"], hccs, cache["layers"],
+                                  cfg, i)
         lc.update(extras)
         with span("repro.layer"):
             x, lnew, aux_l = blocks.apply_block(
-                _layer(weights["layers"], i), x, cfg,
-                {k: v[i] for k, v in hccs.items()} or None, lc, length,
-                positions, mrope_positions, decode=decode)
+                lp, x, cfg, hc, lc, length, positions, mrope_positions,
+                decode=decode)
         aux = aux + aux_l
         if "ssm" in lnew:
             cache["layers"]["ssm"][i].copy_(lnew["ssm"])

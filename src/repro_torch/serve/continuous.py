@@ -36,7 +36,8 @@ from repro_torch.serve import telemetry as T
 from repro_torch.serve.admission import (AdmissionQueue, QueueFull,
                                          RobustnessCounters, as_admission)
 from repro_torch.serve.engine import (BASE_KEY, Request, check_params_device,
-                                      kv_cache_byte_stats, sample_tokens,
+                                      kv_cache_byte_stats,
+                                      refuse_interleaved, sample_tokens,
                                       validate_prompt,
                                       warn_decode_kernel_fallback)
 
@@ -50,6 +51,7 @@ class ContinuousEngine:
                  cache_dtype=None, min_bucket: int = 16, telemetry=None,
                  admission=None, device=None):
         self.device = resolve_device(device)
+        refuse_interleaved(cfg, "the continuous engine")
         if cfg.hot_buffer != 0:
             raise ValueError(
                 "continuous batching uses the slot arena, not hot buffers "

@@ -65,6 +65,16 @@ class Request:
     first_token_step: int | None = None
 
 
+def refuse_interleaved(cfg, engine: str):
+    """The slot-arena engines hold one kind of layer cache for every layer;
+    an interleaved model (Mamba-2 and attention layers) is served by the
+    packed PagedEngine alone."""
+    if cfg.family == "interleaved":
+        raise ValueError(f"{engine}: {cfg.name} interleaves Mamba-2 and "
+                         "attention layers, whose per-slot state only the "
+                         "packed PagedEngine holds")
+
+
 def kv_cache_bytes(cache) -> int:
     """Allocated KV bytes of an engine cache (the slot arena or the paged
     block pool): k/v payload, the hot buffers, and the int8 pools'
@@ -168,6 +178,7 @@ class ServeEngine:
                  max_len: int = 512, eos_id: int | None = None,
                  cache_dtype=None, telemetry=None, device=None):
         self.device = resolve_device(device)
+        refuse_interleaved(cfg, "the wave engine")
         if cfg.kv_quant != "none":
             raise ValueError(
                 f"kv_quant={cfg.kv_quant!r} quantizes the paged block pool; "

@@ -601,7 +601,16 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, max_batch: int,
     the TPU's 128-lane tile; the CUDA kernels need no padding). The per-slot
     frontiers live on the host (PagedEngine._lengths); every packed step
     passes explicit positions. cache_dtype=None resolves to
-    cfg.cache_dtype. `max_batch` is kept for the JAX signature.
+    cfg.cache_dtype.
+
+    An interleaved model (a per-layer pattern of Mamba-2 and attention
+    mixers) holds pools for its attention layers only and, beside them,
+    each Mamba-2 layer's per-slot state, which the packed step reads and
+    writes in place (models/ssm.py apply_mamba):
+
+        ssm:             (Lm, max_batch, nh, N, P)   f32 SSD state
+        conv:            (Lm, max_batch, K-1, C)     the conv's last raw
+                                                     inputs, in cfg.dtype
 
     With cfg.kv_quant="int8" the pools are int8 whatever cache_dtype, and
     the layers carry `k_scale`/`v_scale` (L, N, Hkv) float32, one dequant
@@ -613,6 +622,9 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, max_batch: int,
     quant = cfg.kv_quant == "int8"
     dt = torch.int8 if quant else M.DTYPES[cache_dtype or cfg.cache_dtype]
     L, hkv = cfg.num_layers, cfg.num_kv_heads
+    interleaved = cfg.family == "interleaved"
+    if interleaved:
+        L = cfg.layers_of("attention")
     shape = (L, num_blocks, hkv, block_size, cfg.head_dim)
     layers = {"k": torch.zeros(shape, dtype=dt, device=device),
               "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -620,6 +632,15 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, max_batch: int,
         for name in ("k_scale", "v_scale"):
             layers[name] = torch.zeros((L, num_blocks, hkv),
                                        dtype=torch.float32, device=device)
+    if interleaved:
+        lm = cfg.layers_of("mamba")
+        layers["ssm"] = torch.zeros(
+            (lm, max_batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
+            dtype=torch.float32, device=device)
+        layers["conv"] = torch.zeros(
+            (lm, max_batch, cfg.ssm_conv - 1,
+             cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state),
+            dtype=M.DTYPES[cfg.dtype], device=device)
     return {"layers": layers}
 
 
@@ -853,6 +874,11 @@ class PagedEngine:
         self._admit_seq = np.zeros(max_batch, np.int64)
         self._qseq = np.zeros(max_batch, np.int64)   # queue seq (for requeue)
         self._submitted_ts = np.zeros(max_batch, float)
+        # per-slot Mamba-2 state (the interleaved family) is written by
+        # every step it runs: nothing can restore it to an earlier position
+        self.recurrent = cfg.family == "interleaved"
+        if self.recurrent:
+            self._refuse_for_recurrent_state()
         self._cache = init_paged_cache(cfg, self.num_blocks, bs, max_batch,
                                        cache_dtype, self.device)
         # the device half of each step, one seam per step kind: each takes
@@ -863,6 +889,24 @@ class PagedEngine:
         self._packed_spec_fn = self._packed_spec_forward
         self._packed_async_fn = self._packed_async_forward
         self._device_entered = False     # set by a seam as it starts
+
+    def _refuse_for_recurrent_state(self):
+        """Raise, naming the option, for what per-slot recurrent state
+        cannot follow yet: each needs the state of an earlier position (a
+        shared prefix's, a rejected draft's, a preempted request's) or the
+        lockstep layout's per-slot steps."""
+        why = ("carries per-slot Mamba-2 state that the block pool cannot "
+               "share, snapshot or roll back")
+        name = self.cfg.name
+        for option, on in (("packed=False", not self.packed),
+                           ("decode_sharing", self.decode_sharing),
+                           ("prefix_sharing", self.prefix_sharing),
+                           ("speculative", self.speculative),
+                           ("preemption",
+                            self._robust and self._adm.preemption)):
+            if on:
+                raise ValueError(f"{option}: {name} {why}; serve it with "
+                                 "packed steps and the option off")
 
     # ----------------------------------------------------- device mirrors --
 
@@ -899,6 +943,11 @@ class PagedEngine:
         returns marked failed/"shed" instead of queued."""
         prompt = req.prompt
         followup = False
+        if session is not None and self.recurrent:
+            raise ValueError(f"submit(..., session=): {self.cfg.name} "
+                             "carries per-slot Mamba-2 state; a session's "
+                             "next turn would need the state its last one "
+                             "left")
         if session is not None:
             if session in self._session_busy:
                 raise ValueError(
